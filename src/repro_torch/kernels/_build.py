@@ -1,0 +1,86 @@
+"""Build the port's CUDA sources and load them with ``ctypes``.
+
+Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into ``repro_torch/build/<name>-<hash>.so``
+at first use (``.gitignore`` lists the directory).  The hash covers the
+source and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build()`` starts one ``nvcc`` per source, all at once.
+
+No PyTorch headers are involved (a source that includes them takes minutes
+to compile; a plain C one takes seconds).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "repro_torch are built from source on the GPU host")
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, str]:
+    """Compile every named source (default: all of ``csrc/``) that has no
+    current library, one ``nvcc`` each, in parallel.  Returns the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) per source
+    built; raises with that output if any build fails."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            so = library_path(name)
+            if so.exists():
+                continue
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp, so)
+        logs = {}
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+            logs[name] = out
+        return logs
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,133 @@
+"""GQA attention: prefill/forward through the flash kernel + cached decode.
+
+Counterpart of the JAX package's ``models/attention.py``.  Every prefill and
+forward length goes through ``ops.mha_flash`` (the JAX module's dense branch
+and its ``flash_attention_ref`` branch, :154-162, both become the kernel).
+Decode attends one query row against the cache with plain tensor ops, as
+the JAX package computes it outside any Pallas kernel (:248-256).
+
+Caches are a dict ``{"k", "v"}`` of (B, T, G, hd) tensors that prefill and
+decode update in place (no copy of the whole cache per token) and return.
+Only the full cache is ported; the sliding-window ring buffer is not.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchSpec
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamDef, apply_rope
+
+RING_CACHE_TODO = ("the sliding-window ring-buffer cache is not ported yet "
+                   "(ROADMAP.md Queue 1, item 4: window ring buffer and gemma3)")
+
+
+def attn_defs(spec: ArchSpec) -> dict[str, ParamDef]:
+    d, h, g, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim
+    defs = {
+        "wq": ParamDef((d, h, hd)),
+        "wk": ParamDef((d, g, hd)),
+        "wv": ParamDef((d, g, hd)),
+        "wo": ParamDef((h, hd, d)),
+    }
+    if spec.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), "zeros")
+        defs["bk"] = ParamDef((g, hd), "zeros")
+        defs["bv"] = ParamDef((g, hd), "zeros")
+    return defs
+
+
+def _project_qkv(p, x, spec: ArchSpec):
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, G, hd)."""
+    b, s, d = x.shape
+
+    def proj(w, bias):
+        y = (x @ w.reshape(d, -1).to(x.dtype)).view(b, s, *w.shape[1:])
+        return y + bias.to(y.dtype) if spec.qkv_bias else y
+
+    return (proj(p["wq"], p.get("bq")), proj(p["wk"], p.get("bk")),
+            proj(p["wv"], p.get("bv")))
+
+
+def _out_proj(p, o):
+    """o: (B, S, H, hd) -> (B, S, D)."""
+    h, hd, d = p["wo"].shape
+    return o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d).to(o.dtype)
+
+
+def _attend(p, x, positions, spec: ArchSpec, window: int):
+    """Self-attention over the sequence; also returns the roped k and v.
+
+    The kernel masks by index, so ``positions`` (used for RoPE) must be
+    ``arange(S)``, as every caller passes.
+    """
+    q, k, v = _project_qkv(p, x, spec)
+    q = apply_rope(q, positions, spec.rope_theta)
+    k = apply_rope(k, positions, spec.rope_theta)
+    o = ops.mha_flash(q, k, v, causal=True, window=window,
+                      scale=1.0 / math.sqrt(spec.resolved_head_dim))
+    return _out_proj(p, o), k, v
+
+
+def attention_fwd(p, x, positions, spec: ArchSpec, *, window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) self-attention over a full sequence."""
+    return _attend(p, x, positions, spec, window)[0]
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def attn_cache_defs(spec: ArchSpec, batch: int, seq: int, *,
+                    window: int = 0) -> dict[str, ParamDef]:
+    if window:
+        raise NotImplementedError(RING_CACHE_TODO)
+    g, hd = spec.n_kv_heads, spec.resolved_head_dim
+    return {"k": ParamDef((batch, seq, g, hd), "zeros"),
+            "v": ParamDef((batch, seq, g, hd), "zeros")}
+
+
+def attn_prefill(p, x, positions, spec: ArchSpec, cache, *, window: int = 0):
+    """Forward over the prompt, writing its k/v into ``cache[:, :S]`` in place."""
+    if window:
+        raise NotImplementedError(RING_CACHE_TODO)
+    s, t = x.shape[1], cache["k"].shape[1]
+    if s > t:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of {t}")
+    y, k, v = _attend(p, x, positions, spec, window)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    return y, cache
+
+
+def attn_decode(p, x, pos: int, spec: ArchSpec, cache, *, window: int = 0):
+    """One decode step.  x: (B, D); pos: the new token's position (shared
+    across the batch).  Writes its k/v at slot ``min(pos, T-1)`` in place and
+    attends to slots ``0..pos``.
+
+    GQA is computed with grouped einsums (no head-repeat copy).
+    """
+    if window:
+        raise NotImplementedError(RING_CACHE_TODO)
+    b, d = x.shape
+    h, g, hd = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim
+    q, k, v = _project_qkv(p, x[:, None, :], spec)  # (B,1,...)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, spec.rope_theta)
+    k = apply_rope(k, posv, spec.rope_theta)
+
+    t = cache["k"].shape[1]
+    slot = min(pos, t - 1)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
+
+    qg = q[:, 0].reshape(b, g, h // g, hd)
+    kk = cache["k"][:, :n].to(q.dtype)
+    vv = cache["v"][:, :n].to(q.dtype)
+    s = torch.einsum("bgrk,btgk->bgrt", qg, kk) * (1.0 / math.sqrt(hd))
+    pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bgrt,btgk->bgrk", pr, vv).reshape(b, 1, h, hd)
+    return _out_proj(p, o)[:, 0], cache

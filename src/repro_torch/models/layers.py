@@ -1,0 +1,100 @@
+"""Parameter descriptors + primitive layers (PyTorch, nested-dict params).
+
+Counterpart of the JAX package's ``models/layers.py``.  Every parameter is
+declared as a ``ParamDef(shape, init, scale)`` with the same leaf names,
+shapes and init kinds as the JAX ``ParamDef`` (:20-45); the logical sharding
+axes are left out, since the port shards nothing.  ``<module>_defs(spec)``
+returns a nested dict (a list for the layer stack) of ParamDefs,
+``init_tree`` materialises it from a ``torch.Generator``, and the ``apply``
+functions consume the resulting tree of tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+class ParamDef(NamedTuple):
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0
+
+
+def map_with_path(fn: Callable[[tuple, Any], Any], tree, path: tuple = ()):
+    """Apply ``fn(path, leaf)`` over nested dicts and lists, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init != "normal":
+        raise NotImplementedError(f"init kind {d.init!r} is not ported")
+    fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+    std = d.scale / math.sqrt(fan_in)
+    x = torch.empty(d.shape, dtype=torch.float32, device=device)
+    return x.normal_(generator=generator).mul_(std).to(dtype)
+
+
+def init_tree(defs, generator: torch.Generator, *, device, dtype=torch.float32):
+    """Materialise a tree of ParamDefs, drawing leaves in tree order."""
+    return map_with_path(lambda _, d: _init_leaf(d, generator, device, dtype), defs)
+
+
+def param_count(defs) -> int:
+    n = []
+    map_with_path(lambda _, d: n.append(math.prod(d.shape)), defs)
+    return sum(n)
+
+
+# ---------------------------------------------------------------------------
+# primitive ops
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, weight, eps: float = 1e-5):
+    """Through the fused kernel.  Unlike the JAX layer, which casts before
+    the ``(1 + w)`` multiply, this multiplies in f32 and casts once: equal in
+    fp32, one bf16 rounding apart in bf16 (see ``kernels/rmsnorm.py``)."""
+    return ops.fused_rmsnorm(x, weight, eps=eps)
+
+
+def linear(x, w, b=None):
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def take_embedding(table, tokens):
+    return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (S,).  Half-split rotation, f32 angles."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

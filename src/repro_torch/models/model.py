@@ -1,0 +1,99 @@
+"""Top-level LM: embeddings/frontend -> layer stack -> head.
+
+Counterpart of the JAX package's ``models/model.py``, with its three entry
+points:
+  * ``forward``     — full-sequence logits
+  * ``prefill``     — prompt pass that also fills decode caches
+  * ``decode_step`` — one token with caches
+
+The JAX package has no sharding on this path (``NULL_PLAN``), so the port
+takes no plan.  ``forward`` returns the logits alone: the JAX ``aux`` output
+is the MoE load-balance loss, which comes with the MoE FFN.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models import blocks
+from repro_torch.models.layers import ParamDef, init_tree, map_with_path, rmsnorm, take_embedding
+
+
+def model_param_defs(spec: ArchSpec) -> dict[str, Any]:
+    d, v = spec.d_model, spec.vocab_size
+    defs: dict[str, Any] = {
+        "stack": blocks.stack_param_defs(spec),
+        "final_norm": ParamDef((d,), "zeros"),
+    }
+    if spec.frontend == "tokens":
+        defs["embed"] = ParamDef((v, d))
+        if not spec.tie_embeddings:
+            defs["lm_head"] = ParamDef((d, v))
+    else:
+        defs["lm_head"] = ParamDef((d, v))
+    return defs
+
+
+def init_params(spec: ArchSpec, seed: int = 0, *, device=None, dtype=torch.float32):
+    """Random parameters drawn from ``torch.Generator(device).manual_seed(seed)``,
+    on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_tree(model_param_defs(spec), gen, device=dev, dtype=dtype)
+
+
+def cache_defs(spec: ArchSpec, batch: int, seq: int):
+    return blocks.stack_cache_defs(spec, batch, seq)
+
+
+def init_caches(spec: ArchSpec, batch: int, seq: int, dtype=torch.bfloat16, *, device=None):
+    """Zeroed per-layer caches; prefill and decode fill them in place."""
+    dev = resolve_device(device)
+    return map_with_path(lambda _, d: torch.zeros(d.shape, dtype=dtype, device=dev),
+                         cache_defs(spec, batch, seq))
+
+
+# ---------------------------------------------------------------------------
+
+def _embed_in(params, inputs, spec: ArchSpec, compute_dtype):
+    if spec.frontend == "tokens":
+        return take_embedding(params["embed"], inputs).to(compute_dtype)
+    return inputs.to(compute_dtype)  # precomputed (B, S, D) embeddings
+
+
+def _head(params, x, spec: ArchSpec):
+    x = rmsnorm(x, params["final_norm"], spec.norm_eps)
+    if spec.frontend == "tokens" and spec.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def _positions(s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)
+
+
+def forward(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32):
+    """inputs: (B, S) int tokens or (B, S, D) embeddings -> logits (B, S, V)."""
+    x = _embed_in(params, inputs, spec, compute_dtype)
+    x = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec)
+    return _head(params, x, spec)
+
+
+def prefill(params, inputs, caches, spec: ArchSpec, *, compute_dtype=torch.bfloat16):
+    """Prompt pass: returns (last-position logits (B, V), filled caches)."""
+    x = _embed_in(params, inputs, spec, compute_dtype)
+    x, caches = blocks.stack_prefill(params["stack"], x, _positions(x.shape[1], x.device),
+                                     spec, caches)
+    return _head(params, x[:, -1, :], spec), caches
+
+
+def decode_step(params, caches, inputs, pos: int, spec: ArchSpec, *,
+                compute_dtype=torch.bfloat16):
+    """One decode step.  inputs: (B,) token ids or (B, D) embeddings;
+    pos: position of the new token."""
+    x = _embed_in(params, inputs, spec, compute_dtype)
+    x, caches = blocks.stack_decode(params["stack"], x, int(pos), spec, caches)
+    return _head(params, x, spec), caches

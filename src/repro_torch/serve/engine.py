@@ -1,0 +1,77 @@
+"""Batched serving engine: prefill + decode loop with static batching.
+
+Counterpart of the JAX package's ``serve/engine.py``.  Prompts run through
+``prefill`` (which fills the caches), then tokens decode step by step with
+greedy (argmax) or temperature sampling from a ``torch.Generator`` seeded by
+``seed``.  The engine runs on the card unless given ``device="cpu"``; its
+timers wait for the card before reading the clock.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models import model as M
+from repro_torch.serve import api
+
+
+@dataclass
+class ServeStats:
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    tokens_out: int = 0
+
+    @property
+    def decode_tok_per_s(self) -> float:
+        return self.tokens_out / self.decode_s if self.decode_s else 0.0
+
+
+class Engine:
+    def __init__(self, spec: ArchSpec, params, *, max_len: int = 256,
+                 dtype=torch.float32, device=None):
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.params = params
+        self.max_len = max_len
+        self.dtype = dtype
+        self._prefill = api.make_prefill_step(spec, compute_dtype=dtype)
+        self._decode = api.make_serve_step(spec, compute_dtype=dtype)
+
+    def _clock(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def generate(self, prompts: np.ndarray, max_new: int = 32,
+                 temperature: float = 0.0, seed: int = 0) -> tuple[np.ndarray, ServeStats]:
+        """prompts: (B, S) int32 (same length; pad upstream)."""
+        b, s = prompts.shape
+        if s + max_new > self.max_len:
+            raise ValueError(f"{s} prompt + {max_new} new tokens exceed max_len {self.max_len}")
+        stats = ServeStats()
+        caches = M.init_caches(self.spec, b, self.max_len, dtype=self.dtype, device=self.device)
+        tokens = torch.as_tensor(prompts, device=self.device)
+
+        t0 = self._clock()
+        logits, caches = self._prefill(self.params, tokens, caches)
+        stats.prefill_s = self._clock() - t0
+
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        out = np.zeros((b, max_new), np.int32)
+        t0 = self._clock()
+        for i in range(max_new):
+            if temperature > 0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                tok = logits.argmax(dim=-1)
+            out[:, i] = tok.cpu().numpy()
+            logits, caches = self._decode(self.params, caches, tok, s + i)
+        stats.decode_s = self._clock() - t0
+        stats.tokens_out = b * max_new
+        return out, stats

@@ -13,6 +13,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute multi-device/e2e tests, deselected by default")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); skips without one")
 
 
 @pytest.fixture()

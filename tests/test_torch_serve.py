@@ -1,0 +1,98 @@
+"""The port's serving path vs the JAX package's, and the port's boundaries:
+no JAX and nothing of ``repro`` inside it, no silent fall-back to the CPU."""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.serve.engine import Engine as JEngine
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.convert import from_jax_params
+from repro_torch.models import model as M
+from repro_torch.serve.engine import Engine
+from test_torch_models import seeded_jax_params
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _run(args, **kw):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, *args], env=env, capture_output=True, text=True,
+                          timeout=120, **kw)
+
+
+def test_greedy_generate_matches_jax_engine():
+    jspec, spec = jreduced(JARCHS["qwen2-1.5b"]), reduced(ARCHS["qwen2-1.5b"])
+    jp = seeded_jax_params(jspec)
+    prompts = np.random.default_rng(7).integers(0, spec.vocab_size, (2, 16)).astype(np.int32)
+    expect, _ = JEngine(jspec, jp).generate(prompts, max_new=8)
+    eng = Engine(spec, from_jax_params(jp, spec, device="cpu"), device="cpu")
+    got, stats = eng.generate(prompts, max_new=8)
+    np.testing.assert_array_equal(got, expect)
+    assert stats.tokens_out == 16 and stats.prefill_s > 0 and stats.decode_s > 0
+
+
+def test_sampling_is_seeded():
+    spec = reduced(ARCHS["qwen2-1.5b"])
+    eng = Engine(spec, M.init_params(spec, 0, device="cpu"), device="cpu")
+    prompts = np.zeros((2, 4), np.int32)
+    a, _ = eng.generate(prompts, max_new=6, temperature=1.0, seed=1)
+    b, _ = eng.generate(prompts, max_new=6, temperature=1.0, seed=1)
+    np.testing.assert_array_equal(a, b)
+    assert a.min() >= 0 and a.max() < spec.vocab_size
+    with pytest.raises(ValueError, match="max_len"):
+        eng.generate(np.zeros((1, 250), np.int32), max_new=8)
+
+
+def test_serve_cli_runs_on_cpu():
+    r = _run(["-m", "repro_torch.launch.serve", "--reduced", "--device", "cpu",
+              "--batch", "2", "--new", "4"])
+    assert r.returncode == 0, r.stderr
+    assert "[serve] cpu" in r.stdout and "request 1:" in r.stdout
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = reduced(ARCHS["qwen2-1.5b"])
+    params = M.init_params(spec, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(spec, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_params(spec, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_caches(spec, 1, 8)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        yield ".".join(p for p in rel.parts if p != "__init__")
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = list(_modules())
+    assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 20
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "assert not any(n == 'jax' or n.startswith(('jax.', 'repro.')) "
+            "for n, v in sys.modules.items() if v is not None)\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+
+
+def test_no_port_file_imports_jax_or_repro():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders
