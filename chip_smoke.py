@@ -6,15 +6,20 @@
 Phases, one or more lines each:
   build        compile the port's kernels from the sources in this checkout
   kernels      hold each kernel against its plain version on the card, at the
-               serving path's shapes plus a windowed and a ragged case, in
-               float32 and bfloat16; time kernel, plain version and one
-               PyTorch library call (a yardstick the port never calls)
-  serve        qwen2-1.5b at full width (random weights from a seed) through
-               repro_torch.serve.engine.Engine: batch 4, prompt 1000, 32 new
-               tokens, fp32; counts the kernel launches of that run
-  consistency  last-position logits of prefill over S tokens vs prefill over
-               S-1 tokens plus one decode step (the flash kernel vs plain
-               decode attention), and reduced qwen2 on the card vs the CPU
+               serving paths' shapes plus windowed, ragged and grouped cases,
+               in float32 and bfloat16 (the SSD scan also with the model's dt
+               and a ranges); time kernel, plain version and one PyTorch
+               library call where one exists (a yardstick the port never
+               calls)
+  serve        each model at full width (random weights from a seed) through
+               repro_torch.serve.engine.Engine, fp32, greedy: qwen2-1.5b with
+               batch 4, prompt 1000, 32 new tokens, then mamba2-130m with
+               batch 4, prompt 4096, 32 new tokens; counts each run's kernel
+               launches, every count set to 0 just before it
+  consistency  per model, last-position logits of prefill over S tokens vs
+               prefill over S-1 tokens plus one decode step (the prefill
+               kernels vs plain decode), and the reduced model on the card vs
+               the CPU
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -23,6 +28,7 @@ that holds this script and nothing else of the repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,9 +40,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 ARCH, BATCH, PROMPT, NEW, SEED = "qwen2-1.5b", 4, 1000, 32, 0
+MAMBA, M_PROMPT = "mamba2-130m", 4096
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # allclose atol = rtol, per dtype
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 28 layers
+# SSD scan: max |got - want| / max |want| of y per dtype; the f32 state at 1e-4
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 24-28 layers
 
 
 def fail(msg: str) -> None:
@@ -58,10 +67,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float | None:
-    """Device time per call of the kernels ``fn`` launches, summed from a
-    torch.profiler trace (None if the trace holds no device time).  Unlike
-    ``cuda_ms`` it leaves out the gaps where the card waits for the host."""
+def device_by_kernel(fn, iters: int) -> dict[str, float]:
+    """Device ms per call of ``fn``, by kernel name, from a torch.profiler
+    trace (empty if the trace holds no device time).  Unlike ``cuda_ms`` it
+    leaves out the gaps where the card waits for the host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -71,8 +80,31 @@ def device_ms(fn, iters: int) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us else None
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.device_time_total:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
+    return by_name
+
+
+def device_ms(fn, iters: int) -> float | None:
+    """Device time per call of the kernels ``fn`` launches (None if not measured)."""
+    return sum(device_by_kernel(fn, iters).values()) or None
+
+
+KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
+                  "flash_attention": ("flash_fwd",), "rmsnorm": ("rmsnorm",)}
+
+
+def by_class(by_name: dict[str, float]) -> dict[str, float]:
+    """Device ms by kernel class; whatever matches no class is ``other``."""
+    out = dict.fromkeys([*KERNEL_CLASSES, "other"], 0.0)
+    for name, ms in by_name.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES.items() if any(k in low for k in keys)),
+                   "other")
+        out[cls] += ms
+    return out
 
 
 def dtype_name(dt) -> str:
@@ -143,6 +175,150 @@ def check_rmsnorm(torch, F, rn, ref, rows, d, dtype, iters):
     return row
 
 
+def ssd_inputs(torch, b, s, h, g, p, n, dtype, ranges):
+    """``model``: dt in [1e-3, 1e-1] and a in [-16, -1], the init kinds'
+    ranges, whose memory spans many chunks.  ``random``: the JAX tests' dt =
+    softplus(randn) and a = -exp(randn), which forget within a few steps."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    if ranges == "model":
+        u = torch.rand((b, s, h), generator=gen, device="cuda")
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+        a = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
+    bb = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    cc = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    return x, dt, a, bb, cc
+
+
+def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
+    args = ssd_inputs(torch, b, s, h, g, p, n, dtype, ranges)
+    y, st = ss.ssd_scan(*args)
+    want_y, want_st = ss.ssd_scan_plain(*args)
+    torch.cuda.synchronize()
+    name = dtype_name(dtype)
+    err = (y.float() - want_y.float()).abs().max().item()
+    rel = err / want_y.float().abs().max().item()
+    rel_state = ((st - want_st).abs().max() / want_st.abs().max()).item()
+    x, dt, a, bb, cc = args
+    esize = x.element_size()
+    nbytes = ((x.numel() + y.numel() + bb.numel() + cc.numel()) * esize
+              + (dt.numel() + a.numel() + st.numel()) * 4)
+    # the least work of the function, the sequential recurrence: per token and
+    # (batch, head), a multiply-add per state element to add B (x dt) into the
+    # state and one to read y = C h out; the decay's multiply is left out, so
+    # this stays a lower bound.  The chunked form's score tiles do more.
+    flops = 4.0 * s * n * p * b * h
+    bound_ms, bound_by = bound(nbytes, flops, name)
+    kernel = lambda: ss.ssd_scan(*args)
+    row = dict(
+        case=f"ssd_scan {name} {ranges} ranges B={b} S={s} H={h} G={g} P={p} N={n}",
+        max_abs_err=err, rel_err=rel, rel_err_state=rel_state, tol=SSD_TOL[name],
+        ok=bool(rel <= SSD_TOL[name] and rel_state <= SSD_TOL["float32"]),
+        ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+        plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(*args), 1, warmup=0),
+        library_ms=None, library_note="no single PyTorch call computes the SSD scan",
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] {json.dumps(row)}")
+    return row
+
+
+def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
+    """One full-width ``Engine.generate`` (B=BATCH, NEW new tokens, fp32,
+    greedy) with every launch count set to 0 just before it; fails unless the
+    counts are ``want``.  Returns (params, prompts, launches)."""
+    t0 = time.perf_counter()
+    params = M.init_params(spec, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params, n_defs = param_count(params), param_count(M.model_param_defs(spec))
+    if n_params != n_defs:
+        fail(f"{n_params} parameters initialised, the defs declare {n_defs}")
+    # ArchSpec.param_count() leaves out dt_bias: the reference's formula
+    # (JAX configs/base.py:154) counts two per-head vectors per Mamba layer,
+    # A_log and D, where the defs have three; the gap is n_layers x ssm_heads
+    n_mamba = sum(ld.mixer == "mamba" for ld in spec.layer_defs())
+    if n_params - spec.param_count() != n_mamba * spec.ssm_heads:
+        fail(f"{n_params} parameters, the spec says {spec.param_count()}")
+    print(f"[serve] {spec.name} full width: {n_params} parameters (fp32) initialised on the "
+          f"card in {time.perf_counter() - t0:.3f} s; spec.param_count() {spec.param_count()}")
+    eng = Engine(spec, params, max_len=prompt + NEW, dtype=torch.float32, device="cuda")
+    prompts = np.random.default_rng(SEED).integers(
+        0, spec.vocab_size, (BATCH, prompt)).astype(np.int32)
+    eng.generate(prompts, max_new=2)  # warm-up: cuBLAS handles, allocator
+    for fn in counted.values():
+        fn.launches = 0
+    out, stats = eng.generate(prompts, max_new=NEW)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    if launches != want:
+        fail(f"{spec.name}: kernel launches in one generate: {launches}, expected {want}")
+    if out.shape != (BATCH, NEW) or out.min() < 0 or out.max() >= spec.vocab_size:
+        fail(f"generated tokens out of range: shape {out.shape}, [{out.min()}, {out.max()}]")
+    print(f"[serve] {card} | {spec.name} generate B={BATCH} prompt={prompt} new={NEW} fp32: "
+          f"prefill {stats.prefill_s * 1e3:.3f} ms, decode {stats.decode_tok_per_s:.3f} tok/s "
+          f"({stats.decode_s * 1e3 / NEW:.3f} ms/step); launches {launches} (expected {want}); "
+          f"first tokens {out[0, :8].tolist()}")
+    tok = torch.as_tensor(prompts, device="cuda")
+    f32 = torch.float32
+    caches = M.init_caches(spec, BATCH, prompt + NEW, dtype=f32, device="cuda")
+    pre = device_by_kernel(lambda: M.prefill(params, tok, caches, spec, compute_dtype=f32), 2)
+    step = device_by_kernel(lambda: M.decode_step(params, caches, tok[:, -1], prompt, spec,
+                                                  compute_dtype=f32), 8)
+
+    def share(by_name, wall_ms):
+        if not by_name:
+            return "not measured"
+        dev = sum(by_name.values())
+        classes = ", ".join(f"{c} {ms:.3f}" for c, ms in by_class(by_name).items())
+        return f"{dev:.3f} ms = {dev / wall_ms:.3f} of its wall ({classes} ms)"
+    print(f"[serve] {spec.name} device busy (torch.profiler): prefill "
+          f"{share(pre, stats.prefill_s * 1e3)}; decode step "
+          f"{share(step, stats.decode_s * 1e3 / NEW)}")
+    top = sorted(pre.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[serve] {spec.name} prefill's largest device kernels (ms): "
+          + "; ".join(f"{name[:80]} {ms:.3f}" for name, ms in top))
+    return params, prompts, launches
+
+
+def consistency(torch, M, map_with_path, reduced, spec, params, prompts):
+    """Prefill(S) vs prefill(S-1) + one decode step at full width, then the
+    reduced model on the card vs the CPU's plain path."""
+    tok = torch.as_tensor(prompts, device="cuda")
+    s, f32 = tok.shape[1], torch.float32
+    caches = M.init_caches(spec, BATCH, s, dtype=f32, device="cuda")
+    full, _ = M.prefill(params, tok, caches, spec, compute_dtype=f32)
+    caches = M.init_caches(spec, BATCH, s, dtype=f32, device="cuda")
+    _, caches = M.prefill(params, tok[:, :-1], caches, spec, compute_dtype=f32)
+    step, _ = M.decode_step(params, caches, tok[:, -1], s - 1, spec, compute_dtype=f32)
+    if full.shape != (BATCH, spec.vocab_size) or not bool(torch.isfinite(full).all()):
+        fail(f"prefill logits: shape {tuple(full.shape)}, finite {bool(torch.isfinite(full).all())}")
+    err = (full - step).abs().max().item()
+    print(f"[consistency] {spec.name} prefill(S={s}) vs prefill(S-1)+decode_step: "
+          f"max_abs_err {err:.3e} (tol {CONSISTENCY_TOL}), max |logit| {full.abs().max().item():.3e}")
+    if not err <= CONSISTENCY_TOL:
+        fail(f"{spec.name}: prefill and decode disagree")
+    small = reduced(spec)
+    cpu_params = M.init_params(small, SEED, device="cpu")
+    gpu_params = map_with_path(lambda _, t: t.cuda(), cpu_params)
+    small_tok = torch.as_tensor(prompts[:2, :200] % small.vocab_size)
+    on_cpu = M.forward(cpu_params, small_tok, small)
+    on_gpu = M.forward(gpu_params, small_tok.cuda(), small).cpu()
+    err_small = (on_cpu - on_gpu).abs().max().item()
+    print(f"[consistency] reduced {spec.name} forward B=2 S=200: "
+          f"card vs CPU plain path max_abs_err {err_small:.3e} (tol 1e-4)")
+    if not err_small <= 1e-4:
+        fail(f"{spec.name}: the card's forward disagrees with the CPU's")
+
+
+def nvidia_smi() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode or not smi.stdout.strip():
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]  # card 0, the one this run uses
+
+
 def main() -> None:
     try:
         import torch
@@ -158,16 +334,12 @@ def main() -> None:
 
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import _build, flash_attention as fa, ref, rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.models.layers import map_with_path, param_count
     from repro_torch.serve.engine import Engine
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode or not smi.stdout.strip():
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]  # card 0, the one this run uses
-
+    card = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[build] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -191,95 +363,61 @@ def main() -> None:
           f"{time.perf_counter() - t0:.3f} s")
 
     # -- kernels ---------------------------------------------------------------
-    spec = get_arch(ARCH)
+    spec, mspec = get_arch(ARCH), get_arch(MAMBA)
     h, g, hd, d = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim, spec.d_model
-    rows = []
+    mh, mg, mp, mn = mspec.ssm_heads, mspec.ssm_groups, mspec.ssm_head_dim, mspec.ssm_state
+    small = reduced(mspec)
+    rows, ssd_rows = [], []
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(check_flash(torch, F, fa, BATCH, PROMPT, PROMPT, h, g, hd, 0, dtype, 10))
         rows.append(check_flash(torch, F, fa, BATCH, PROMPT, PROMPT, h, g, hd, 256, dtype, 10))
         rows.append(check_flash(torch, F, fa, BATCH, 200, 200, h, g, hd, 0, dtype, 20))
         rows.append(check_rmsnorm(torch, F, rn, ref, BATCH * PROMPT, d, dtype, 100))
         rows.append(check_rmsnorm(torch, F, rn, ref, BATCH, d, dtype, 200))
-    bad = [r["case"] for r in rows if not r["ok"]]
+        for ranges in ("model", "random"):
+            for b, s, sh, sg, sp, sn, iters in (
+                    (BATCH, M_PROMPT, mh, mg, mp, mn, 10),   # mamba2-130m prefill
+                    (BATCH, 1000, mh, mg, mp, mn, 20),       # ragged S
+                    (BATCH, 2048, 8, 2, 64, 16, 20),         # grouped, jamba's widths
+                    (2, 1000, small.ssm_heads, 1, small.ssm_head_dim, small.ssm_state, 20)):
+                ssd_rows.append(check_ssd(torch, ss, b, s, sh, sg, sp, sn, dtype, ranges, iters))
+    bad = [r["case"] for r in rows + ssd_rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    print(f"[kernels] all {len(rows)} cases within tolerance")
+    print(f"[kernels] all {len(rows) + len(ssd_rows)} cases within tolerance")
 
-    # -- serve -----------------------------------------------------------------
-    t0 = time.perf_counter()
-    params = M.init_params(spec, SEED, device="cuda")
-    torch.cuda.synchronize()
-    n_params = param_count(params)
-    if n_params != spec.param_count():
-        fail(f"{n_params} parameters, the spec says {spec.param_count()}")
-    print(f"[serve] {ARCH} full width: {n_params} parameters (fp32) initialised on the card "
-          f"in {time.perf_counter() - t0:.3f} s")
-    eng = Engine(spec, params, max_len=PROMPT + NEW, dtype=torch.float32, device="cuda")
-    prompts = np.random.default_rng(SEED).integers(
-        0, spec.vocab_size, (BATCH, PROMPT)).astype(np.int32)
-    eng.generate(prompts, max_new=2)  # warm-up: cuBLAS handles, allocator
-    fa.flash_attention.launches = 0
-    rn.rmsnorm.launches = 0
-    out, stats = eng.generate(prompts, max_new=NEW)
-    launches = {"flash_attention": fa.flash_attention.launches, "rmsnorm": rn.rmsnorm.launches}
-    want = {"flash_attention": spec.n_layers, "rmsnorm": (2 * spec.n_layers + 1) * (1 + NEW)}
-    if launches != want:
-        fail(f"kernel launches in one generate: {launches}, expected {want}")
-    if out.shape != (BATCH, NEW) or out.min() < 0 or out.max() >= spec.vocab_size:
-        fail(f"generated tokens out of range: shape {out.shape}, [{out.min()}, {out.max()}]")
-    print(f"[serve] {card} | generate B={BATCH} prompt={PROMPT} new={NEW} fp32: "
-          f"prefill {stats.prefill_s * 1e3:.3f} ms, decode {stats.decode_tok_per_s:.3f} tok/s "
-          f"({stats.decode_s * 1e3 / NEW:.3f} ms/step); launches {launches} (expected {want}); "
-          f"first tokens {out[0, :8].tolist()}")
-    tok = torch.as_tensor(prompts, device="cuda")
-    f32 = torch.float32
-    caches = M.init_caches(spec, BATCH, PROMPT + NEW, dtype=f32, device="cuda")
-    pre_dev = device_ms(lambda: M.prefill(params, tok, caches, spec, compute_dtype=f32), 2)
-    step_dev = device_ms(lambda: M.decode_step(params, caches, tok[:, -1], PROMPT, spec,
-                                               compute_dtype=f32), 8)
-
-    def share(dev, wall_ms):
-        return "not measured" if dev is None else f"{dev:.3f} ms = {dev / wall_ms:.3f} of its wall"
-    print(f"[serve] device busy (torch.profiler): prefill {share(pre_dev, stats.prefill_s * 1e3)}; "
-          f"decode step {share(step_dev, stats.decode_s * 1e3 / NEW)}")
-
-    # -- consistency -------------------------------------------------------------
-    caches = M.init_caches(spec, BATCH, PROMPT, dtype=f32, device="cuda")
-    full, _ = M.prefill(params, tok, caches, spec, compute_dtype=f32)
-    caches = M.init_caches(spec, BATCH, PROMPT, dtype=f32, device="cuda")
-    _, caches = M.prefill(params, tok[:, :-1], caches, spec, compute_dtype=f32)
-    step, _ = M.decode_step(params, caches, tok[:, -1], PROMPT - 1, spec, compute_dtype=f32)
-    if full.shape != (BATCH, spec.vocab_size) or not bool(torch.isfinite(full).all()):
-        fail(f"prefill logits: shape {tuple(full.shape)}, finite {bool(torch.isfinite(full).all())}")
-    err = (full - step).abs().max().item()
-    print(f"[consistency] {ARCH} prefill(S={PROMPT}) vs prefill(S-1)+decode_step: "
-          f"max_abs_err {err:.3e} (tol {CONSISTENCY_TOL}), max |logit| {full.abs().max().item():.3e}")
-    if not err <= CONSISTENCY_TOL:
-        fail("prefill and decode disagree")
-    small = reduced(spec)
-    cpu_params = M.init_params(small, SEED, device="cpu")
-    gpu_params = map_with_path(lambda _, t: t.cuda(), cpu_params)
-    small_tok = torch.as_tensor(prompts[:2, :200] % small.vocab_size)
-    on_cpu = M.forward(cpu_params, small_tok, small)
-    on_gpu = M.forward(gpu_params, small_tok.cuda(), small).cpu()
-    err_small = (on_cpu - on_gpu).abs().max().item()
-    print(f"[consistency] reduced {ARCH} forward B=2 S=200 hd={small.resolved_head_dim}: "
-          f"card vs CPU plain path max_abs_err {err_small:.3e} (tol 1e-4)")
-    if not err_small <= 1e-4:
-        fail("the card's forward disagrees with the CPU's")
+    # -- serve, then consistency, per model ------------------------------------
+    counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
+               "ssd_scan": ss.ssd_scan}
+    by_path = {}
+    for model_spec, prompt, want in (
+            (spec, PROMPT, {"flash_attention": spec.n_layers, "ssd_scan": 0,
+                            "rmsnorm": (2 * spec.n_layers + 1) * (1 + NEW)}),
+            # per layer: norm1 and the mixer's gated norm; no FFN, no attention
+            (mspec, M_PROMPT, {"flash_attention": 0, "ssd_scan": mspec.n_layers,
+                               "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW)})):
+        params, prompts, by_path[model_spec.name] = serve(
+            torch, np, M, Engine, counted, param_count, card, model_spec, prompt, want)
+        consistency(torch, M, map_with_path, reduced, model_spec, params, prompts)
+        del params
+        torch.cuda.empty_cache()
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
-    main_flash, main_rms = rows[0], rows[3]
     kernels = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:76", case=main_flash["case"]),
+             replaces="src/repro/kernels/flash_attention.py:76", case=rows[0]),
         dict(name="rmsnorm", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
-             replaces="src/repro/kernels/rmsnorm.py:23", case=main_rms["case"]),
+             replaces="src/repro/kernels/rmsnorm.py:23", case=rows[3]),
+        dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0]),
     ]
-    for k, r in zip(kernels, (main_flash, main_rms)):
-        k.update(launches=launches[k["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                 device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+    for k in kernels:
+        r = k.pop("case")
+        per_path = {path: counts[k["name"]] for path, counts in by_path.items()}
+        k.update(case=r["case"], launches=sum(per_path.values()), launches_by_path=per_path,
+                 max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                  library_ms=r["library_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Plain-PyTorch oracles for the ported kernels (the correctness ground truth).
 
-Counterparts of the JAX package's ``kernels/ref.py``: ``attention_ref`` (:12)
-and ``rmsnorm_ref`` (:59).  ``ssd_ref`` comes with the Mamba slice.
+Counterparts of the JAX package's ``kernels/ref.py``: ``attention_ref`` (:12),
+``ssd_ref`` (:32) and ``rmsnorm_ref`` (:59).
 """
 from __future__ import annotations
 
@@ -29,6 +29,25 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     sc = torch.where(mask[None], sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     return torch.einsum("bqt,btk->bqk", p, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, dt, a, b, c):
+    """Naive sequential SSM recurrence (the mathematical definition).
+
+    x: (BH,S,hd); dt: (BH,S); a: (BH,); b,c: (BH,S,ds).  Returns y (BH,S,hd)
+    of x.dtype and the final f32 state (BH,ds,hd).
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * x_t (outer) b_t ;  y_t = h_t c_t
+    """
+    bh, s, hd = x.shape
+    ds = b.shape[-1]
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b, c))
+    h = torch.zeros((bh, ds, hd), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af)
+        h = decay[:, None, None] * h + bf[:, t, :, None] * (dtf[:, t, None] * xf[:, t])[:, None, :]
+        ys.append(torch.einsum("bnh,bn->bh", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def rmsnorm_ref(x, w, *, eps: float = 1e-5):

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --batch 4 --prompt-len 1000 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --batch 4 --prompt-len 4096 --new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of the JAX package's ``launch/serve.py``, with ``--device``

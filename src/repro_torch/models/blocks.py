@@ -6,8 +6,9 @@ stacks the parameters of a repeating block pattern and runs it under
 execution order, and runs them in a Python loop (``convert.from_jax_params``
 unstacks a JAX tree into this order).
 
-Ported: the ``attn_full`` / ``attn_local`` mixers with the ``mlp`` FFN.  The
-``mamba`` mixer and the ``moe`` FFN raise ``NotImplementedError``.
+Ported: the ``attn_full`` / ``attn_local`` and ``mamba`` mixers, with the
+``mlp`` FFN or none (a layer with ``ffn == "none"`` has no ``norm2``/``ffn``
+leaves).  The ``moe`` FFN raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,17 +16,14 @@ from typing import Any
 
 from repro_torch.configs.base import ArchSpec, LayerDef
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models.layers import ParamDef, rmsnorm
 
-MAMBA_TODO = ("the mamba mixer is not ported yet (ROADMAP.md Queue 1, item 2: "
-              "mamba2-130m serving with ssd_scan)")
 MOE_TODO = "the MoE FFN is not ported yet (ROADMAP.md Queue 1, item 4: MoE)"
 
 
 def _check_ported(ld: LayerDef) -> None:
-    if ld.mixer == "mamba":
-        raise NotImplementedError(MAMBA_TODO)
     if ld.ffn == "moe":
         raise NotImplementedError(MOE_TODO)
 
@@ -37,36 +35,53 @@ def _window(spec: ArchSpec, ld: LayerDef) -> int:
 def layer_param_defs(spec: ArchSpec, ld: LayerDef) -> dict[str, Any]:
     _check_ported(ld)
     d = spec.d_model
-    return {"norm1": ParamDef((d,), "zeros"), "mixer": attn.attn_defs(spec),
-            "norm2": ParamDef((d,), "zeros"), "ffn": mlpm.mlp_defs(spec)}
+    defs: dict[str, Any] = {"norm1": ParamDef((d,), "zeros")}
+    defs["mixer"] = mb.mamba_defs(spec) if ld.mixer == "mamba" else attn.attn_defs(spec)
+    if ld.ffn != "none":
+        defs["norm2"] = ParamDef((d,), "zeros")
+        defs["ffn"] = mlpm.mlp_defs(spec)
+    return defs
 
 
 def layer_cache_defs(spec: ArchSpec, ld: LayerDef, batch: int, seq: int) -> dict[str, Any]:
     _check_ported(ld)
+    if ld.mixer == "mamba":
+        return mb.mamba_cache_defs(spec, batch)
     return attn.attn_cache_defs(spec, batch, seq, window=_window(spec, ld))
 
 
-def _ffn(p, x, spec: ArchSpec):
+def _ffn(p, x, ld: LayerDef, spec: ArchSpec):
+    if ld.ffn == "none":
+        return x
     return x + mlpm.mlp_apply(p["ffn"], rmsnorm(x, p["norm2"], spec.norm_eps), spec)
 
 
 def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
-    x = x + attn.attention_fwd(p["mixer"], h, positions, spec, window=_window(spec, ld))
-    return _ffn(p, x, spec)
+    if ld.mixer == "mamba":
+        y = mb.mamba_fwd(p["mixer"], h, spec)
+    else:
+        y = attn.attention_fwd(p["mixer"], h, positions, spec, window=_window(spec, ld))
+    return _ffn(p, x + y, ld, spec)
 
 
 def _apply_prefill(p, x, positions, ld: LayerDef, spec: ArchSpec, cache):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
-    y, cache = attn.attn_prefill(p["mixer"], h, positions, spec, cache,
-                                 window=_window(spec, ld))
-    return _ffn(p, x + y, spec), cache
+    if ld.mixer == "mamba":
+        y, cache = mb.mamba_prefill(p["mixer"], h, spec, cache)
+    else:
+        y, cache = attn.attn_prefill(p["mixer"], h, positions, spec, cache,
+                                     window=_window(spec, ld))
+    return _ffn(p, x + y, ld, spec), cache
 
 
 def _apply_decode(p, x, pos: int, ld: LayerDef, spec: ArchSpec, cache):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
-    y, cache = attn.attn_decode(p["mixer"], h, pos, spec, cache, window=_window(spec, ld))
-    return _ffn(p, x + y, spec), cache
+    if ld.mixer == "mamba":
+        y, cache = mb.mamba_decode(p["mixer"], h, spec, cache)
+    else:
+        y, cache = attn.attn_decode(p["mixer"], h, pos, spec, cache, window=_window(spec, ld))
+    return _ffn(p, x + y, ld, spec), cache
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from repro_torch.kernels import ops
 
 class ParamDef(NamedTuple):
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a_log | ssm_dt_bias
     scale: float = 1.0
 
 
@@ -38,8 +38,15 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "ssm_a_log":  # A in [-16, -1]: log for positivity
+        u = torch.empty(d.shape, dtype=torch.float32, device=device)
+        return u.uniform_(1.0, 16.0, generator=generator).log_().to(dtype)
+    if d.init == "ssm_dt_bias":  # dt in [1e-3, 1e-1] through softplus
+        u = torch.empty(d.shape, dtype=torch.float32, device=device).uniform_(generator=generator)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)  # inverse softplus
     if d.init != "normal":
-        raise NotImplementedError(f"init kind {d.init!r} is not ported")
+        raise ValueError(f"unknown init kind {d.init!r}")
     fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
     std = d.scale / math.sqrt(fan_in)
     x = torch.empty(d.shape, dtype=torch.float32, device=device)

@@ -1,0 +1,185 @@
+"""Mamba2 (SSD, state-space duality) mixer.
+
+Counterpart of the JAX package's ``models/mamba.py``.  Forward and prefill
+run the SSD scan through ``ops.ssd``, so the Hopper kernel runs there at
+every prompt length (the JAX module's ``ssd_chunked`` call, :150 and :191,
+becomes the kernel).  ``ssd_chunked`` itself stays a plain torch function,
+held against the JAX one by the tests; nothing on the serving path calls
+it.  The causal conv, the gate and the decode recurrence are plain tensor
+ops, as the JAX package computes them outside any Pallas kernel.
+
+The decode cache is a dict ``{"conv": (B, cw-1, C), "ssm": (B, H, P, N)}``;
+``conv`` holds the last cw-1 rows of the *pre-activation* conv input.
+Prefill and decode update it in place and return it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchSpec
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamDef, rmsnorm
+
+DEFAULT_CHUNK = 256
+
+
+def mamba_defs(spec: ArchSpec) -> dict[str, ParamDef]:
+    d, din = spec.d_model, spec.d_inner
+    g, ds, nh, cw = spec.ssm_groups, spec.ssm_state, spec.ssm_heads, spec.ssm_conv
+    return {
+        "w_z": ParamDef((d, din)),
+        "w_x": ParamDef((d, din)),
+        "w_b": ParamDef((d, g * ds)),
+        "w_c": ParamDef((d, g * ds)),
+        "w_dt": ParamDef((d, nh)),
+        "conv_x": ParamDef((cw, din)),
+        "conv_b": ParamDef((cw, g * ds)),
+        "conv_c": ParamDef((cw, g * ds)),
+        "a_log": ParamDef((nh,), "ssm_a_log"),
+        "dt_bias": ParamDef((nh,), "ssm_dt_bias"),
+        "d_skip": ParamDef((nh,), "ones"),
+        "norm": ParamDef((din,), "zeros"),
+        "w_out": ParamDef((din, d)),
+    }
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv along time.  x: (B,S,C); w: (cw, C)."""
+    cw = w.shape[0]
+    pad = F.pad(x, (0, 0, cw - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(cw):  # cw is 4: unrolled adds, in the JAX module's order
+        out = out + pad[:, i : i + x.shape[1]] * w[i].to(x.dtype)
+    return F.silu(out)
+
+
+def _segsum(t):
+    """Stable 'segment sum' producing the lower-tri decay exponents.
+
+    t: (..., L) -> (..., L, L) with out[i, j] = sum_{j < m <= i} t[m].
+    """
+    ln = t.shape[-1]
+    cs = torch.cumsum(t, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((ln, ln), dtype=torch.bool, device=t.device))
+    return out.masked_fill(~mask, -torch.inf)
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int = DEFAULT_CHUNK, h0=None):
+    """Chunked SSD scan (single pass over chunks), the JAX ``ssd_chunked``.
+
+    x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,G,N) -> y (B,S,H,P), final
+    state (B,H,P,N).  A loop over chunks carries the f32 state; inside a
+    chunk the dual quadratic form is two products.
+    """
+    bsz, s, h, p = x.shape
+    ln = min(chunk, s)
+    assert s % ln == 0, (s, ln)
+    rep = h // b.shape[2]
+    f32 = torch.float32
+    af = a.float()
+    hprev = torch.zeros((bsz, h, p, b.shape[3]), dtype=f32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for c0 in range(0, s, ln):
+        xi, dti = x[:, c0:c0 + ln], dt[:, c0:c0 + ln].float()
+        bh = b[:, c0:c0 + ln].repeat_interleave(rep, dim=2).float()  # (B,L,H,N)
+        ch = c[:, c0:c0 + ln].repeat_interleave(rep, dim=2).float()
+        da = dti * af                                                # (B,L,H)
+        da_cum = torch.cumsum(da, dim=1)
+        seg = _segsum(da.transpose(-1, -2))                          # (B,H,L,L)
+        cb = torch.einsum("blhn,bmhn->bhlm", ch, bh)
+        att = cb * torch.exp(seg)
+        xdt = xi.float() * dti[..., None]
+        y_diag = torch.einsum("bhlm,bmhp->blhp", att, xdt)
+        in_decay = torch.exp(da_cum)                                 # (B,L,H)
+        y_off = torch.einsum("blhn,bhpn->blhp", ch * in_decay[..., None], hprev)
+        decay_to_end = torch.exp(da_cum[:, -1:, :] - da_cum)         # (B,L,H)
+        st = torch.einsum("blhn,blhp->bhpn", bh * (dti * decay_to_end)[..., None], xi.float())
+        hprev = hprev * torch.exp(da_cum[:, -1, :])[..., None, None] + st
+        ys.append((y_diag + y_off).to(x.dtype))
+    return torch.cat(ys, dim=1), hprev
+
+
+def _in_proj(p, x):
+    """x: (..., D) -> z, x, b, c (pre-conv) and dt (f32, through softplus)."""
+    z, xi, bi, ci = (x @ p[k].to(x.dtype) for k in ("w_z", "w_x", "w_b", "w_c"))
+    dt = F.softplus((x @ p["w_dt"].to(x.dtype)).float() + p["dt_bias"].float())
+    return z, xi, bi, ci, dt
+
+
+def _scan(p, x, spec: ArchSpec):
+    """The forward/prefill mixer body.  Returns (out, pre-conv stream, final state)."""
+    bsz, s, _ = x.shape
+    din, g, ds, nh, hd = spec.d_inner, spec.ssm_groups, spec.ssm_state, spec.ssm_heads, \
+        spec.ssm_head_dim
+    z, xi0, bi0, ci0, dt = _in_proj(p, x)
+    xi = _causal_conv(xi0, p["conv_x"])
+    bi = _causal_conv(bi0, p["conv_b"])
+    ci = _causal_conv(ci0, p["conv_c"])
+    a = -torch.exp(p["a_log"].float())
+    xh = xi.view(bsz, s, nh, hd)
+    y, hlast = ops.ssd(xh, dt, a, bi.view(bsz, s, g, ds), ci.view(bsz, s, g, ds))
+    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
+    y = rmsnorm(y.reshape(bsz, s, din) * F.silu(z), p["norm"], spec.norm_eps)
+    return y @ p["w_out"].to(x.dtype), (xi0, bi0, ci0), hlast
+
+
+def mamba_fwd(p, x, spec: ArchSpec):
+    """x: (B, S, D) -> (B, S, D)."""
+    return _scan(p, x, spec)[0]
+
+
+def mamba_cache_defs(spec: ArchSpec, batch: int) -> dict[str, ParamDef]:
+    din, g, ds, nh, hd, cw = (spec.d_inner, spec.ssm_groups, spec.ssm_state,
+                              spec.ssm_heads, spec.ssm_head_dim, spec.ssm_conv)
+    return {
+        "conv": ParamDef((batch, cw - 1, din + 2 * g * ds), "zeros"),
+        "ssm": ParamDef((batch, nh, hd, ds), "zeros"),
+    }
+
+
+def mamba_prefill(p, x, spec: ArchSpec, cache):
+    """Forward over the prompt, writing the conv tail and the final state
+    into ``cache`` in place.  A prompt shorter than cw-1 leaves the zeros
+    the causal conv pads with in front of it."""
+    k = spec.ssm_conv - 1
+    out, pre, hlast = _scan(p, x, spec)
+    tail = torch.cat([t[:, -k:] for t in pre], dim=-1)  # raw pre-activation rows
+    if tail.shape[1] < k:
+        tail = F.pad(tail, (0, 0, k - tail.shape[1], 0))
+    cache["conv"].copy_(tail)
+    cache["ssm"].copy_(hlast)
+    return out, cache
+
+
+def mamba_decode(p, x, spec: ArchSpec, cache):
+    """One-token recurrent update.  x: (B, D).  Updates ``cache`` in place."""
+    bsz, _ = x.shape
+    din, g, ds, nh, hd = spec.d_inner, spec.ssm_groups, spec.ssm_state, spec.ssm_heads, \
+        spec.ssm_head_dim
+    z, xi, bi, ci, dt = _in_proj(p, x)                       # dt: (B, nh)
+
+    new_raw = torch.cat([xi, bi, ci], dim=-1)                # (B, C)
+    window = torch.cat([cache["conv"].to(x.dtype), new_raw[:, None, :]], dim=1)  # (B,cw,C)
+    wfull = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=1)            # (cw, C)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", window, wfull.to(x.dtype)))
+    xi = conv_out[:, :din]
+    bi = conv_out[:, din : din + g * ds]
+    ci = conv_out[:, din + g * ds :]
+
+    a = -torch.exp(p["a_log"].float())                        # (nh,)
+    decay = torch.exp(dt * a)                                 # (B, nh)
+    xh = xi.reshape(bsz, nh, hd).float()
+    bh = bi.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()  # (B,nh,ds)
+    chp = ci.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()
+    h = cache["ssm"].float()
+    h = h * decay[..., None, None] + (dt[..., None] * xh)[..., None] * bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", h, chp).to(x.dtype)
+    y = y + xh.to(x.dtype) * p["d_skip"].to(x.dtype)[None, :, None]
+    y = rmsnorm(y.reshape(bsz, din) * F.silu(z), p["norm"], spec.norm_eps)
+    out = y @ p["w_out"].to(x.dtype)
+    cache["conv"].copy_(window[:, 1:])
+    cache["ssm"].copy_(h)
+    return out, cache

@@ -7,7 +7,9 @@ the fixture, never at import).  Run on the GPU host with
 
 Imports torch and the port only, so it needs no JAX there.  Tolerances:
 1e-4 in f32 (the same f32 math summed in another order), 2e-2 in bf16 (one
-bf16 rounding of the output).
+bf16 rounding of the output).  The SSD scan is held at those bounds relative
+to max |y| and max |state|: its chunked form and the sequential recurrence
+sum through exp in other orders.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref, rmsnorm as rn
+from repro_torch.kernels import ops, ref, rmsnorm as rn, ssd_scan as ss
 from repro_torch.models import model as M
 from repro_torch.models.layers import map_with_path
 
@@ -84,6 +86,95 @@ def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     got = ops.fused_rmsnorm(x, w)
     assert rn.rmsnorm.launches == before + 1
     _close(got, ref.rmsnorm_ref(x, w), dtype)
+
+
+def _ssd_inputs(dev, b, s, h, g, p, n, dtype, ranges, seed=4):
+    """``random``: dt = softplus(randn), a = -exp(randn), which forget within a
+    few steps.  ``model``: dt in [1e-3, 1e-1] and a in [-16, -1], the init
+    kinds' ranges, whose memory spans many chunks."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    if ranges == "random":
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    else:
+        u = torch.rand((b, s, h), generator=gen, device=dev)
+        dt = torch.exp(u * (np.log(1e-1) - np.log(1e-3)) + np.log(1e-3))
+        a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+    bb = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    cc = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    return x, dt, a, bb, cc
+
+
+def _close_rel(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", [
+    (4, 4096, 24, 1, 64, 128),   # mamba2-130m prefill
+    (4, 1000, 24, 1, 64, 128),   # ragged: no multiple of the kernel's chunk
+    (2, 512, 8, 2, 64, 16),      # grouped, jamba's widths
+    (2, 200, 8, 1, 16, 16),      # reduced mamba2
+    (2, 128, 4, 1, 16, 32),      # tests/test_kernels.py shapes
+    (1, 256, 2, 2, 32, 16),
+    (1, 128, 2, 1, 64, 64),
+    (1, 300, 4, 1, 128, 128),    # P = 128: four column slices
+])
+@pytest.mark.parametrize("ranges", ["random", "model"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
+    x, dt, a, bb, cc = _ssd_inputs(dev, b, s, h, g, p, n, dtype, ranges)
+    before = ss.ssd_scan.launches
+    y, hl = ops.ssd(x, dt, a, bb, cc)
+    assert ss.ssd_scan.launches == before + 1
+    ye, he = ss.ssd_scan_plain(x, dt, a, bb, cc)
+    _close_rel(y, ye, TOL[dtype])
+    _close_rel(hl, he, TOL[torch.float32])  # f32 state from the same inputs
+
+
+def test_ssd_kernel_reads_strided_inputs(dev):
+    """x, B and C as views into one packed projection, dt a column slice."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, p, g, n = 2, 150, 4, 32, 2, 16
+    packed = torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=dev)
+    x = packed[..., : h * p].view(b, s, h, p)
+    bb = packed[..., h * p : h * p + g * n].unflatten(-1, (g, n))
+    cc = packed[..., h * p + g * n :].unflatten(-1, (g, n))
+    dt = torch.rand((b, s, 2 * h), generator=gen, device=dev)[..., ::2] * 0.1
+    a = -torch.rand((h,), generator=gen, device=dev) * 4
+    y, hl = ops.ssd(x, dt, a, bb, cc)
+    ye, he = ss.ssd_scan_plain(x, dt, a, bb, cc)
+    _close_rel(y, ye, 1e-4)
+    _close_rel(hl, he, 1e-4)
+
+
+def test_ssd_kernel_rejects_unsupported_sizes(dev):
+    x, dt, a, bb, cc = _ssd_inputs(dev, 1, 16, 2, 1, 8, 8, torch.float32, "model")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.ssd(x, dt, a, bb, cc)
+
+
+def test_reduced_mamba_on_card_matches_cpu(dev):
+    spec = reduced(ARCHS["mamba2-130m"])
+    cpu = M.init_params(spec, 0, device="cpu")
+    gpu = map_with_path(lambda _, t: t.to(dev), cpu)
+    tok = torch.as_tensor(np.random.default_rng(3).integers(0, spec.vocab_size, (2, 70)))
+    _close(M.forward(gpu, tok.to(dev), spec).cpu(), M.forward(cpu, tok, spec), torch.float32)
+    caches = M.init_caches(spec, 2, 80, dtype=torch.float32, device=dev)
+    lp, caches = M.prefill(gpu, tok.to(dev), caches, spec, compute_dtype=torch.float32)
+    ld, caches = M.decode_step(gpu, caches, tok[:, -1].to(dev), 70, spec,
+                               compute_dtype=torch.float32)
+    ccache = M.init_caches(spec, 2, 80, dtype=torch.float32, device="cpu")
+    clp, ccache = M.prefill(cpu, tok, ccache, spec, compute_dtype=torch.float32)
+    cld, ccache = M.decode_step(cpu, ccache, tok[:, -1], 70, spec, compute_dtype=torch.float32)
+    _close(lp.cpu(), clp, torch.float32)
+    _close(ld.cpu(), cld, torch.float32)
+    for got, want in zip(caches, ccache):
+        for name in ("conv", "ssm"):
+            _close(got[name].cpu(), want[name], torch.float32)
 
 
 def test_reduced_model_on_card_matches_cpu(dev):

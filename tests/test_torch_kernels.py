@@ -4,7 +4,10 @@ Inputs come from seeded numpy and go to both packages.  JAX runs its Pallas
 kernels in interpret mode through ``repro.kernels.ops``, at the shapes of
 ``tests/test_kernels.py``; the port's ``ops`` take the kernels' plain
 versions for CPU tensors.  Tolerances: 2e-5 in f32 (the same math in another
-summation order), 2e-2 in bf16 (one bf16 rounding of the output).
+summation order), 2e-2 in bf16 (one bf16 rounding of the output).  The SSD
+scan is held at 1e-4 of max |y| (and of max |state|), as the JAX test holds
+its kernel: the chunked form and the sequential recurrence sum in other
+orders through exp.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.mamba import ssd_chunked as jssd_chunked
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref, rmsnorm as rn
+from repro_torch.kernels import ops, ref, rmsnorm as rn, ssd_scan as ss
+from repro_torch.models import mamba as mb
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -140,3 +145,121 @@ def test_ref_oracles_match_jax_ref():
         e = jref.attention_ref(q, k, v, causal=causal, window=window)
         g = ref.attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal, window=window)
         np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(seed, b, s, h, g, hd, ds, ranges):
+    """``random``: the JAX tests' draws (dt = softplus(randn), a = -exp(randn)),
+    which forget within a few steps.  ``model``: the init kinds' ranges,
+    dt in [1e-3, 1e-1] and a in [-16, -1], whose memory spans many chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    if ranges == "random":
+        dt = np.logaddexp(rng.standard_normal((b, s, h)), 0).astype(np.float32)
+        a = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    else:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, s, h))).astype(np.float32)
+        a = -rng.uniform(1.0, 16.0, h).astype(np.float32)
+    bb = rng.standard_normal((b, s, g, ds), dtype=np.float32)
+    cc = rng.standard_normal((b, s, g, ds), dtype=np.float32)
+    return x, dt, a, bb, cc
+
+
+def _rel(got, want):
+    got, want = _np(got), _np(want)
+    return np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
+
+
+def _jax_ssd_ref(x, dt, a, bb, cc):
+    """JAX ``ref.ssd_ref`` on the folded layout, unfolded to (B,S,H,P) and (B,H,P,N)."""
+    b, s, h, hd = x.shape
+    ds, rep = bb.shape[3], h // bb.shape[2]
+    fold = lambda t: np.moveaxis(t, 2, 1).reshape(b * h, s, *t.shape[3:])
+    ye, he = jref.ssd_ref(fold(x), fold(dt), np.tile(a, b), fold(np.repeat(bb, rep, 2)),
+                          fold(np.repeat(cc, rep, 2)))
+    return (np.asarray(ye).reshape(b, h, s, hd).transpose(0, 2, 1, 3),
+            np.asarray(he).reshape(b, h, ds, hd).transpose(0, 1, 3, 2))
+
+
+@pytest.mark.parametrize("b,s,h,g,hd,ds,chunk", [
+    (2, 128, 4, 1, 16, 32, 64),
+    (1, 256, 2, 2, 32, 16, 64),
+    (2, 64, 4, 4, 8, 8, 32),
+    (1, 128, 2, 1, 64, 64, 128),
+])
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_ssd_matches_jax(b, s, h, g, hd, ds, chunk, ranges):
+    """The JAX wrapper in interpret mode, at ``tests/test_kernels.py``'s shapes."""
+    x, dt, a, bb, cc = _ssd_inputs(8, b, s, h, g, hd, ds, ranges)
+    ye, he = jops.ssd(*map(jnp.asarray, (x, dt, a, bb, cc)), chunk=chunk)
+    y, hl = ops.ssd(*map(torch.from_numpy, (x, dt, a, bb, cc)))
+    assert y.shape == (b, s, h, hd) and y.dtype == torch.float32
+    assert hl.shape == (b, h, hd, ds) and hl.dtype == torch.float32
+    assert _rel(y, ye) < 1e-4 and _rel(hl, he) < 1e-4
+
+
+@pytest.mark.parametrize("h,g", [(4, 1), (8, 2)])
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_ssd_ragged_length_matches_jax_ref(h, g, ranges):
+    """S = 200 is no chunk multiple: the JAX wrapper asserts on it, so the
+    reference is ``repro.kernels.ref.ssd_ref`` on the repeated groups."""
+    x, dt, a, bb, cc = _ssd_inputs(9, 2, 200, h, g, 16, 16, ranges)
+    ye, he = _jax_ssd_ref(x, dt, a, bb, cc)
+    y, hl = ops.ssd(*map(torch.from_numpy, (x, dt, a, bb, cc)))
+    assert _rel(y, ye) < 1e-4 and _rel(hl, he) < 1e-4
+
+
+def test_ssd_bf16_plain_path_rounds_once():
+    x, dt, a, bb, cc = _ssd_inputs(10, 1, 96, 2, 1, 16, 16, "model")
+    tx, tb, tc = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, bb, cc))
+    y, hl = ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc)
+    assert y.dtype == torch.bfloat16 and hl.dtype == torch.float32
+    ye, he = _jax_ssd_ref(*(t.float().numpy() for t in (tx, torch.from_numpy(dt),
+                                                        torch.from_numpy(a), tb, tc)))
+    assert _rel(y, ye) < 2e-2 and _rel(hl, he) < 1e-4
+
+
+def test_ssd_ref_matches_jax_ref():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 40, 8), dtype=np.float32)
+    dt = np.logaddexp(rng.standard_normal((3, 40)), 0).astype(np.float32)
+    a = -np.exp(rng.standard_normal(3)).astype(np.float32)
+    b, c = (rng.standard_normal((3, 40, 4), dtype=np.float32) for _ in range(2))
+    ye, he = jref.ssd_ref(x, dt, a, b, c)
+    y, hl = ref.ssd_ref(*map(torch.from_numpy, (x, dt, a, b, c)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ye), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(he), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_ssd_chunked_matches_jax(ranges):
+    x, dt, a, bb, cc = _ssd_inputs(12, 2, 192, 4, 2, 16, 32, ranges)
+    ye, he = jssd_chunked(*map(jnp.asarray, (x, dt, a, bb, cc)), chunk=64)
+    y, hl = mb.ssd_chunked(*map(torch.from_numpy, (x, dt, a, bb, cc)), chunk=64)
+    assert _rel(y, ye) < 1e-4 and _rel(hl, he) < 1e-4
+
+
+def test_ssd_plain_version_is_not_counted_as_a_launch():
+    x, dt, a, bb, cc = map(torch.from_numpy, _ssd_inputs(13, 1, 64, 2, 1, 16, 16, "model"))
+    before = ss.ssd_scan.launches
+    ops.ssd(x, dt, a, bb, cc)
+    assert ss.ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("bad", ["device", "groups", "dtype", "dt_dtype"])
+def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    x, dt, a = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4), torch.zeros(4)
+    b = torch.zeros(1, 8, 2, 16)
+    if bad == "device":
+        x, dt, a, b = (t.to("meta") for t in (x, dt, a, b))
+    elif bad == "groups":
+        b = torch.zeros(1, 8, 3, 16)
+    elif bad == "dtype":
+        b = b.double()
+    else:
+        dt = dt.bfloat16()
+    with pytest.raises(ValueError):
+        ops.ssd(x, dt, a, b, b.clone())

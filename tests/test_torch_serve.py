@@ -32,7 +32,17 @@ def _run(args, **kw):
 
 
 def test_greedy_generate_matches_jax_engine():
-    jspec, spec = jreduced(JARCHS["qwen2-1.5b"]), reduced(ARCHS["qwen2-1.5b"])
+    _greedy_matches_jax("qwen2-1.5b")
+
+
+def test_greedy_generate_of_mamba2_matches_jax_engine():
+    """Prefill through the SSD scan's plain version, decode through the
+    recurrence, token for token against the JAX Engine."""
+    _greedy_matches_jax("mamba2-130m")
+
+
+def _greedy_matches_jax(arch):
+    jspec, spec = jreduced(JARCHS[arch]), reduced(ARCHS[arch])
     jp = seeded_jax_params(jspec)
     prompts = np.random.default_rng(7).integers(0, spec.vocab_size, (2, 16)).astype(np.int32)
     expect, _ = JEngine(jspec, jp).generate(prompts, max_new=8)
@@ -61,6 +71,13 @@ def test_serve_cli_runs_on_cpu():
     assert "[serve] cpu" in r.stdout and "request 1:" in r.stdout
 
 
+def test_serve_cli_runs_mamba2_on_cpu():
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "mamba2-130m", "--reduced",
+              "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--new", "4"])
+    assert r.returncode == 0, r.stderr
+    assert "[serve] cpu" in r.stdout and "request 1:" in r.stdout
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = reduced(ARCHS["qwen2-1.5b"])
@@ -73,6 +90,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         M.init_caches(spec, 1, 8)
 
 
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    r = _run([str(ROOT / "chip_smoke.py")])
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
@@ -81,7 +106,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 20
+    assert {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"} <= set(mods)
+    assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 22
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
