@@ -10,7 +10,13 @@ Phases, one or more lines each:
                in float32 and bfloat16 (the SSD scan also with the model's dt
                and a ranges); time kernel, plain version and one PyTorch
                library call where one exists (a yardstick the port never
-               calls)
+               calls).  The SSD scan is three launches per call, each row
+               split by kernel name: ssd_scan_chunk_state (each chunk's
+               state contribution and decay into a scratch buffer, whose
+               bytes the row gives), ssd_scan_state_pass (the chain over
+               chunks: the state entering each chunk, and the final state)
+               and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
+               and its entering state)
   serve        each model at full width (random weights from a seed) through
                repro_torch.serve.engine.Engine, fp32, greedy: qwen2-1.5b with
                batch 4, prompt 1000, 32 new tokens, then mamba2-130m with
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -213,11 +220,20 @@ def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
     flops = 4.0 * s * n * p * b * h
     bound_ms, bound_by = bound(nbytes, flops, name)
     kernel = lambda: ss.ssd_scan(*args)
+    # the three launches of one call, by kernel name (without namespace and
+    # template arguments)
+    phases: dict[str, float] = {}
+    for kname, ms in device_by_kernel(kernel, iters).items():
+        short = re.search(r"ssd_scan\w*", kname)
+        kname = short.group(0) if short else kname
+        phases[kname] = phases.get(kname, 0.0) + ms
     row = dict(
         case=f"ssd_scan {name} {ranges} ranges B={b} S={s} H={h} G={g} P={p} N={n}",
         max_abs_err=err, rel_err=rel, rel_err_state=rel_state, tol=SSD_TOL[name],
         ok=bool(rel <= SSD_TOL[name] and rel_state <= SSD_TOL["float32"]),
-        ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+        ms=cuda_ms(kernel, iters), device_ms=sum(phases.values()) or None,
+        device_ms_by_kernel=phases,
+        scratch_bytes=4 * ss.scratch_floats(b, s, h, p, n),
         plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(*args), 1, warmup=0),
         library_ms=None, library_note="no single PyTorch call computes the SSD scan",
         bound_ms=bound_ms, bound_by=bound_by)

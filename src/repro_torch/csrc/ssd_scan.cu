@@ -1,61 +1,79 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a), with a plain C interface.
+// Mamba2 SSD scan for Hopper (sm_90a), chunk-parallel, with a plain C interface.
 //
 // Replaces the JAX package's Pallas TPU kernel `kernels/ssd_scan.py`
-// (`ssd_scan`, body `_ssd_kernel`).  For each (batch, head) it walks the
-// sequence in chunks of L tokens, carrying the f32 state h (N x P):
-//   da = dt * a, cum = inclusive cumsum(da) over the chunk
-//   y  = ((C B^T) o decay) (x * dt) + exp(cum) o (C h),
-//        decay[l, m] = exp(cum_l - cum_m) for l >= m, else 0
-//   h <- exp(cum_{L-1}) h + B^T (x * dt * exp(cum_{L-1} - cum))
-// and emits y in x's dtype and the final state as f32 (B, H, P, N).
+// (`ssd_scan`, body `_ssd_kernel`).  Per (batch, head), over chunks of
+// L = 64 tokens with cum = inclusive cumsum of dt * a inside the chunk:
+//   y   = ((C B^T) o decay) (x * dt) + exp(cum) o (C h_in),
+//         decay[l, m] = exp(cum_l - cum_m) for l >= m, else 0
+//   h   <- exp(cum_{L-1}) h + S_c,  S_c = B^T (x * dt * exp(cum_{L-1} - cum))
+// with y in x's dtype and the final state as f32 (B, H, P, N).
 //
-// What bounds it on the H100.  Per (batch, head) the chunked dual form does
-// 2*S*(L*(N+P) + 2*N*P) flops against (2*P + 1)*S elements of x, dt and y
-// (B and C are shared by the heads of a group).  The function itself needs
-// only the sequential recurrence's 4*S*N*P flops, which at N = 128 in f32
-// still take longer than the bytes.  The products run in f32 on the CUDA cores (67 TFLOP/s), with
-// operands from shared memory; the shared-memory load rate is the limit this
-// simple design reaches first.
+// Design: the SSD decomposition of the Mamba2 paper, in three launches.  The
+// Pallas kernel walks its chunk grid axis in order.  One Hopper block per
+// head walking every chunk leaves the card latency-bound (192 blocks on 132
+// SMs at mamba2-130m, every product of a chunk waiting behind the state
+// chain), yet only the N x P state update carries from chunk to chunk.  So:
+//   1. ssd_scan_chunk_state: each chunk's contribution S_c (N x P, f32) and
+//      decay exp(cum_{L-1}) into a scratch buffer that the wrapper allocates,
+//      (B*H, nc, N, P) + (B*H, nc) f32.  Bound by operations, 2*L*N*P flops
+//      per chunk and head.
+//   2. ssd_scan_state_pass, a thread per 4 state elements of a (batch, head):
+//      walks the nc chunks, overwrites S_c with the state entering chunk c,
+//      h <- e_c h + S_c, and writes the final state.  No products: bound by
+//      bytes, the scratch read and written once; the next 8 chunks' loads are
+//      issued before this 8's stores, with streaming cache hints.
+//   3. ssd_scan_output_{f32,bf16}: y per chunk.  Bound by operations, per
+//      chunk and head 2*L*N*P (C h_in) + L*L*P (the masked scores times x)
+//      flops, plus the L*L*N of the scores, shared by a group's heads.
+// Phases 1 and 3 take a block per (chunk, batch, kh heads of one group): B
+// and C, and the raw scores C B^T, are the same for the heads of a group, so
+// a block loads and computes them once and then walks its heads.  kh is the
+// most, up to 8, that still leaves 512 blocks: at mamba2-130m's (4, 4096,
+// 24, P 64, N 128) kh = 8 and each product kernel has 768 blocks in place of
+// 192.  The scratch there is 201 MB: written by 1, read and written by 2,
+// read by 3.
 //
-// What the design does about it.
-//   * Hopper blocks run in no order, so the chunk loop lives inside one
-//     block.  A block owns one (batch*head) and a slice of PB = 32 state
-//     columns (16 when P = 16): the columns of h are independent, so the
-//     grid is (B*H, P/PB), 192 blocks at mamba2-130m's P = 64, two of them
-//     resident per SM.  Both slices of a head recompute the L x L scores.
-//   * Per chunk, B, C, x*dt and the scores sit in shared memory as f32 (B and
-//     C rows padded by one float so strided reads hit distinct banks); the
-//     state lives in registers, thread (ty, tx) owning rows ty+16i and
-//     columns tx+16j, and is mirrored into shared memory once per chunk for
-//     the C h product.  Only x, dt, B, C are read and only y and the final
-//     state are written: the L x L scores never reach device memory.
-//   * Score tiles wholly above the diagonal are skipped, and exp is taken
-//     only under l >= m: above the diagonal cum_l - cum_m > 0 can overflow,
-//     and inf * 0 would be NaN.
-//   * Model layout through strides: x (B,S,H,P), dt (B,S,H), B/C (B,S,G,N),
-//     head h reading group h / (H/G); nothing is folded, repeated or
-//     transposed in memory, and the state is written directly as (B,H,P,N).
-//   * Any S: rows past S load as dt = 0, x = B = C = 0 (decay 1, no update,
-//     so the state is unchanged) and are never written.
-// wgmma/TMA and a warp-specialised producer are later work.
+// What keeps the product kernels fed.  A head's dt and x are fetched into
+// registers while the last head's products run, its h_in by cp.async while
+// the last head's Gt^T x runs (phase 3), and phase 1's S_c leaves through the
+// bulk copy engine (cp.async.bulk, smem -> global) while the next head's
+// product runs.
+//
+// Products.  f32 stays on the CUDA cores (TF32 would miss the 1e-4
+// tolerance): every product is a register tile of TR x 4 outputs per thread
+// (1 x 4 to 16 x 4 by shape, 8 x 4 in phase 1 and 4 x 4 in phase 3 at
+// mamba2-130m), fed by 16-byte shared-memory loads laid out so a warp's
+// loads are conflict-free and broadcast (`Tile` below): the FMA rate, not
+// the load rate, is the limit.  bf16 runs the three products that feed only
+// y (C B^T, the masked scores times x, C h_in) on the tensor cores,
+// `mma.sync.m16n8k16` bf16 with f32 accumulators, operands by `ldmatrix`; the
+// masked scores stay in registers as the A operand of the next product.  The
+// chunk-state product feeds the final state, held at 1e-4 in every dtype, so
+// phase 1 keeps f32 operands on the CUDA cores for bf16 inputs too.
+//
+// Kept from the serial design: L = 64; exp only of non-positive differences
+// (l >= m, cum_{L-1} - cum, cum <= 0), score tiles wholly above the diagonal
+// skipped; rows past S load as dt = 0, x = B = C = 0 and are never written;
+// the model layout read through strides, x (B,S,H,P), dt (B,S,H), B/C
+// (B,S,G,N), head h reading group h / (H/G); rows of x, B, C 16-byte aligned
+// (the wrapper copies a view that is not).
+//
+// `nvcc -Xptxas -v` (CUDA 12.8, sm_90a) at N = 128, P = 64, no spills:
+//   ssd_scan_chunk_state<float>   128 registers, 82,432 B shared, 256 threads: 2 blocks/SM
+//   ssd_scan_chunk_state<bf16>    112 registers, 82,432 B shared, 256 threads: 2 blocks/SM
+//   ssd_scan_state_pass           102 registers, no shared, 256 threads
+//   ssd_scan_output_f32           115 registers, 115,712 B shared, 256 threads: 2 blocks/SM
+//   ssd_scan_output_bf16          168 registers, 63,488 B shared, 128 threads: 3 blocks/SM
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <initializer_list>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int L = 64;    // chunk length, the kernel's own choice
-constexpr int NT = 256;  // threads per block, as 16 x 16
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int L = 64;  // chunk length, the kernel's own choice
 
 struct Params {
   const void* x;
@@ -64,255 +82,688 @@ struct Params {
   const void* b;
   const void* c;
   void* y;
-  float* state;
-  int S, H, G, P;
+  float* state;        // (B, H, P, N)
+  float* chunk_state;  // (B*H, nc, N, P): S_c from phase 1, h entering chunk c after phase 2
+  float* chunk_decay;  // (B*H, nc): exp(cum_{L-1}) of each chunk
+  int S, H, G, nc;
+  int kh;  // heads per product block, all of one group
   // element strides of (batch, sequence, head or group) for x, dt, b, c, y;
-  // the last dim of x, b, c, y is contiguous, the state is contiguous
+  // the last dim of x, b, c, y is contiguous
   long long xs[3], dts[3], bs[3], cs[3], ys[3];
 };
 
-template <int N, int PB>
-constexpr int smem_floats() {
-  return 2 * L * (N + 1) + L * PB + L * (L + 1) + N * (PB + 1) + 4 * L;
+// The (chunk, batch, group, kh heads of the group) a product block works on.
+// B and C, and in phase 3 the raw scores C B^T, are shared by the heads of a
+// group: the block loads and computes them once for its kh heads.
+struct Block {
+  int ch, s0, bi, g, h0;
+  __device__ explicit Block(const Params& p) : ch(blockIdx.x), s0(blockIdx.x * L) {
+    const int per_b = p.H / p.kh;  // blocks per batch row
+    bi = blockIdx.y / per_b;
+    h0 = (blockIdx.y % per_b) * p.kh;
+    g = h0 / (p.H / p.G);
+  }
+  __device__ long long bh(const Params& p, int h) const {
+    return static_cast<long long>(bi) * p.H + h;
+  }
+};
+
+// Warp 0 only.  Lane k's rows 2k, 2k+1 of head h's dt (0 past S) and the
+// head's a, fetched a head ahead so their latency hides behind a product.
+struct HeadDt {
+  float d0, d1, a;
+};
+__device__ __forceinline__ HeadDt fetch_dt(const Params& p, const Block& blk, int h) {
+  const float* dtg = p.dt + blk.bi * p.dts[0] + h * p.dts[2];
+  const int s = blk.s0 + 2 * threadIdx.x;
+  return {s < p.S ? dtg[s * p.dts[1]] : 0.f, s + 1 < p.S ? dtg[(s + 1) * p.dts[1]] : 0.f, p.a[h]};
 }
 
-template <typename T, int N, int PB>
-__global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(const Params p) {
-  constexpr int NI = N / 16;   // state rows per thread
-  constexpr int PJ = PB / 16;  // state / output columns per thread
-  extern __shared__ float smem[];
-  float* Bs = smem;                // L x (N+1)
-  float* Cs = Bs + L * (N + 1);    // L x (N+1)
-  float* Xs = Cs + L * (N + 1);    // L x PB: x * dt
-  float* Gs = Xs + L * PB;         // L x (L+1): (C B^T) o decay
-  float* Hs = Gs + L * (L + 1);    // N x (PB+1): the carried state
-  float* cum = Hs + N * (PB + 1);  // L: inclusive cumsum of dt * a
-  float* ecum = cum + L;           // L: exp(cum)
-  float* dend = ecum + L;          // L: exp(cum[L-1] - cum)
-  float* dtl = dend + L;           // L: dt
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.H, h = bh % p.H;
-  const int g = h / (p.H / p.G);
-  const int p0 = blockIdx.y * PB;
-  const float a = p.a[h];
-
-  const T* xg = static_cast<const T*>(p.x) + bi * p.xs[0] + h * p.xs[2] + p0;
-  const float* dtg = p.dt + bi * p.dts[0] + h * p.dts[2];
-  const T* bg = static_cast<const T*>(p.b) + bi * p.bs[0] + g * p.bs[2];
-  const T* cg = static_cast<const T*>(p.c) + bi * p.cs[0] + g * p.cs[2];
-  T* yg = static_cast<T*>(p.y) + bi * p.ys[0] + h * p.ys[2] + p0;
-
-  float hreg[NI][PJ];
+// Warp 0 only: the inclusive cumsum of dt * a over the chunk into cum[], dt
+// into dtl[]; returns cum[L-1].
+__device__ __forceinline__ float chunk_cumsum(const HeadDt& d, float* cum, float* dtl) {
+  const int lane = threadIdx.x, l0 = 2 * lane;
+  const float v0 = d.d0 * d.a;
+  float inc = v0 + d.d1 * d.a;
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < PJ; ++j) hreg[i][j] = 0.f;
-  for (int i = tid; i < N * (PB + 1); i += NT) Hs[i] = 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += up;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) excl = 0.f;
+  cum[l0] = excl + v0;
+  cum[l0 + 1] = inc;
+  dtl[l0] = d.d0;
+  dtl[l0 + 1] = d.d1;
+  return __shfl_sync(0xffffffffu, inc, 31);
+}
 
-  const int n_chunks = (p.S + L - 1) / L;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int s0 = ch * L;
-    // Every reader of the previous chunk's tiles passed the barrier before
-    // the state write below, so the tiles can be refilled without another.
-    if (tid < 32) {  // warp 0: dt and the chunk's cumsum; lane k owns rows 2k, 2k+1
-      const int l0 = 2 * tid;
-      const float d0 = s0 + l0 < p.S ? dtg[(s0 + l0) * p.dts[1]] : 0.f;
-      const float d1 = s0 + l0 + 1 < p.S ? dtg[(s0 + l0 + 1) * p.dts[1]] : 0.f;
-      const float v0 = d0 * a;
-      float inc = v0 + d1 * a;
+// 16 bytes of x, B or C as floats
+__device__ __forceinline__ void unpack16(const uint4& u, float* v, float) {
+  v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float* v, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, inc, off);
-        if (tid >= off) inc += up;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, inc, 1);
-      if (tid == 0) excl = 0.f;
-      const float last = __shfl_sync(0xffffffffu, inc, 31);
-      const float c0 = excl + v0, c1 = inc;
-      cum[l0] = c0;
-      cum[l0 + 1] = c1;
-      ecum[l0] = expf(c0);
-      ecum[l0 + 1] = expf(c1);
-      dend[l0] = expf(last - c0);
-      dend[l0 + 1] = expf(last - c1);
-      dtl[l0] = d0;
-      dtl[l0 + 1] = d1;
-    }
-    for (int i = tid; i < L * N; i += NT) {
-      const int l = i / N, n = i % N, s = s0 + l;
-      const bool in = s < p.S;
-      Bs[l * (N + 1) + n] = in ? to_f32(bg[s * p.bs[1] + n]) : 0.f;
-      Cs[l * (N + 1) + n] = in ? to_f32(cg[s * p.cs[1] + n]) : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < L * PB; i += NT) {
-      const int l = i / PB, q = i % PB, s = s0 + l;
-      Xs[i] = s < p.S ? to_f32(xg[s * p.xs[1] + q]) * dtl[l] : 0.f;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* v) {
+  unpack16(*reinterpret_cast<const uint4*>(src), v, T());
+}
 
-    // scores: Gs[l][m] = (C_l . B_m) exp(cum_l - cum_m) for l >= m, else 0
-    {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from device to shared memory, in the background; zeros if !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Hopper's bulk copy engine (TMA, 1-D): shared -> global without the threads
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {  // the source may be overwritten
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {  // the copies are done
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {  // smem writes -> the copy engine
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A register-tiled f32 product on the CUDA cores,
+//   out[r][c] = sum_k A[k * lda + r] * Bm[k * ldb + c],  r < R, c < C,
+// both operands k-major in shared memory.  NT threads form an RT x CT grid;
+// a thread owns TR rows (chunks of RV = min(TR, 4) consecutive rows, RT*RV
+// apart) and 4 consecutive columns, so each k costs it TR/RV + 1 16-byte
+// loads for 4*TR FMAs.  A warp spans WR row groups and WC column groups:
+// its A loads are WR consecutive 16-byte words (conflict-free) broadcast
+// over WC lanes, its B loads WC consecutive words broadcast over WR lanes.
+template <int R, int C, int NT>
+struct Tile {
+  static constexpr int CT = C / 4, RT = NT / CT, TR = R / RT, RV = TR < 4 ? TR : 4;
+  static constexpr int WR = RT < 8 ? RT : 8, WC = 32 / WR;
+  static_assert(C % 4 == 0 && CT * RT == NT && TR * RT == R && TR % RV == 0, "tile");
+  static_assert(RT % WR == 0 && CT % WC == 0, "warp layout");
+  int tr, tc;
+  __device__ explicit Tile(int tid) {
+    const int lane = tid & 31, warp = tid >> 5;
+    tr = (warp / (CT / WC)) * WR + lane / WC;
+    tc = (warp % (CT / WC)) * WC + lane % WC;
+  }
+  __device__ __forceinline__ int row(int i) const { return ((i / RV) * RT + tr) * RV + i % RV; }
+  __device__ __forceinline__ int col0() const { return tc * 4; }
+  __device__ __forceinline__ int row_max() const { return row(TR - 1); }
+
+  // acc[i][j] += sum_{k0 <= k < k1} A[k * lda + row(i)] * Bm[k * ldb + col0() + j]
+  __device__ __forceinline__ void mac(float (&acc)[TR][4], const float* A, int lda,
+                                      const float* Bm, int ldb, int k0, int k1) const {
 #pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
+    for (int k = k0; k < k1; ++k) {
+      float av[TR], bv[4];
+      load16(Bm + k * ldb + col0(), bv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * (N + 1) + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * (N + 1) + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int l = ty + 16 * i, m = tx + 16 * j;
-          Gs[l * (L + 1) + m] = (j <= i && l >= m) ? acc[i][j] * expf(cum[l] - cum[m]) : 0.f;
+      for (int q = 0; q < TR / RV; ++q) {
+        const float* src = A + k * lda + (q * RT + tr) * RV;
+        if constexpr (RV == 4) {
+          load16(src, av + 4 * q);
+        } else if constexpr (RV == 2) {
+          const float2 f = *reinterpret_cast<const float2*>(src);
+          av[2 * q] = f.x, av[2 * q + 1] = f.y;
+        } else {
+          av[q] = *src;
         }
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+  }
+};
+
+template <int R, int C, int NT>
+__device__ __forceinline__ void zero(float (&acc)[Tile<R, C, NT>::TR][4]) {
+#pragma unroll
+  for (int i = 0; i < Tile<R, C, NT>::TR; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+__host__ __device__ constexpr int nt_state(int N, int P) { return N * P / 4 < 256 ? N * P / 4 : 256; }
+
+// ---- phase 1: S_c = B^T (x * dt * exp(cum_{L-1} - cum)), and exp(cum_{L-1}) --------------
+template <int N, int P>
+constexpr int smem_chunk_state() {
+  return (L * N + L * P + N * P + 2 * L) * static_cast<int>(sizeof(float));
+}
+
+// Warp 0 only: head h's cumsum, w = dt * exp(cum_{L-1} - cum) and the chunk's decay.
+__device__ __forceinline__ void chunk_weights(const Params& p, const Block& blk, int h,
+                                              const HeadDt& d, float* cum, float* w) {
+  const float last = chunk_cumsum(d, cum, w);
+  const int l0 = 2 * threadIdx.x;
+  w[l0] *= expf(last - cum[l0]);
+  w[l0 + 1] *= expf(last - cum[l0 + 1]);
+  if (threadIdx.x == 0) p.chunk_decay[blk.bh(p, h) * p.nc + blk.ch] = expf(last);
+}
+
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const Params p) {
+  constexpr int NT = nt_state(N, P), VT = 16 / sizeof(T);
+  constexpr int XV = (L * P / VT + NT - 1) / NT;  // 16-byte loads of x per thread and head
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);  // L x N
+  float* Xs = Bs + L * N;                       // L x P: x * w
+  float* Ss = Xs + L * P;                       // N x P: S_c, staged for the bulk store
+  float* cum = Ss + N * P;                      // L
+  float* w = cum + L;                           // L: dt * exp(cum_{L-1} - cum)
+  const int tid = threadIdx.x;
+  const Block blk(p);
+
+  if (tid < 32) chunk_weights(p, blk, blk.h0, fetch_dt(p, blk, blk.h0), cum, w);
+  const T* bg = static_cast<const T*>(p.b) + blk.bi * p.bs[0] + blk.g * p.bs[2];
+  for (int i = tid; i < L * N / VT; i += NT) {
+    const int l = i / (N / VT), n = (i % (N / VT)) * VT, s = blk.s0 + l;
+    float v[VT] = {};
+    if (s < p.S) load16(bg + s * p.bs[1] + n, v);
+#pragma unroll
+    for (int k = 0; k < VT; ++k) Bs[l * N + n + k] = v[k];
+  }
+  // a head's x rows, fetched into registers while the last head's product runs
+  uint4 xr[XV];
+  const auto fetch_x = [&](int h) {
+    const T* xg = static_cast<const T*>(p.x) + blk.bi * p.xs[0] + h * p.xs[2];
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const int i = tid + j * NT, l = i / (P / VT), q = (i % (P / VT)) * VT, s = blk.s0 + l;
+      xr[j] = make_uint4(0, 0, 0, 0);
+      if (i < L * P / VT && s < p.S) xr[j] = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
+    }
+  };
+  fetch_x(blk.h0);
+  using Tl = Tile<N, P, NT>;
+  const Tl t(tid);
+  for (int k = 0; k < p.kh; ++k) {
+    const int h = blk.h0 + k;
+    __syncthreads();  // the last head's product is done with Xs; w of head h is in
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const int i = tid + j * NT, l = i / (P / VT), q = (i % (P / VT)) * VT;
+      if (i >= L * P / VT) continue;
+      float v[VT];
+      unpack16(xr[j], v, T());
+#pragma unroll
+      for (int e = 0; e < VT; ++e) Xs[l * P + q + e] = v[e] * w[l];
+    }
+    if (tid == 0) bulk_wait_read();  // the last head's S_c has left Ss
     __syncthreads();
+    HeadDt next{};
+    if (tid < 32 && k + 1 < p.kh) next = fetch_dt(p, blk, h + 1);
+    if (k + 1 < p.kh) fetch_x(h + 1);
+    float acc[Tl::TR][4];
+    zero<N, P, NT>(acc);
+    t.mac(acc, Bs, N, Xs, P, 0, L);
+    // S_c leaves through the bulk copy engine while the next head's product runs
+#pragma unroll
+    for (int i = 0; i < Tl::TR; ++i)
+      *reinterpret_cast<float4*>(Ss + t.row(i) * P + t.col0()) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0)
+      bulk_store(p.chunk_state + (blk.bh(p, h) * p.nc + blk.ch) * N * P, Ss,
+                 N * P * static_cast<int>(sizeof(float)));
+    // the next head's weights: every reader of w passed the barrier above
+    if (tid < 32 && k + 1 < p.kh) chunk_weights(p, blk, h + 1, next, cum, w);
+  }
+  if (tid == 0) bulk_wait();
+}
 
-    // y = exp(cum) o (C h) + Gs (x * dt), rows ty+16i, columns tx+16j
-    {
-      float acc[4][PJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[PJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * (N + 1) + n];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) hv[j] = Hs[n * (PB + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(cv[i], hv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = ecum[ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] *= e;
-      }
-#pragma unroll 4
-      for (int m = 0; m < L; ++m) {
-        float gv[4], xv[PJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) gv[i] = Gs[(ty + 16 * i) * (L + 1) + m];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) xv[j] = Xs[m * PB + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(gv[i], xv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = s0 + ty + 16 * i;
-        if (s >= p.S) continue;  // padded rows are dropped
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) yg[s * p.ys[1] + tx + 16 * j] = from_f32<T>(acc[i][j]);
-      }
-    }
+// ---- phase 2: the chain h <- e_c h + S_c, in place ---------------------------------------
+constexpr int NT_PASS = 256;
+constexpr int PASS_DEPTH = 8;  // chunks whose loads a thread keeps in flight
 
-    // state: h <- exp(cum[L-1]) h + B^T (x * dt * dend), rows ty+16i, columns tx+16j
-    {
-      const float chunk_decay = ecum[L - 1];
+template <int N, int P>
+__global__ void __launch_bounds__(NT_PASS) ssd_scan_state_pass(const Params p) {
+  constexpr int V = N * P / 4;  // float4s per chunk state
+  const int e4 = blockIdx.x * NT_PASS + threadIdx.x;
+  if (e4 >= V) return;
+  const int bh = blockIdx.y;
+  const float* dec = p.chunk_decay + static_cast<long long>(bh) * p.nc;
+  float4* st = reinterpret_cast<float4*>(p.chunk_state) + static_cast<long long>(bh) * p.nc * V + e4;
+  // software pipeline: the next PASS_DEPTH chunks' loads are issued before
+  // this group's stores, so loads stay in flight while the chain runs;
+  // streaming hints, since the 201 MB of states do not fit in L2
+  float4 cur[PASS_DEPTH], nxt[PASS_DEPTH];
+  float ec[PASS_DEPTH], en[PASS_DEPTH];
 #pragma unroll
-      for (int i = 0; i < NI; ++i)
+  for (int k = 0; k < PASS_DEPTH; ++k)
+    if (k < p.nc) cur[k] = __ldcs(st + static_cast<long long>(k) * V), ec[k] = dec[k];
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < p.nc; c0 += PASS_DEPTH) {
 #pragma unroll
-        for (int j = 0; j < PJ; ++j) hreg[i][j] *= chunk_decay;
-#pragma unroll 4
-      for (int l = 0; l < L; ++l) {
-        const float de = dend[l];
-        float bv[NI], xv[PJ];
-#pragma unroll
-        for (int i = 0; i < NI; ++i) bv[i] = Bs[l * (N + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) xv[j] = Xs[l * PB + tx + 16 * j] * de;
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) hreg[i][j] = fmaf(bv[i], xv[j], hreg[i][j]);
-      }
+    for (int k = 0; k < PASS_DEPTH; ++k) {
+      const int c = c0 + PASS_DEPTH + k;
+      if (c < p.nc) nxt[k] = __ldcs(st + static_cast<long long>(c) * V), en[k] = dec[c];
     }
-    __syncthreads();  // every reader of the old state (the y pass) is done
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
+    for (int k = 0; k < PASS_DEPTH; ++k)
+      if (c0 + k < p.nc) {
+        __stcs(st + static_cast<long long>(c0 + k) * V, h);
+        h = make_float4(fmaf(ec[k], h.x, cur[k].x), fmaf(ec[k], h.y, cur[k].y),
+                        fmaf(ec[k], h.z, cur[k].z), fmaf(ec[k], h.w, cur[k].w));
+      }
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) Hs[(ty + 16 * i) * (PB + 1) + tx + 16 * j] = hreg[i][j];
+    for (int k = 0; k < PASS_DEPTH; ++k) cur[k] = nxt[k], ec[k] = en[k];
+  }
+  // the state is (N, P) here and (P, N) in the output
+  const int n = 4 * e4 / P, q = 4 * e4 % P;
+  float* out = p.state + static_cast<long long>(bh) * P * N + n;
+  out[(q + 0) * N] = h.x;
+  out[(q + 1) * N] = h.y;
+  out[(q + 2) * N] = h.z;
+  out[(q + 3) * N] = h.w;
+}
+
+// ---- phase 3, f32: y on the CUDA cores ------------------------------------------------------
+constexpr int NT_OUT = 256;
+
+template <int N, int P>
+constexpr int smem_output_f32() {
+  return (N * L + 2 * L * L + L * P + N * (L > P ? L : P) + 2 * 2 * L) *
+         static_cast<int>(sizeof(float));
+}
+
+template <int N, int P>
+__global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p) {
+  constexpr int NT = NT_OUT, XV = L * P / 4 / NT;  // float4s of x per thread and head
+  extern __shared__ float4 smem4[];
+  float* Ct = reinterpret_cast<float*>(smem4);  // N x L: C transposed
+  float* Rt = Ct + N * L;                       // L x L: raw scores C B^T, Rt[m * L + l]
+  float* Gt = Rt + L * L;                       // L x L: a head's masked scores times dt_m
+  float* Xs = Gt + L * L;                       // L x P: x
+  float* Bt = Xs + L * P;                       // N x L: B transposed; then h_in, N x P
+  float* decays = Bt + N * (L > P ? L : P);     // 2 x (cum, dt): this head's and the next's
+  float* Hs = Bt;
+  const int tid = threadIdx.x;
+  const Block blk(p);
+
+  // a head's x rows into registers, fetched while the last head's products run
+  float4 xr[XV];
+  const auto fetch_x = [&](int h) {
+    const float* xg = static_cast<const float*>(p.x) + blk.bi * p.xs[0] + h * p.xs[2];
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const int i = tid + j * NT, l = i / (P / 4), q = (i % (P / 4)) * 4, s = blk.s0 + l;
+      xr[j] = s < p.S ? *reinterpret_cast<const float4*>(xg + s * p.xs[1] + q)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const auto store_x = [&]() {
+#pragma unroll
+    for (int j = 0; j < XV; ++j) reinterpret_cast<float4*>(Xs)[tid + j * NT] = xr[j];
+  };
+  // a head's h_in into Hs, copied in the background
+  const auto fetch_h = [&](int h) {
+    const float* hin = p.chunk_state + (blk.bh(p, h) * p.nc + blk.ch) * N * P;
+    for (int i = tid; i < N * P / 4; i += NT) cp_async16(Hs + 4 * i, hin + 4 * i, true);
+  };
+  // Gt[m][l] = Rt[m][l] exp(cum_l - cum_m) dt_m for l >= m; above the
+  // diagonal Gt stays 0 from the start
+  const auto fill_g = [&](const float* cum) {
+    const float* dtl = cum + L;
+    for (int i = tid; i < L * L; i += NT) {
+      const int m = i / L, l = i % L;
+      if (l >= m) Gt[i] = Rt[i] * expf(cum[l] - cum[m]) * dtl[m];
+    }
+  };
+
+  if (tid < 32) chunk_cumsum(fetch_dt(p, blk, blk.h0), decays, decays + L);
+  const float* cg = static_cast<const float*>(p.c) + blk.bi * p.cs[0] + blk.g * p.cs[2];
+  const float* bg = static_cast<const float*>(p.b) + blk.bi * p.bs[0] + blk.g * p.bs[2];
+  // neighbouring lanes take neighbouring rows, so the transposed stores hit distinct banks
+  for (int i = tid; i < L * N / 4; i += NT) {
+    const int l = i % L, n = (i / L) * 4, s = blk.s0 + l;
+    float cv[4] = {}, bv[4] = {};
+    if (s < p.S) load16(cg + s * p.cs[1] + n, cv), load16(bg + s * p.bs[1] + n, bv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) Ct[(n + k) * L + l] = cv[k], Bt[(n + k) * L + l] = bv[k];
+  }
+  fetch_x(blk.h0);
+  for (int i = tid; i < L * L; i += NT) Gt[i] = 0.f;
+  __syncthreads();
+  {  // raw scores Rt[m][l] = C_l . B_m, tiles wholly above the diagonal skipped
+    using Tl = Tile<L, L, NT>;
+    const Tl t(tid);
+    if (t.col0() <= t.row_max()) {
+      float acc[Tl::TR][4];
+      zero<L, L, NT>(acc);
+      t.mac(acc, Ct, L, Bt, L, 0, N);
+#pragma unroll
+      for (int i = 0; i < Tl::TR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Rt[(t.col0() + j) * L + t.row(i)] = acc[i][j];
+    }
+  }
+  __syncthreads();  // Bt is read no more
+  fetch_h(blk.h0);
+  store_x();
+  fill_g(decays);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // per head: y = exp(cum) o (C h_in) + Gt^T x.  The next head's dt and x
+  // are fetched while C h_in runs, its h_in while Gt^T x runs.
+  using Tl = Tile<L, P, NT>;
+  const Tl t(tid);
+  for (int k = 0; k < p.kh; ++k) {
+    const int h = blk.h0 + k;
+    const bool more = k + 1 < p.kh;
+    const float* cum = decays + (k & 1) * 2 * L;
+    float* cum_next = decays + ((k + 1) & 1) * 2 * L;
+    HeadDt next{};
+    if (tid < 32 && more) next = fetch_dt(p, blk, h + 1);
+    if (more) fetch_x(h + 1);
+    float acc[Tl::TR][4];
+    zero<L, P, NT>(acc);
+    t.mac(acc, Ct, L, Hs, P, 0, N);
+    __syncthreads();  // Hs is read no more
+    if (more) fetch_h(h + 1);
+#pragma unroll
+    for (int i = 0; i < Tl::TR; ++i) {
+      const float e = expf(cum[t.row(i)]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= e;
+    }
+    t.mac(acc, Gt, L, Xs, P, 0, t.row_max() + 1);  // Gt is 0 above the diagonal
+    float* yg = static_cast<float*>(p.y) + blk.bi * p.ys[0] + h * p.ys[2];
+#pragma unroll
+    for (int i = 0; i < Tl::TR; ++i) {
+      const int s = blk.s0 + t.row(i);
+      if (s < p.S)
+        *reinterpret_cast<float4*>(yg + s * p.ys[1] + t.col0()) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    if (more) {
+      // the other decay buffer's last readers passed the barrier above
+      if (tid < 32) chunk_cumsum(next, cum_next, cum_next + L);
+      __syncthreads();  // Xs and Gt are read no more
+      store_x();
+      fill_g(cum_next);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+}
+
+// ---- phase 3, bf16: y on the tensor cores ---------------------------------------------------
+constexpr int NT_MMA = 128;  // four warps, each owning 16 rows of the chunk
+
+// four 8 x 8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(ptr)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(ptr)));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N, int P>
+constexpr int smem_output_bf16() {
+  return (2 * L * (N + 8) + L * (P + 8) + N * (P + 8)) * 2 + 2 * 2 * L * static_cast<int>(sizeof(float));
+}
+
+template <int N, int P>
+__global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LDN = N + 8, LDP = P + 8;  // rows padded by 16 bytes: ldmatrix is conflict-free
+  extern __shared__ float4 smem4[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem4);  // L x N
+  bf16* Bs = Cs + L * LDN;                    // L x N
+  bf16* Xs = Bs + L * LDN;                    // L x P: x
+  bf16* Hs = Xs + L * LDP;                    // N x P: h_in
+  float* decays = reinterpret_cast<float*>(Hs + N * LDP);  // 2 x (cum, dt)
+  const int tid = threadIdx.x;
+  const Block blk(p);
+
+  if (tid < 32) chunk_cumsum(fetch_dt(p, blk, blk.h0), decays, decays + L);
+  const bf16* cg = static_cast<const bf16*>(p.c) + blk.bi * p.cs[0] + blk.g * p.cs[2];
+  const bf16* bg = static_cast<const bf16*>(p.b) + blk.bi * p.bs[0] + blk.g * p.bs[2];
+  for (int i = tid; i < L * N / 8; i += NT_MMA) {
+    const int l = i / (N / 8), n = (i % (N / 8)) * 8, s = blk.s0 + l;
+    uint4 cv = make_uint4(0, 0, 0, 0), bv = cv;
+    if (s < p.S) {
+      cv = *reinterpret_cast<const uint4*>(cg + s * p.cs[1] + n);
+      bv = *reinterpret_cast<const uint4*>(bg + s * p.bs[1] + n);
+    }
+    *reinterpret_cast<uint4*>(Cs + l * LDN + n) = cv;
+    *reinterpret_cast<uint4*>(Bs + l * LDN + n) = bv;
   }
   __syncthreads();
 
-  // final state (B, H, P, N), n contiguous
-  float* sg = p.state + (static_cast<long long>(bh) * p.P + p0) * N;
-  for (int i = tid; i < PB * N; i += NT) {
-    const int q = i / N, n = i % N;
-    sg[q * N + n] = Hs[n * (PB + 1) + q];
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp;                                  // the warp's rows
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;       // ldmatrix row of this lane
+  const int lcol = (lane >> 4) * 8;                          // and its column
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
+
+  // raw scores C B^T for rows r0..r0+15 and columns m < r0 + 16 (the rest is
+  // above the diagonal), once for the block's heads
+  float sc[L / 8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, Cs + (r0 + lrow) * LDN + 16 * kk + lcol);
+#pragma unroll
+    for (int jp = 0; jp < L / 16; ++jp) {
+      if (jp > warp) break;
+      uint32_t b[4];
+      ldmatrix_x4(b, Bs + (16 * jp + brow) * LDN + 16 * kk + bcol);
+      mma_bf16(sc[2 * jp], a, b[0], b[1]);
+      mma_bf16(sc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+
+  const int la = r0 + gq, lb = la + 8, sa = blk.s0 + la, sb = blk.s0 + lb;
+  for (int k = 0; k < p.kh; ++k) {
+    const int h = blk.h0 + k;
+    const float* cum = decays + (k & 1) * 2 * L;
+    const float* dtl = cum + L;
+    __syncthreads();  // the last head's y is done; head h's cumsum is in
+    HeadDt next{};
+    if (tid < 32 && k + 1 < p.kh) next = fetch_dt(p, blk, h + 1);
+    const bf16* xg = static_cast<const bf16*>(p.x) + blk.bi * p.xs[0] + h * p.xs[2];
+    for (int i = tid; i < L * P / 8; i += NT_MMA) {
+      const int l = i / (P / 8), q = (i % (P / 8)) * 8, s = blk.s0 + l;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (s < p.S) v = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
+      *reinterpret_cast<uint4*>(Xs + l * LDP + q) = v;
+    }
+    const float* hin = p.chunk_state + (blk.bh(p, h) * p.nc + blk.ch) * N * P;
+    for (int i = tid; i < N * P / 8; i += NT_MMA) {
+      const int n = i / (P / 8), q = (i % (P / 8)) * 8;
+      float v[8];
+      load16(hin + n * P + q, v);
+      load16(hin + n * P + q + 4, v + 4);
+      *reinterpret_cast<uint4*>(Hs + n * LDP + q) = make_uint4(
+          pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    }
+    __syncthreads();
+
+    // this head's scores: mask, decay and dt_m.  The accumulator layout of two
+    // neighbouring n-tiles is the A-operand layout of one k-step, so they
+    // stay in registers.
+    uint32_t ga[L / 16][4];
+#pragma unroll
+    for (int j = 0; j < L / 8; ++j) {
+      const int m = 8 * j + 2 * tq;
+      const float w0 = dtl[m], w1 = dtl[m + 1];
+      const float v0 = la >= m ? sc[j][0] * expf(cum[la] - cum[m]) * w0 : 0.f;
+      const float v1 = la >= m + 1 ? sc[j][1] * expf(cum[la] - cum[m + 1]) * w1 : 0.f;
+      const float v2 = lb >= m ? sc[j][2] * expf(cum[lb] - cum[m]) * w0 : 0.f;
+      const float v3 = lb >= m + 1 ? sc[j][3] * expf(cum[lb] - cum[m + 1]) * w1 : 0.f;
+      ga[j / 2][(j % 2) * 2] = pack_bf16(v0, v1);
+      ga[j / 2][(j % 2) * 2 + 1] = pack_bf16(v2, v3);
+    }
+
+    // y = exp(cum) o (C h_in) + G x
+    float acc[P / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, Cs + (r0 + lrow) * LDN + 16 * kk + lcol);
+#pragma unroll
+      for (int jp = 0; jp < P / 16; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Hs + (16 * kk + lrow) * LDP + 16 * jp + lcol);
+        mma_bf16(acc[2 * jp], a, b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+    const float ea = expf(cum[la]), eb = expf(cum[lb]);
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j) acc[j][0] *= ea, acc[j][1] *= ea, acc[j][2] *= eb, acc[j][3] *= eb;
+#pragma unroll
+    for (int kk = 0; kk < L / 16; ++kk) {
+      if (kk > warp) break;
+#pragma unroll
+      for (int jp = 0; jp < P / 16; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Xs + (16 * kk + lrow) * LDP + 16 * jp + lcol);
+        mma_bf16(acc[2 * jp], ga[kk], b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], ga[kk], b[2], b[3]);
+      }
+    }
+    bf16* yg = static_cast<bf16*>(p.y) + blk.bi * p.ys[0] + h * p.ys[2];
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j) {
+      const int q = 8 * j + 2 * tq;
+      if (sa < p.S) *reinterpret_cast<uint32_t*>(yg + sa * p.ys[1] + q) = pack_bf16(acc[j][0], acc[j][1]);
+      if (sb < p.S) *reinterpret_cast<uint32_t*>(yg + sb * p.ys[1] + q) = pack_bf16(acc[j][2], acc[j][3]);
+    }
+    // the next head's cumsum; the other buffer was last read before the barrier above
+    if (tid < 32 && k + 1 < p.kh) {
+      float* nxt = decays + ((k + 1) & 1) * 2 * L;
+      chunk_cumsum(next, nxt, nxt + L);
+    }
   }
 }
 
-template <typename T, int N, int PB>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem = smem_floats<N, PB>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, N, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---- launches --------------------------------------------------------------------------------
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)  // all of the SM's 228 KB as shared memory: two phase-3 blocks fit
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * p.H, p.P / PB);
-  ssd_scan_kernel<T, N, PB><<<grid, NT, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, int N, int P>
+cudaError_t run(const Params& p, int B, cudaStream_t stream) {
+  const dim3 blocks(p.nc, B * p.H / p.kh);
+  cudaError_t err = launch(ssd_scan_chunk_state<T, N, P>, blocks, nt_state(N, P),
+                           smem_chunk_state<N, P>(), p, stream);
+  if (err != cudaSuccess) return err;
+  err = launch(ssd_scan_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
+               NT_PASS, 0, p, stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (sizeof(T) == 4)
+    return launch(ssd_scan_output_f32<N, P>, blocks, NT_OUT, smem_output_f32<N, P>(), p, stream);
+  else
+    return launch(ssd_scan_output_bf16<N, P>, blocks, NT_MMA, smem_output_bf16<N, P>(), p, stream);
+}
+
 template <typename T, int N>
-cudaError_t dispatch_p(const Params& p, int B, cudaStream_t stream) {
-  switch (p.P) {
-    case 16: return launch<T, N, 16>(p, B, stream);
-    case 32:
-    case 64:
-    case 128: return launch<T, N, 32>(p, B, stream);
+cudaError_t dispatch_p(const Params& p, int B, int P, cudaStream_t stream) {
+  switch (P) {
+    case 16: return run<T, N, 16>(p, B, stream);
+    case 32: return run<T, N, 32>(p, B, stream);
+    case 64: return run<T, N, 64>(p, B, stream);
+    case 128: return run<T, N, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_n(const Params& p, int B, int N, cudaStream_t stream) {
+cudaError_t dispatch_n(const Params& p, int B, int P, int N, cudaStream_t stream) {
   switch (N) {
-    case 16: return dispatch_p<T, 16>(p, B, stream);
-    case 32: return dispatch_p<T, 32>(p, B, stream);
-    case 64: return dispatch_p<T, 64>(p, B, stream);
-    case 128: return dispatch_p<T, 128>(p, B, stream);
+    case 16: return dispatch_p<T, 16>(p, B, P, stream);
+    case 32: return dispatch_p<T, 32>(p, B, P, stream);
+    case 64: return dispatch_p<T, 64>(p, B, P, stream);
+    case 128: return dispatch_p<T, 128>(p, B, P, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Heads of one group per product block: the most, up to 8, that leave at
+// least 512 blocks (four per SM) to fill the card.
+int heads_per_block(int heads_per_group, long long chunk_heads) {
+  for (int kh : {8, 6, 4, 3, 2})
+    if (heads_per_group % kh == 0 && chunk_heads / kh >= 512) return kh;
+  return 1;
 }
 
 }  // namespace
 
 // x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), y (B,S,H,P), with
-// the last dim of x, b, c, y contiguous; state (B,H,P,N) f32, contiguous.
+// the last dim of x, b, c, y contiguous and their rows 16-byte aligned; state
+// (B,H,P,N) f32, contiguous; scratch f32 of at least B*H*nc*(N*P + 1) floats,
+// nc = ceil(S / 64), which the three launches use in turn.
 // strides[15] = (batch, seq, head|group) element strides of x, dt, b, c, y.
 // dtype (of x, b, c, y): 0 = float32, 1 = bfloat16.  P and N in
-// {16, 32, 64, 128}.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// {16, 32, 64, 128}.  Returns the first launch's cudaGetLastError() that is
+// not 0, else 0.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a, const void* b,
-                            const void* c, void* y, float* state, int dtype, int B, int S,
-                            int H, int G, int P, int N, const long long* strides,
-                            void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0)
+                            const void* c, void* y, float* state, float* scratch,
+                            long long scratch_floats, int dtype, int B, int S, int H, int G,
+                            int P, int N, const long long* strides, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{x, dt, a, b, c, y, state, S, H, G, P, {}, {}, {}, {}, {}};
+  const int nc = (S + L - 1) / L;
+  const long long chunk_floats = static_cast<long long>(B) * H * nc * N * P;
+  if (scratch_floats < chunk_floats + static_cast<long long>(B) * H * nc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{x, dt, a, b, c, y, state, scratch, scratch + chunk_floats, S, H, G, nc,
+           heads_per_block(H / G, static_cast<long long>(B) * H * nc), {}, {}, {}, {}, {}};
   for (int i = 0; i < 3; ++i) {
     p.xs[i] = strides[i];
     p.dts[i] = strides[3 + i];
@@ -321,8 +772,8 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a, cons
     p.ys[i] = strides[12 + i];
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? dispatch_n<float>(p, B, N, st)
-                    : dtype == 1 ? dispatch_n<__nv_bfloat16>(p, B, N, st)
+  cudaError_t err = dtype == 0   ? dispatch_n<float>(p, B, P, N, st)
+                    : dtype == 1 ? dispatch_n<__nv_bfloat16>(p, B, P, N, st)
                                  : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

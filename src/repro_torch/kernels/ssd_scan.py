@@ -1,17 +1,32 @@
 """Mamba2 SSD chunked scan on Hopper: the port of the JAX package's Pallas
 kernel ``kernels/ssd_scan.py`` (``ssd_scan``, :71).
 
-The kernel is CUDA C++ (``repro_torch/csrc/ssd_scan.cu``, whose header says
-what bounds it on the H100 and what its design does about it), built for
-``sm_90a`` and called through ``ctypes``.  It reads the model layout
-directly: x (B, S, H, P), dt (B, S, H), b/c (B, S, G, N), head ``h`` reading
-group ``h // (H/G)`` through strides, and writes the final state directly as
-(B, H, P, N), so nothing is folded, repeated or transposed in memory.  Its
-chunk length (64) is its own choice; any S, the ragged last chunk masked.
+The kernels are CUDA C++ (``repro_torch/csrc/ssd_scan.cu``, whose header says
+what bounds each phase on the H100 and what the design does about it), built
+for ``sm_90a`` and called through ``ctypes``.  One call runs the chunk-parallel
+SSD decomposition in three launches on PyTorch's current stream:
 
-``ssd_scan`` takes the kernel for a CUDA tensor and its plain version
+1. ``ssd_scan_chunk_state``: per (chunk, batch*head), the chunk's cumsum of
+   dt*a, its state contribution B^T (x*dt*decay-to-end) and its decay, into a
+   scratch buffer this wrapper allocates (``scratch_floats``);
+2. ``ssd_scan_state_pass``: per state element, the chain over chunks, which
+   leaves the state entering each chunk in the scratch and writes the final
+   state;
+3. ``ssd_scan_output_f32`` / ``ssd_scan_output_bf16``: per (chunk,
+   batch*head), y from the chunk's scores and its entering state (bf16 on
+   the tensor cores).
+
+The kernels read the model layout directly: x (B, S, H, P), dt (B, S, H),
+b/c (B, S, G, N), head ``h`` reading group ``h // (H/G)`` through strides,
+and write the final state directly as (B, H, P, N).  Their chunk length (64)
+is their own choice; any S, the ragged last chunk masked.  Rows of x, b and c
+are read 16 bytes at a time, so a view whose rows are not 16-byte aligned is
+copied first.
+
+``ssd_scan`` takes the kernels for a CUDA tensor and its plain version
 (``ssd_scan_plain``, built on ``ref.ssd_ref``) for a CPU tensor; any other
-device raises.  ``ssd_scan.launches`` counts kernel launches.
+device raises.  ``ssd_scan.launches`` counts calls that launched the kernels:
+one per call, whatever the three launches inside it.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DIMS = (16, 32, 64, 128)  # the head dims P and state sizes N the kernel takes
+CHUNK = 64  # the kernels' chunk length, L in csrc/ssd_scan.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,10 +46,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _entry():
     fn = _build.load("ssd_scan").ssd_scan_fwd
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i, i, i, i, i,
                    ctypes.POINTER(ctypes.c_longlong), vp]
     fn.restype = i
     return fn
+
+
+def scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
+    """f32 scratch of one call: each chunk's (N, P) state and its decay, per
+    (batch, head)."""
+    return bsz * h * -(-s // CHUNK) * (n * p + 1)
+
+
+def _aligned(t) -> bool:
+    """Rows of ``t`` (all but its last, contiguous dim) start on 16 bytes."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % per == 0 for st in t.stride()[:-1])
 
 
 def ssd_scan_plain(x, dt, a, b, c):
@@ -90,14 +118,20 @@ def ssd_scan(x, dt, a, b, c):
         raise ValueError("the last axis of x, b and c, and a, must be contiguous")
     if bsz * s == 0:
         raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    if bsz * h > 65535:
+        raise ValueError(f"the kernels take at most 65535 batch*heads, not {bsz * h}")
+    x, b, c = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (x, b, c))
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(scratch_floats(bsz, s, h, p, n), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *dt.stride(), *b.stride()[:3],
                                        *c.stride()[:3], *y.stride()[:3])
     with torch.cuda.device(x.device):
         err = _entry()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                       y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], bsz, s, h, g, p, n,
-                       strides, torch.cuda.current_stream(x.device).cuda_stream)
+                       y.data_ptr(), state.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                       _DTYPES[x.dtype], bsz, s, h, g, p, n, strides,
+                       torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error {err}")
     ssd_scan.launches += 1

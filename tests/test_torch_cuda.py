@@ -121,7 +121,16 @@ def _close_rel(got, want, tol):
     (2, 128, 4, 1, 16, 32),      # tests/test_kernels.py shapes
     (1, 256, 2, 2, 32, 16),
     (1, 128, 2, 1, 64, 64),
-    (1, 300, 4, 1, 128, 128),    # P = 128: four column slices
+    (1, 300, 4, 1, 128, 128),    # P = 128
+    # the chunk-parallel kernels' seams: the state pass over 1 to 3 chunks,
+    # the ragged last chunk's padded rows, 128 chunks of carried state
+    (2, 1, 4, 1, 64, 128),       # one row: the chunk is all padding but one
+    (2, 63, 4, 1, 64, 128),
+    (2, 64, 4, 1, 64, 128),      # exactly one chunk: no state carried in
+    (2, 65, 4, 1, 64, 128),      # a second chunk of one row
+    (2, 129, 4, 1, 64, 128),
+    (1, 8192, 4, 1, 64, 128),
+    (2, 300, 4, 2, 128, 16),     # P = 128 with N = 16
 ])
 @pytest.mark.parametrize("ranges", ["random", "model"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -133,6 +142,22 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
     ye, he = ss.ssd_scan_plain(x, dt, a, bb, cc)
     _close_rel(y, ye, TOL[dtype])
     _close_rel(hl, he, TOL[torch.float32])  # f32 state from the same inputs
+
+
+def test_ssd_kernel_copies_unaligned_rows(dev):
+    """x, B and C whose rows start off 16 bytes are copied before the launch."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, s, h, p, g, n = 2, 100, 2, 16, 1, 16
+    packed = torch.randn((b, s, 1 + h * p + 2 * g * n), generator=gen, device=dev)
+    x = packed[..., 1 : 1 + h * p].view(b, s, h, p)
+    bb = packed[..., 1 + h * p : 1 + h * p + g * n].unflatten(-1, (g, n))
+    cc = packed[..., 1 + h * p + g * n :].unflatten(-1, (g, n))
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.1
+    a = -torch.rand((h,), generator=gen, device=dev) * 4
+    y, hl = ops.ssd(x, dt, a, bb, cc)
+    ye, he = ss.ssd_scan_plain(x, dt, a, bb, cc)
+    _close_rel(y, ye, 1e-4)
+    _close_rel(hl, he, 1e-4)
 
 
 def test_ssd_kernel_reads_strided_inputs(dev):

@@ -249,6 +249,26 @@ def test_ssd_plain_version_is_not_counted_as_a_launch():
     assert ss.ssd_scan.launches == before
 
 
+def test_ssd_scratch_holds_each_chunk_state_and_decay():
+    """The kernels' scratch: per (batch, head) and chunk of 64, an (N, P) f32
+    state and one decay."""
+    assert ss.scratch_floats(4, 4096, 24, 64, 128) == 4 * 24 * 64 * (128 * 64 + 1)
+    assert ss.scratch_floats(2, 65, 3, 16, 32) == 2 * 3 * 2 * (32 * 16 + 1)
+    assert ss.scratch_floats(1, 1, 1, 16, 16) == 16 * 16 + 1
+
+
+@pytest.mark.parametrize("view,aligned", [
+    (lambda t: t, True),
+    (lambda t: t[..., 4:20], True),           # rows start 16 bytes in
+    (lambda t: t[..., 1:17], False),          # rows start 4 bytes in
+    (lambda t: t[:, ::3], True),              # strided rows, each on 16 bytes
+    (lambda t: t.bfloat16()[..., 8:24], True),
+    (lambda t: t.bfloat16()[..., 4:20], False),  # 8 bytes in: bf16 reads 16 at a time
+])
+def test_ssd_wrapper_finds_rows_off_16_bytes(view, aligned):
+    assert ss._aligned(view(torch.zeros(2, 9, 3, 32))) is aligned
+
+
 @pytest.mark.parametrize("bad", ["device", "groups", "dtype", "dt_dtype"])
 def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(bad):
     x, dt, a = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4), torch.zeros(4)
