@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Phases, one or more lines each:
-  build        compile the port's kernels from the sources in this checkout
+  build        compile the port's three CUDA sources (flash attention,
+               RMSNorm, the SSD scan) from this checkout, one nvcc each, in
+               parallel
   kernels      hold each kernel against its plain version on the card, at the
                serving paths' shapes plus windowed, ragged and grouped cases,
                in float32 and bfloat16 (the SSD scan also with the model's dt
                and a ranges); time kernel, plain version and one PyTorch
                library call where one exists (a yardstick the port never
-               calls).  The SSD scan is three launches per call, each row
+               calls; kernel and library events times are medians of five
+               runs taken in turns).  Flash attention's f32 rows carry two
+               bounds: f32 on the CUDA cores, and 3xTF32 on the tensor cores
+               (three TF32 products per f32 one, the least the card needs at
+               f32 accuracy).  The SSD scan is three launches per call, each row
                split by kernel name: ssd_scan_chunk_state (each chunk's
                state contribution and decay into a scratch buffer, whose
                bytes the row gives), ssd_scan_state_pass (the chain over
@@ -43,9 +49,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense peaks of f32 on the CUDA
-# cores and of bf16 on the tensor cores
+# cores and of bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 ARCH, BATCH, PROMPT, NEW, SEED = "qwen2-1.5b", 4, 1000, 32, 0
 MAMBA, M_PROMPT = "mamba2-130m", 4096
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # allclose atol = rtol, per dtype
@@ -72,6 +78,18 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def paired_ms(kernel, lib, iters: int, rounds: int = 5) -> tuple[float, float]:
+    """CUDA-events ms of ``kernel`` and ``lib``, each the median of ``rounds``
+    runs taken in turns (kernel, lib, lib, kernel, ...): a host-bound call's
+    events time drifts with the host between runs, so the two are compared
+    only side by side."""
+    got: tuple[list[float], list[float]] = ([], [])
+    for r in range(rounds):
+        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+            got[which].append(cuda_ms((kernel, lib)[which], iters))
+    return sorted(got[0])[rounds // 2], sorted(got[1])[rounds // 2]
 
 
 def device_by_kernel(fn, iters: int) -> dict[str, float]:
@@ -143,16 +161,21 @@ def check_flash(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
     lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max().item()
     pairs = int(band.sum().item())
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
-    bound_ms, bound_by = bound(nbytes, 4.0 * hd * pairs * b * h, name)
+    flops = 4.0 * hd * pairs * b * h
+    bound_ms, bound_by = bound(nbytes, flops, name)
+    extra = {}
+    if name == "float32":  # the kernel runs f32 as three TF32 products on the tensor cores
+        extra["bound_3xtf32_ms"], extra["bound_3xtf32_by"] = bound(nbytes, 3 * flops, "tf32")
+    ms, library_ms = paired_ms(kernel, lib, iters)
     row = dict(
         case=f"flash_attention {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal window={window}",
         max_abs_err=err, tol=TOL[name], ok=bool(ok),
-        ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+        ms=ms, device_ms=device_ms(kernel, iters),
         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window),
                          iters),
-        library_ms=cuda_ms(lib, iters), library_device_ms=device_ms(lib, iters),
+        library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         library_max_abs_err=lib_err,
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {json.dumps(row)}")
     return row
 
@@ -172,11 +195,12 @@ def check_rmsnorm(torch, F, rn, ref, rows, d, dtype, iters):
     lib = lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-5)
     nbytes = (2 * x.numel() + w.numel()) * x.element_size()
     bound_ms, bound_by = bound(nbytes, 4.0 * rows * d, name)
+    ms, library_ms = paired_ms(kernel, lib, iters)
     row = dict(
         case=f"rmsnorm {name} rows={rows} d={d}", max_abs_err=err, tol=RMS_TOL[name],
-        ok=bool(ok), ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+        ok=bool(ok), ms=ms, device_ms=device_ms(kernel, iters),
         plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(x, w), iters),
-        library_ms=cuda_ms(lib, iters), library_device_ms=device_ms(lib, iters),
+        library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] {json.dumps(row)}")
     return row
@@ -372,11 +396,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
-    x = torch.ones((2, 8), device="cuda")
-    rn.rmsnorm(x, torch.zeros(8, device="cuda"))  # Triton compiles on first launch
-    torch.cuda.synchronize()
-    print(f"[build] nvcc {sorted(logs) or 'cached'} + triton rmsnorm: "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"[build] nvcc {sorted(logs) or 'cached'}: {time.perf_counter() - t0:.3f} s")
 
     # -- kernels ---------------------------------------------------------------
     spec, mspec = get_arch(ARCH), get_arch(MAMBA)
@@ -420,21 +440,26 @@ def main() -> None:
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
-    kernels = [
+    case_keys = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_3xtf32_ms", "library_ms")
+
+    def numbers(r):
+        return {key: r[key] for key in case_keys if key in r}
+
+    kernels = [  # more: the kernel at the other shapes of its path (bf16 flash, decode's norm)
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:76", case=rows[0]),
-        dict(name="rmsnorm", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
-             replaces="src/repro/kernels/rmsnorm.py:23", case=rows[3]),
+             replaces="src/repro/kernels/flash_attention.py:76", case=rows[0], more=[rows[5]]),
+        dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:23", case=rows[3], more=[rows[4]]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
-             replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0]),
+             replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0], more=[]),
     ]
     for k in kernels:
-        r = k.pop("case")
+        r, more = k.pop("case"), k.pop("more")
         per_path = {path: counts[k["name"]] for path, counts in by_path.items()}
-        k.update(case=r["case"], launches=sum(per_path.values()), launches_by_path=per_path,
-                 max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
-                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                 library_ms=r["library_ms"])
+        k.update(launches=sum(per_path.values()), launches_by_path=per_path, **numbers(r))
+        if more:
+            k["more_cases"] = [numbers(m) for m in more]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), with a plain C interface.
+// Flash attention forward for Hopper (sm_90a) on the tensor cores, with a
+// plain C interface.
 //
 // Replaces the JAX package's Pallas TPU kernel `kernels/flash_attention.py`
 // (`flash_attention`, body `_flash_kernel`): blockwise online-softmax
@@ -6,213 +7,697 @@
 // sliding-window and key-length masks, fully masked tiles skipped, and one
 // cast on the write.
 //
-// What bounds it on the H100.  Products are done in f32 on the CUDA cores
-// (67 TFLOP/s), not on the tensor cores, so at prefill lengths the kernel is
-// bound by operations: 4*hd flops per (query, key) pair against 2*hd*(bytes
-// per element) bytes of q/k/v/o per token.  Within the block, each f32 FMA
-// needs its operands from shared memory, so the shared-memory load rate is
-// the limit this simple design reaches first.
+// What bounds it on the H100.  At prefill lengths the work is operations:
+// 4*hd flops per unmasked (query, key) pair against 2*hd*(bytes per element)
+// bytes of q/k/v/o per token.  bf16 products run at 989 TFLOP/s on the
+// tensor cores.  f32 has no full-precision tensor-core product, and one TF32
+// pass keeps about 3 decimal digits, so f32 runs 3xTF32: each operand splits
+// into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest (ties
+// away, as cvt.rna.tf32), and every product sums lo*hi + hi*lo + hi*hi in
+// f32 (small terms first), three TF32 products at 495 TFLOP/s for every f32
+// one.
 //
-// What the design does about it.
-//   * One block per (64-query tile, batch*head); it loops over 64-key tiles
-//     staged in shared memory as f32, and keeps m, l and the (64 x hd)
-//     accumulator in registers: the (S x T) score matrix never reaches
-//     device memory, and q/k/v are read once per query tile.
-//   * 256 threads as 16 x 16: thread (ty, tx) owns rows ty+16i (i < 4) of
-//     both the score tile (columns tx+16j, j < 4) and the output tile
-//     (columns tx+16j, j < hd/16), so the online-softmax rescale of a row
-//     never leaves the thread; row max and sum reduce over the 16 lanes of
-//     a half-warp with shuffles.  Q and K rows are padded by one float so
-//     the strided reads hit distinct banks.
+// The design, one kernel per dtype, both with the same block:
+//   * One block per (128-query tile, batch*head), 384 threads: warpgroup 0
+//     is the producer, warpgroups 1 and 2 each own 64 query rows.
+//     `setmaxnreg` gives the producer 24 registers and each consumer 240.
+//   * One producer thread loads the Q tile once and keeps a ring of 2 K/V
+//     stages in flight with TMA (4-D tensor maps over the model layout, so
+//     rows past S or T arrive as zeros); each stage has a full barrier for K,
+//     one for V, and an empty barrier that each of the 8 consumer warps
+//     arrives on when it is done with the stage.  Rows are split into boxes
+//     of at most 128 bytes under the matching TMA swizzle (128, 64 or 32 B),
+//     so shared-memory reads are free of bank conflicts.
+//   * bf16 (key tile 128): S = Q K^T is `wgmma.m64n128k16` with both
+//     operands K-major in shared memory; the online softmax runs on the
+//     accumulator registers (scale and mask before exp2, masks only on tiles
+//     that cross the diagonal, the window edge or T); P is packed to bf16x2
+//     in registers and is the A operand of O += P V, with V the B operand
+//     through an MN-major descriptor.
+//   * f32 (key tile 64): each warp runs `mma.sync.m16n8k8` TF32 on 16 query
+//     rows, reading its fragments from the swizzled tiles and splitting them
+//     in registers.  P stays in registers: the accumulator's column pairs
+//     (2t, 2t+1) serve as the A fragment's k = (t, t+4), and V's rows are
+//     read in the same order.
 //   * Tiles above the causal diagonal or left of the window are never
-//     loaded; q tiles are scheduled heaviest (latest) first.
-//   * GQA: head h reads K/V group h / (H/G) through strides; nothing is
-//     repeated in memory.  Any S and T: rows past S and keys past T are
-//     loaded as zeros, masked, and never written.
-//   * A masked score is -inf and the running max starts at -1e30, so a row
-//     with no valid key yet keeps p = 0, alpha = 1 and never produces NaN.
-// wgmma/TMA and bf16 tensor-core products are later work.
+//     loaded; a consumer warpgroup whose 64 rows are all masked on a tile
+//     (or all past S) waits for it and releases it without computing.  q
+//     tiles are scheduled heaviest (latest) first.
+//   * GQA: head h reads K/V group h / (H/G) through the tensor maps; nothing
+//     is repeated in memory.  A masked score is -inf and the running max
+//     starts at -1e30, so a row with no valid key keeps p = 0 and writes 0.
+//   * Rows, strides and base pointers must suit TMA: 16-byte aligned base,
+//     byte strides that are multiples of 16 (the wrapper checks both).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block, as 16 x 16
+constexpr int BQ = 128;           // query rows per block: two consumer warpgroups of 64
+constexpr int NSTAGE = 2;         // K/V tiles in flight
+constexpr int NTHREADS = 384;     // the producer warpgroup and two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
 constexpr float M_FLOOR = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int S, T, H, G, causal, window;
-  float scale;
-  // element strides of (batch, sequence, head) for q, k, v, o; hd is contiguous
-  long long qs[3], ks[3], vs[3], os[3];
+template <typename T, int HD>
+struct Tile {
+  static constexpr int ES = sizeof(T);
+  static constexpr int BK = ES == 2 ? 128 : 64;  // keys per tile
+  static constexpr int ROWB = HD * ES;           // bytes of one row
+  static constexpr int W = ROWB < 128 ? ROWB : 128;  // bytes of a row in one TMA box = swizzle span
+  static constexpr int NBOX = ROWB / W;
+  static constexpr int Q_BYTES = BQ * ROWB;
+  static constexpr int KV_BYTES = BK * ROWB;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * NSTAGE * KV_BYTES + 8 * (1 + 3 * NSTAGE);
 };
 
-template <int HD>
-constexpr int smem_floats() {
-  return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1);
+struct Params {
+  CUtensorMap tq, tk, tv;  // (hd, S, H, B) for q; (hd, T, G, B) for k and v
+  void* o;
+  long long os[3];         // element strides of o: batch, sequence, head
+  int S, T, H, G, causal, window;
+  float scale_log2;        // softmax scale times log2(e)
+};
+
+// ---------------------------------------------------------------------------
+// barriers, TMA, register hand-over
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (bf16)
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Ties the accumulator registers to the wait above, so no read of them is
+// scheduled before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Swizzle mode of a span of W bytes, as the wgmma descriptor encodes it.
+template <int W>
+__host__ __device__ constexpr uint64_t desc_layout() {
+  return W == 128 ? 1 : W == 64 ? 2 : 3;
+}
+
+// K-major operand: rows of W bytes, 8-row groups every 8*W bytes.
+template <int W>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (static_cast<uint64_t>(8 * W / 16) << 32) | (desc_layout<W>() << 62);
+}
+
+// MN-major operand (V as B of P V): W-byte spans of N, one per box, `lbo`
+// bytes apart; 8-key groups every 8*W bytes.
+template <int W>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(8 * W / 16) << 32) | (desc_layout<W>() << 62);
+}
+
+#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_D8(i) WG_D4(i), WG_D4(i + 4)
+#define WG_D16(i) WG_D8(i), WG_D8(i + 8)
+#define WG_D32(i) WG_D16(i), WG_D16(i + 16)
+#define WG_D64(i) WG_D32(i), WG_D32(i + 32)
+
+// d (64 x N f32, accumulated) += a (64 x 16 bf16, registers) * B (16 x N, MN-major in shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b);
+// d (64 x N) = (scale_d ? d : 0) + A (64 x 16, K-major) * B (16 x N, K-major), both in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : WG_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64(0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef WG_D64
+#undef WG_D32
+#undef WG_D16
+#undef WG_D8
+#undef WG_D4
+
+// ---------------------------------------------------------------------------
+// 3xTF32 (f32)
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: what cvt.rna.tf32.f32 returns for every finite x and for
+// infinities, in two integer operations (an add of half a TF32 unit to the
+// magnitude's bits, a mask).  cvt.rna.tf32.f32 itself makes the kernel
+// slower on the H100 (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi, const uint32_t* alo,
+                                           const uint32_t* bhi, const uint32_t* blo) {
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
+// Element (r, c) of an f32 tile whose rows are split into boxes of W bytes,
+// `box_rows` rows each, stored one after another under the TMA swizzle of W
+// bytes (16-byte chunk bits 4.. XOR address bits 7..).
+template <int W>
+__device__ __forceinline__ float ld_tile(const uint8_t* base, int box_rows, int r, int c) {
+  const int box = c * 4 / W;
+  const int off = r * W + c * 4 % W;
+  const int phys = off ^ (((off >> 7) & (W / 16 - 1)) << 4);
+  return *reinterpret_cast<const float*>(base + box * box_rows * W + phys);
+}
+
+// ---------------------------------------------------------------------------
+// online softmax on accumulator fragments, shared by both dtypes
+//
+// A warp owns 16 query rows; its accumulator over N columns holds, for n8
+// block j, s[4j + e] = (row g + 8*(e >> 1), column 8j + 2t + (e & 1)) with
+// g = lane / 4 and t = lane % 4 (the wgmma and the mma.sync layouts agree).
+
+template <int N>
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* alpha,
+                                               int q_row, int k_col, bool mask,
+                                               const Params& p) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * p.scale_log2;
+      if (mask) {
+        const int kj = k_col + 8 * j + (e & 1);
+        const int qi = q_row + 8 * (e >> 1);
+        const bool ok = kj < p.T && (!p.causal || kj <= qi) && (p.window <= 0 || kj > qi - p.window);
+        x = ok ? x : -INFINITY;
+      }
+      s[4 * j + e] = x;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = M_FLOOR;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pe = exp2f(s[4 * j + 2 * r + e] - m_new);  // exactly 0 where masked
+        s[4 * j + 2 * r + e] = pe;
+        sum += pe;
+      }
+    }
+    l[r] = l[r] * alpha[r] + sum;  // this thread's part of the row; lanes add up at the end
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float* o, const float* alpha) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Divides by the row sums and writes the rows below S, one cast each.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT, 2) flash_fwd_kernel(const Params p) {
-  constexpr int NJ = HD / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // BQ x (HD+1)
-  float* Ks = Qs + BQ * (HD + 1);     // BK x (HD+1)
-  float* Vs = Ks + BK * (HD + 1);     // BK x HD
-  float* Ps = Vs + BK * HD;           // BQ x (BK+1)
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const int g = h / (p.H / p.G);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + g * p.ks[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + g * p.vs[2];
+__device__ __forceinline__ void write_out(const Params& p, const float* o, float* l, int b, int h,
+                                          int q_row, int col) {
   T* og = static_cast<T*>(p.o) + b * p.os[0] + h * p.os[2];
-
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i % HD, qi = q0 + r;
-    Qs[r * (HD + 1) + d] = qi < p.S ? to_f32(qg[qi * p.qs[1] + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = M_FLOOR;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  int k_end = p.T;
-  if (p.causal) k_end = min(k_end, q0 + BQ);
-  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  k_begin = (k_begin / BK) * BK;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers of Ks/Vs/Ps are done
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int r = i / HD, d = i % HD, kj = k0 + r;
-      const bool in = kj < p.T;
-      Ks[r * (HD + 1) + d] = in ? to_f32(kg[kj * p.ks[1] + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_f32(vg[kj * p.vs[1] + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (HD + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = M_FLOOR;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < p.T && (!p.causal || kj <= qi) &&
-                        (p.window <= 0 || kj > qi - p.window);
-        s[i][j] = ok ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pij = expf(s[i][j] - m_new);  // exactly 0 where masked
-        rs += pij;
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = pij;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q_row + 8 * r;
     if (qi >= p.S) continue;  // padded query rows are dropped
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    T* row = og + qi * p.os[1] + col;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      og[qi * p.os[1] + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < HD / 8; ++j)
+      store_pair(row + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
+// What a block works on, and where its shared memory lies.
+struct Work {
+  uint8_t *sq, *sk, *sv;
+  uint64_t *q_full, *k_full, *v_full, *empty;
+  int b, h, g, q0, k_begin, n_tiles;
+};
+
+// Whether a warpgroup whose rows start at r (64 of them) needs no mask on a
+// tile of keys [k0, k0 + bk) restricted to 16 rows from rw; and whether all
+// 64 rows are masked on it.
+__device__ __forceinline__ bool tile_unmasked(const Params& p, int k0, int bk, int rw) {
+  return k0 + bk <= p.T && (!p.causal || k0 + bk - 1 <= rw) &&
+         (p.window <= 0 || k0 > rw + 15 - p.window);
+}
+__device__ __forceinline__ bool tile_all_masked(const Params& p, int k0, int bk, int r) {
+  return r >= p.S || (p.causal && k0 > r + 63) || (p.window > 0 && k0 + bk - 1 <= r - p.window);
+}
+
+// ---------------------------------------------------------------------------
+// producer: one thread
+
 template <typename T, int HD>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+__device__ void produce(const Params& p, const Work& w) {
+  using C = Tile<T, HD>;
+  mbar_expect_tx(w.q_full, C::Q_BYTES);
+#pragma unroll
+  for (int x = 0; x < C::NBOX; ++x)
+    tma_load_4d(w.sq + x * BQ * C::W, &p.tq, w.q_full, x * C::W / C::ES, w.q0, w.h, w.b);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int s = i % NSTAGE;
+    mbar_wait(w.empty + s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes at once
+    const int k0 = w.k_begin + i * C::BK;
+    mbar_expect_tx(w.k_full + s, C::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < C::NBOX; ++x)
+      tma_load_4d(w.sk + s * C::KV_BYTES + x * C::BK * C::W, &p.tk, w.k_full + s,
+                  x * C::W / C::ES, k0, w.g, w.b);
+    mbar_expect_tx(w.v_full + s, C::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < C::NBOX; ++x)
+      tma_load_4d(w.sv + s * C::KV_BYTES + x * C::BK * C::W, &p.tv, w.v_full + s,
+                  x * C::W / C::ES, k0, w.g, w.b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// consumers: bf16 on wgmma
+
+template <int HD>
+__device__ void consume_bf16(const Params& p, const Work& w, int cw) {
+  using C = Tile<__nv_bfloat16, HD>;
+  constexpr int BK = C::BK;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r_wg = w.q0 + 64 * cw;            // first row of this warpgroup
+  const int rw = r_wg + 16 * warp;            // first row of this warp
+  const int q_row = rw + lane / 4, col = 2 * (lane % 4);
+  float o[HD / 2], m[2] = {M_FLOOR, M_FLOOR}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  const uint32_t q_addr = smem_u32(w.sq) + cw * 64 * C::W;
+  mbar_wait(w.q_full, 0);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int s = i % NSTAGE;
+    const uint32_t ph = (i / NSTAGE) & 1;
+    const int k0 = w.k_begin + i * BK;
+    const bool skip = tile_all_masked(p, k0, BK, r_wg);
+    mbar_wait(w.k_full + s, ph);
+    if (!skip) {
+      float sc[BK / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+      const uint32_t k_addr = smem_u32(w.sk + s * C::KV_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int box = kk * 32 / C::W, inb = kk * 32 % C::W;
+        wgmma_ss<BK>(sc, kmajor_desc<C::W>(q_addr + box * BQ * C::W + inb),
+                     kmajor_desc<C::W>(k_addr + box * BK * C::W + inb), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<BK / 2>(sc);
+      online_softmax<BK>(sc, m, l, alpha, q_row, k0 + col, !tile_unmasked(p, k0, BK, rw), p);
+      rescale<HD>(o, alpha);
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          __nv_bfloat162 two = __floats2bfloat162_rn(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+          pa[kk][x] = *reinterpret_cast<uint32_t*>(&two);
+        }
+      }
+      mbar_wait(w.v_full + s, ph);
+      const uint32_t v_addr = smem_u32(w.sv + s * C::KV_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], mnmajor_desc<C::W>(v_addr + kk * 16 * C::W, BK * C::W));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<HD / 2>(o);
+    } else {
+      mbar_wait(w.v_full + s, ph);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(w.empty + s);
+  }
+  write_out<__nv_bfloat16, HD>(p, o, l, w.b, w.h, q_row, col);
+}
+
+// ---------------------------------------------------------------------------
+// consumers: f32 in 3xTF32 on mma.sync
+
+template <int HD>
+__device__ void consume_f32(const Params& p, const Work& w, int cw) {
+  using C = Tile<float, HD>;
+  constexpr int BK = C::BK, W = C::W;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_wg = w.q0 + 64 * cw;
+  const int rw = r_wg + 16 * warp;
+  const int qr = 64 * cw + 16 * warp + g;  // this thread's first row within the Q tile
+  float o[HD / 2], m[2] = {M_FLOOR, M_FLOOR}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  mbar_wait(w.q_full, 0);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int s = i % NSTAGE;
+    const uint32_t ph = (i / NSTAGE) & 1;
+    const int k0 = w.k_begin + i * BK;
+    const bool skip = tile_all_masked(p, k0, BK, r_wg);
+    mbar_wait(w.k_full + s, ph);
+    if (!skip) {
+      const uint8_t* kt = w.sk + s * C::KV_BYTES;
+      float sc[BK / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const int c = 8 * kk + t;
+        uint32_t ah[4], al[4];
+        split_tf32(ld_tile<W>(w.sq, BQ, qr, c), ah[0], al[0]);
+        split_tf32(ld_tile<W>(w.sq, BQ, qr + 8, c), ah[1], al[1]);
+        split_tf32(ld_tile<W>(w.sq, BQ, qr, c + 4), ah[2], al[2]);
+        split_tf32(ld_tile<W>(w.sq, BQ, qr + 8, c + 4), ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          split_tf32(ld_tile<W>(kt, BK, 8 * j + g, c), bh[0], bl[0]);
+          split_tf32(ld_tile<W>(kt, BK, 8 * j + g, c + 4), bh[1], bl[1]);
+          mma_3xtf32(sc + 4 * j, ah, al, bh, bl);
+        }
+      }
+      online_softmax<BK>(sc, m, l, alpha, rw + g, k0 + 2 * t, !tile_unmasked(p, k0, BK, rw), p);
+      rescale<HD>(o, alpha);
+      mbar_wait(w.v_full + s, ph);
+      const uint8_t* vt = w.sv + s * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        // k = t holds key 8kk + 2t and k = t + 4 key 8kk + 2t + 1
+        uint32_t ah[4], al[4];
+        split_tf32(sc[4 * kk], ah[0], al[0]);
+        split_tf32(sc[4 * kk + 2], ah[1], al[1]);
+        split_tf32(sc[4 * kk + 1], ah[2], al[2]);
+        split_tf32(sc[4 * kk + 3], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          uint32_t bh[2], bl[2];
+          split_tf32(ld_tile<W>(vt, BK, 8 * kk + 2 * t, 8 * n + g), bh[0], bl[0]);
+          split_tf32(ld_tile<W>(vt, BK, 8 * kk + 2 * t + 1, 8 * n + g), bh[1], bl[1]);
+          mma_3xtf32(o + 4 * n, ah, al, bh, bl);
+        }
+      }
+    } else {
+      mbar_wait(w.v_full + s, ph);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(w.empty + s);
+  }
+  write_out<float, HD>(p, o, l, w.b, w.h, rw + g, 2 * t);
+}
+
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(const __grid_constant__ Params p) {
+  using C = Tile<T, HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle atoms need 1024 B
+  Work w;
+  w.sq = smem;
+  w.sk = w.sq + C::Q_BYTES;
+  w.sv = w.sk + NSTAGE * C::KV_BYTES;
+  w.q_full = reinterpret_cast<uint64_t*>(w.sv + NSTAGE * C::KV_BYTES);
+  w.k_full = w.q_full + 1;
+  w.v_full = w.k_full + NSTAGE;
+  w.empty = w.v_full + NSTAGE;
+  w.b = blockIdx.x / p.H;
+  w.h = blockIdx.x % p.H;
+  w.g = w.h / (p.H / p.G);
+  w.q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int k_end = p.causal ? min(p.T, w.q0 + BQ) : p.T;
+  w.k_begin = (p.window > 0 ? max(0, w.q0 - p.window + 1) : 0) / C::BK * C::BK;
+  w.n_tiles = k_end > w.k_begin ? (k_end - w.k_begin + C::BK - 1) / C::BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(w.q_full, 1);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(w.k_full + s, 1);
+      mbar_init(w.v_full + s, 1);
+      mbar_init(w.empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) produce<T, HD>(p, w);
+  } else {
+    setmaxnreg_inc<240>();
+    if constexpr (sizeof(T) == 2)
+      consume_bf16<HD>(p, w, threadIdx.x / 128 - 1);
+    else
+      consume_f32<HD>(p, w, threadIdx.x / 128 - 1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so that nothing
+// links libcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (hd, n, heads, batch) over a tensor of the model layout whose
+// (batch, sequence, head) element strides are st; boxes of W bytes x rows.
+// A dimension of extent 1 is never stepped, so its stride is replaced by the
+// tensor's dense size (any multiple of 16 would do).
+template <typename T, int HD>
+bool encode(CUtensorMap* map, const void* ptr, int n, int heads, int batch, const long long* st,
+            int rows) {
+  using C = Tile<T, HD>;
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dense = (static_cast<cuuint64_t>(HD) * n * heads * batch * C::ES + 15) / 16 * 16;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {n > 1 ? st[1] * C::ES : dense, heads > 1 ? st[2] * C::ES : dense,
+                                 batch > 1 ? st[0] * C::ES : dense};
+  const cuuint32_t box[4] = {C::W / C::ES, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = C::W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapDataType type =
+      C::ES == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int ENCODE_FAILED = -1;
+
+template <typename T, int HD>
+int launch(Params& p, const void* q, const void* k, const void* v, int B,
+           const long long* strides, cudaStream_t stream) {
+  using C = Tile<T, HD>;
+  // once per kernel: the attribute holds for every later launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  if (!encode<T, HD>(&p.tq, q, p.S, p.H, B, strides, BQ) ||
+      !encode<T, HD>(&p.tk, k, p.T, p.G, B, strides + 3, C::BK) ||
+      !encode<T, HD>(&p.tv, v, p.T, p.G, B, strides + 6, C::BK))
+    return ENCODE_FAILED;
   const dim3 grid(B * p.H, (p.S + BQ - 1) / BQ);
-  flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<T, HD><<<grid, NTHREADS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
+int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, int hd,
+                const long long* strides, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 16: return launch<T, 16>(p, q, k, v, B, strides, stream);
+    case 32: return launch<T, 32>(p, q, k, v, B, strides, stream);
+    case 64: return launch<T, 64>(p, q, k, v, B, strides, stream);
+    case 128: return launch<T, 128>(p, q, k, v, B, strides, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -220,25 +705,29 @@ cudaError_t dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,T,G,hd), o (B,S,H,hd) with the last dim contiguous;
-// strides[12] = (batch, seq, head) element strides of q, k, v, o.
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// strides[12] = (batch, seq, head) element strides of q, k, v, o.  q, k and v
+// must suit TMA: 16-byte aligned base, byte strides that are multiples of 16
+// (dims of extent 1 aside).  dtype: 0 = float32, 1 = bfloat16.  Returns 0 on
+// success, -1 if a tensor map could not be encoded, else the CUDA error of
+// the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int S, int T, int H, int G, int hd,
                                    const long long* strides, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, S, T, H, G, causal, window, scale, {}, {}, {}, {}};
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = strides[i];
-    p.ks[i] = strides[3 + i];
-    p.vs[i] = strides[6 + i];
-    p.os[i] = strides[9 + i];
-  }
+  Params p;
+  p.o = o;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.S = S;
+  p.T = T;
+  p.H = H;
+  p.G = G;
+  p.causal = causal;
+  p.window = window;
+  p.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? dispatch_hd<float>(p, B, hd, st)
-                    : dtype == 1 ? dispatch_hd<__nv_bfloat16>(p, B, hd, st)
-                                 : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return dtype == 0   ? dispatch_hd<float>(p, q, k, v, B, hd, strides, st)
+         : dtype == 1 ? dispatch_hd<__nv_bfloat16>(p, q, k, v, B, hd, strides, st)
+                      : static_cast<int>(cudaErrorInvalidValue);
 }

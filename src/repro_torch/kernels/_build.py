@@ -3,8 +3,10 @@
 Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``repro_torch/build/<name>-<hash>.so``
 at first use (``.gitignore`` lists the directory).  The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``build()`` starts one ``nvcc`` per source, all at once.
+source, every header ``csrc/*.cuh`` (any source may include one) and the
+flags, include paths among them, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.  ``build()`` starts one ``nvcc``
+per source, all at once.
 
 No PyTorch headers are involved (a source that includes them takes minutes
 to compile; a plain C one takes seconds).
@@ -41,9 +43,11 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:

@@ -6,8 +6,10 @@ the fixture, never at import).  Run on the GPU host with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports torch and the port only, so it needs no JAX there.  Tolerances:
-1e-4 in f32 (the same f32 math summed in another order), 2e-2 in bf16 (one
-bf16 rounding of the output).  The SSD scan is held at those bounds relative
+1e-4 in f32 (the same f32 math summed in another order; flash attention's
+3xTF32 products keep f32 accuracy, which one TF32 pass would not: see the
+large-score case), 2e-2 in bf16 (bf16 operands and one bf16 rounding of the
+output).  The SSD scan is held at those bounds relative
 to max |y| and max |state|: its chunked form and the sequential recurrence
 sum through exp in other orders.
 """
@@ -63,6 +65,64 @@ def test_flash_kernel_matches_plain(dev, b, s, t, h, g, hd, window, dtype):
     _close(got, fa.flash_attention_plain(q, k, v, causal=True, window=window), dtype)
 
 
+# The kernels' seams: 128-row query tiles in two 64-row halves, key tiles of
+# 128 (bf16) and 64 (f32), TMA boxes of up to 128 bytes per row.
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_tile_seams(dev, s, hd, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, s, 4, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, s, 2, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, s, 2, hd), generator=gen, device=dev).to(dtype)
+    _close(ops.mha_flash(q, k, v), fa.flash_attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("s,t,window", [
+    (300, 300, 100),    # the window's edge inside a key tile
+    (300, 300, 1),      # each row sees itself only
+    (256, 256, 192),
+    (200, 200, 129),
+    (130, 700, 50),     # T > S with a window
+    (64, 1000, 0),      # T > S: keys past S are masked by causality
+    (129, 513, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_and_long_keys(dev, s, t, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((2, s, 4, 64), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, t, 1, 64), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, t, 1, 64), generator=gen, device=dev).to(dtype)
+    _close(ops.mha_flash(q, k, v, window=window),
+           fa.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+def test_flash_f32_keeps_f32_accuracy_at_large_scores(dev):
+    """Scores of magnitude 10 and more: one TF32 pass misses 1e-4 here (PERF.md
+    gives its error), the kernel's 3xTF32 must not."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 256, 4, 128), generator=gen, device=dev) * 4
+    k = torch.randn((1, 256, 2, 128), generator=gen, device=dev) * 4
+    v = torch.randn((1, 256, 2, 128), generator=gen, device=dev)
+    scores = torch.einsum("bshd,btgd->bsht", q[:, :, :2], k) / 128 ** 0.5
+    assert scores.abs().amax(-1).min() >= 10
+    _close(ops.mha_flash(q, k, v), fa.flash_attention_plain(q, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("width,start", [
+    (72, 1),   # the base address off 16 bytes
+    (66, 0),   # the head stride (66 elements) no multiple of 16 bytes
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_rejects_views_tma_cannot_read(dev, width, start, dtype):
+    q = torch.zeros((1, 32, 4, width), device=dev, dtype=dtype)[..., start:start + 64]
+    k = torch.zeros((1, 32, 2, 64), device=dev, dtype=dtype)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="16"):
+        ops.mha_flash(q, k, k)
+    assert fa.flash_attention.launches == before
+
+
 def test_flash_kernel_reads_strided_inputs(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     qkv = torch.randn((2, 96, 4 + 2 + 2, 64), generator=gen, device=dev)
@@ -76,7 +136,8 @@ def test_flash_kernel_rejects_unsupported_head_dim(dev):
         ops.mha_flash(q, q, q)
 
 
-@pytest.mark.parametrize("rows,d", [(4000, 1536), (4, 1536), (148, 512), (3, 100)])
+@pytest.mark.parametrize("rows,d", [(148, 512)] + [
+    (r, d) for r in (1, 3, 4, 4000) for d in (100, 512, 768, 1536, 8960)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -86,6 +147,25 @@ def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     got = ops.fused_rmsnorm(x, w)
     assert rn.rmsnorm.launches == before + 1
     _close(got, ref.rmsnorm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("d", [768, 1536, 8960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_row_stride_off_16_bytes(dev, d, dtype):
+    """Rows that start off 16 bytes take the element-by-element loads."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn((37, d + 1), generator=gen, device=dev) * 3).to(dtype)[:, 1:]
+    w = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype)
+    _close(ops.fused_rmsnorm(x, w), ref.rmsnorm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("d", [1536, 8960])
+def test_rmsnorm_kernel_f32_weight_under_bf16(dev, d):
+    """The models keep f32 weights under a bf16 compute dtype."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.randn((40, d), generator=gen, device=dev) * 3).bfloat16()
+    w = torch.randn((d,), generator=gen, device=dev) * 0.1
+    _close(ops.fused_rmsnorm(x, w), ref.rmsnorm_ref(x, w), torch.bfloat16)
 
 
 def _ssd_inputs(dev, b, s, h, g, p, n, dtype, ranges, seed=4):

@@ -19,7 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.mamba import ssd_chunked as jssd_chunked
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import _build, flash_attention as fa
 from repro_torch.kernels import ops, ref, rmsnorm as rn, ssd_scan as ss
 from repro_torch.models import mamba as mb
 
@@ -104,6 +104,61 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(bad):
         k = k.double()
     with pytest.raises(ValueError):
         ops.mha_flash(q, k, k.clone())
+
+
+BASE = 0x7F00_0000_0000  # a 16-byte aligned device address
+
+
+@pytest.mark.parametrize("shape,strides,elem_size,ptr,ok", [
+    ((4, 1000, 12, 128), (1536000, 1536, 128, 1), 4, BASE, True),   # qwen2's q, f32
+    ((4, 1000, 2, 128), (256000, 256, 128, 1), 2, BASE, True),       # its k, bf16
+    ((2, 96, 2, 64), (49152, 512, 64, 1), 4, BASE + 1024, True),     # heads 4:6 of a packed qkv
+    ((1, 1, 4, 16), (7, 7, 16, 1), 2, BASE, True),                   # extent-1 strides do not count
+    ((1, 32, 4, 64), (9216, 288, 72, 1), 4, BASE + 4, False),        # base 4 bytes off
+    ((1, 32, 4, 64), (8448, 264, 66, 1), 4, BASE, False),            # head stride 264 bytes
+    ((1, 32, 4, 64), (8448, 264, 66, 1), 2, BASE, False),            # head stride 132 bytes
+    ((2, 33, 1, 64), (2112, 65, 64, 1), 2, BASE, False),             # sequence stride 130 bytes
+    ((2, 8, 4, 16), (1024, 128, 32, 2), 4, BASE, False),             # head_dim not contiguous
+])
+def test_flash_tma_layout_rule(shape, strides, elem_size, ptr, ok):
+    problem = fa.tma_layout_problem(shape, strides, elem_size, ptr)
+    assert (problem is None) is ok, problem
+
+
+def test_flash_tma_layout_rule_accepts_the_models_tensors():
+    """q, k and v as the attention layer hands them over: views of one
+    projection's output, and fresh contiguous tensors."""
+    x = torch.zeros(2, 50, 8 * 64)
+    q = x.view(2, 50, 8, 64)
+    for t in (q, q[:, :, :4], q[:, :, 4:6], torch.zeros(3, 7, 2, 16, dtype=torch.bfloat16)):
+        assert fa.tma_layout_problem(t.shape, t.stride(), t.element_size(), t.data_ptr()) is None
+
+
+def test_build_compiles_every_kernel_source():
+    assert _build.sources() == ["flash_attention", "rmsnorm", "ssd_scan"]
+
+
+def test_build_path_changes_with_a_header(tmp_path, monkeypatch):
+    """An edited, added or removed ``csrc/*.cuh``, an edited source and an
+    added include path each give another library; nothing else does."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    seen = [_build.library_path("k")]
+    assert _build.library_path("k") == seen[0] and seen[0].name.startswith("k-")
+    (csrc / "common.cuh").write_text("// two\n")
+    seen.append(_build.library_path("k"))
+    (csrc / "extra.cuh").write_text("// three\n")
+    seen.append(_build.library_path("k"))
+    (csrc / "extra.cuh").unlink()
+    assert _build.library_path("k") == seen[1]
+    (csrc / "k.cu").write_text("// edited\n")
+    seen.append(_build.library_path("k"))
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, f"-I{tmp_path}"))
+    seen.append(_build.library_path("k"))
+    assert len(set(seen)) == len(seen)
 
 
 @pytest.mark.parametrize("rows,d", [(128, 256), (64, 1024), (37 * 4, 512)])

@@ -122,3 +122,15 @@ def test_no_port_file_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
+
+
+def test_no_port_module_imports_triton():
+    """Every kernel of the port is CUDA C++: no module imports ``triton``, at
+    the top or inside a function, and each imports with it blocked."""
+    pat = re.compile(r"^\s*(from|import)\s+triton(\.|\s|$)", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert not [str(f) for f in files if pat.search(f.read_text())]
+    code = ("import sys\nsys.modules['triton'] = None\nimport importlib\n"
+            f"for m in {list(_modules())!r}:\n    importlib.import_module(m)\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
