@@ -9,7 +9,10 @@ Phases, one or more lines each:
                parallel
   kernels      hold each kernel against its plain version on the card, at the
                serving paths' shapes plus windowed, ragged and grouped cases,
-               in float32 and bfloat16 (the SSD scan also with the model's dt
+               in float32 and bfloat16 (flash attention also at gemma3's
+               head_dim 256, global and at its window of 512, and at
+               granite's shape; RMSNorm at each path's widths; the SSD scan
+               also with the model's dt
                and a ranges); time kernel, plain version and one PyTorch
                library call where one exists (a yardstick the port never
                calls; kernel and library events times are medians of five
@@ -23,15 +26,23 @@ Phases, one or more lines each:
                chunks: the state entering each chunk, and the final state)
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
                and its entering state)
-  serve        each model at full width (random weights from a seed) through
-               repro_torch.serve.engine.Engine, fp32, greedy: qwen2-1.5b with
-               batch 4, prompt 1000, 32 new tokens, then mamba2-130m with
-               batch 4, prompt 4096, 32 new tokens; counts each run's kernel
-               launches, every count set to 0 just before it
+  serve        each model at full width and depth (random weights from a seed)
+               through repro_torch.serve.engine.Engine, fp32, greedy, batch 4,
+               32 new tokens: qwen2-1.5b (prompt 1000), mamba2-130m (4096),
+               gemma3-1b (2040: past its 512-token window, ragged against the
+               128-row tile, decode crossing ring slot 0 at 2048) and
+               granite-moe-3b-a800m (1024: four routing groups of 256 per
+               sequence); counts each run's kernel launches, every count set
+               to 0 just before it
   consistency  per model, last-position logits of prefill over S tokens vs
                prefill over S-1 tokens plus one decode step (the prefill
                kernels vs plain decode), and the reduced model on the card vs
-               the CPU
+               the CPU.  MoE models compare prefill and decode at capacity
+               factor 8, as tests/test_archs.py does: with capacity drops the
+               two compute different functions by design (a 1024-token
+               prefill routes groups of 256 that can overflow an expert, the
+               1023-token one groups of 1 that cannot), and that gap is
+               printed beside the check
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -54,6 +65,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 ARCH, BATCH, PROMPT, NEW, SEED = "qwen2-1.5b", 4, 1000, 32, 0
 MAMBA, M_PROMPT = "mamba2-130m", 4096
+GEMMA, G_PROMPT = "gemma3-1b", 2040
+GRANITE, R_PROMPT = "granite-moe-3b-a800m", 1024
+NO_DROP_CAPACITY = 8.0  # capacity factor at which no group can overflow an expert
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # allclose atol = rtol, per dtype
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # SSD scan: max |got - want| / max |want| of y per dtype; the f32 state at 1e-4
@@ -118,7 +132,10 @@ def device_ms(fn, iters: int) -> float | None:
 
 
 KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
-                  "flash_attention": ("flash_fwd",), "rmsnorm": ("rmsnorm",)}
+                  "flash_attention": ("flash_fwd",), "rmsnorm": ("rmsnorm",),
+                  # gathers, scatters, top-k and running sums: the MoE's routing
+                  # and dispatch, the embedding's gather, mamba2's cumsums
+                  "index_scan": ("index", "gather", "scatter", "topk", "sort", "scan")}
 
 
 def by_class(by_name: dict[str, float]) -> dict[str, float]:
@@ -321,20 +338,40 @@ def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
     return params, prompts, launches
 
 
-def consistency(torch, M, map_with_path, reduced, spec, params, prompts):
-    """Prefill(S) vs prefill(S-1) + one decode step at full width, then the
-    reduced model on the card vs the CPU's plain path."""
-    tok = torch.as_tensor(prompts, device="cuda")
+def prefill_vs_decode(torch, M, spec, params, tok):
+    """Max |logits| gap of prefill over S tokens and prefill over S-1 plus one
+    decode step, and the former's logits."""
     s, f32 = tok.shape[1], torch.float32
     caches = M.init_caches(spec, BATCH, s, dtype=f32, device="cuda")
     full, _ = M.prefill(params, tok, caches, spec, compute_dtype=f32)
     caches = M.init_caches(spec, BATCH, s, dtype=f32, device="cuda")
     _, caches = M.prefill(params, tok[:, :-1], caches, spec, compute_dtype=f32)
     step, _ = M.decode_step(params, caches, tok[:, -1], s - 1, spec, compute_dtype=f32)
+    return (full - step).abs().max().item(), full
+
+
+def consistency(torch, M, moem, map_with_path, reduced, spec, params, prompts):
+    """Prefill(S) vs prefill(S-1) + one decode step at full width (an MoE at
+    a capacity that drops nothing), then the reduced model on the card vs the
+    CPU's plain path."""
+    tok = torch.as_tensor(prompts, device="cuda")
+    s = tok.shape[1]
+    at = ""
+    if spec.n_experts:
+        gap, _ = prefill_vs_decode(torch, M, spec, params, tok)
+        print(f"[consistency] {spec.name} at capacity factor {moem.CAPACITY_FACTOR} (drops): "
+              f"prefill(S={s}) vs prefill(S-1)+decode_step differ by {gap:.3e}, by design")
+        default, moem.CAPACITY_FACTOR = moem.CAPACITY_FACTOR, NO_DROP_CAPACITY
+        at = f" at capacity factor {NO_DROP_CAPACITY} (no drops)"
+        try:
+            err, full = prefill_vs_decode(torch, M, spec, params, tok)
+        finally:
+            moem.CAPACITY_FACTOR = default
+    else:
+        err, full = prefill_vs_decode(torch, M, spec, params, tok)
     if full.shape != (BATCH, spec.vocab_size) or not bool(torch.isfinite(full).all()):
         fail(f"prefill logits: shape {tuple(full.shape)}, finite {bool(torch.isfinite(full).all())}")
-    err = (full - step).abs().max().item()
-    print(f"[consistency] {spec.name} prefill(S={s}) vs prefill(S-1)+decode_step: "
+    print(f"[consistency] {spec.name}{at} prefill(S={s}) vs prefill(S-1)+decode_step: "
           f"max_abs_err {err:.3e} (tol {CONSISTENCY_TOL}), max |logit| {full.abs().max().item():.3e}")
     if not err <= CONSISTENCY_TOL:
         fail(f"{spec.name}: prefill and decode disagree")
@@ -342,12 +379,14 @@ def consistency(torch, M, map_with_path, reduced, spec, params, prompts):
     cpu_params = M.init_params(small, SEED, device="cpu")
     gpu_params = map_with_path(lambda _, t: t.cuda(), cpu_params)
     small_tok = torch.as_tensor(prompts[:2, :200] % small.vocab_size)
-    on_cpu = M.forward(cpu_params, small_tok, small)
-    on_gpu = M.forward(gpu_params, small_tok.cuda(), small).cpu()
-    err_small = (on_cpu - on_gpu).abs().max().item()
+    on_cpu, aux_cpu = M.forward(cpu_params, small_tok, small)
+    on_gpu, aux_gpu = M.forward(gpu_params, small_tok.cuda(), small)
+    err_small = (on_cpu - on_gpu.cpu()).abs().max().item()
+    err_aux = abs(aux_cpu.item() - aux_gpu.item())
     print(f"[consistency] reduced {spec.name} forward B=2 S=200: "
-          f"card vs CPU plain path max_abs_err {err_small:.3e} (tol 1e-4)")
-    if not err_small <= 1e-4:
+          f"card vs CPU plain path max_abs_err {err_small:.3e} (tol 1e-4), "
+          f"aux {aux_gpu.item():.6f} vs {aux_cpu.item():.6f}")
+    if not (err_small <= 1e-4 and err_aux <= 1e-4):
         fail(f"{spec.name}: the card's forward disagrees with the CPU's")
 
 
@@ -376,6 +415,7 @@ def main() -> None:
     from repro_torch.kernels import _build, flash_attention as fa, ref, rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moem
     from repro_torch.models.layers import map_with_path, param_count
     from repro_torch.serve.engine import Engine
 
@@ -399,17 +439,34 @@ def main() -> None:
     print(f"[build] nvcc {sorted(logs) or 'cached'}: {time.perf_counter() - t0:.3f} s")
 
     # -- kernels ---------------------------------------------------------------
-    spec, mspec = get_arch(ARCH), get_arch(MAMBA)
+    spec, mspec, gspec, rspec = get_arch(ARCH), get_arch(MAMBA), get_arch(GEMMA), get_arch(GRANITE)
     h, g, hd, d = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim, spec.d_model
     mh, mg, mp, mn = mspec.ssm_heads, mspec.ssm_groups, mspec.ssm_head_dim, mspec.ssm_state
+    gh, gg, ghd, gw = gspec.n_heads, gspec.n_kv_heads, gspec.resolved_head_dim, gspec.sliding_window
     small = reduced(mspec)
     rows, ssd_rows = [], []
+    named = {}  # (dtype, case) -> row, for the report
     for dtype in (torch.float32, torch.bfloat16):
-        rows.append(check_flash(torch, F, fa, BATCH, PROMPT, PROMPT, h, g, hd, 0, dtype, 10))
-        rows.append(check_flash(torch, F, fa, BATCH, PROMPT, PROMPT, h, g, hd, 256, dtype, 10))
-        rows.append(check_flash(torch, F, fa, BATCH, 200, 200, h, g, hd, 0, dtype, 20))
-        rows.append(check_rmsnorm(torch, F, rn, ref, BATCH * PROMPT, d, dtype, 100))
-        rows.append(check_rmsnorm(torch, F, rn, ref, BATCH, d, dtype, 200))
+        name = dtype_name(dtype)
+        for key, args, iters in (
+                ("qwen2", (BATCH, PROMPT, PROMPT, h, g, hd, 0), 10),
+                ("qwen2 window 256", (BATCH, PROMPT, PROMPT, h, g, hd, 256), 10),
+                ("qwen2 ragged 200", (BATCH, 200, 200, h, g, hd, 0), 20),
+                # gemma3's prefill: 4 global layers and 22 at its window
+                ("gemma3 global", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, 0), 10),
+                (f"gemma3 window {gw}", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, gw), 10),
+                ("hd256 ragged 200", (BATCH, 200, 200, gh, gg, ghd, 0), 20),
+                ("granite", (BATCH, R_PROMPT, R_PROMPT, rspec.n_heads, rspec.n_kv_heads,
+                             rspec.resolved_head_dim, 0), 10)):
+            named[name, key] = check_flash(torch, F, fa, *args, dtype, iters)
+            rows.append(named[name, key])
+        for key, (n_rows, width), iters in (
+                ("qwen2 prefill", (BATCH * PROMPT, d), 100), ("qwen2 decode", (BATCH, d), 200),
+                ("gemma3 prefill", (BATCH * G_PROMPT, gspec.d_model), 100),
+                ("gemma3 decode", (BATCH, gspec.d_model), 200),
+                ("granite prefill", (BATCH * R_PROMPT, rspec.d_model), 100)):
+            named[name, key] = check_rmsnorm(torch, F, rn, ref, n_rows, width, dtype, iters)
+            rows.append(named[name, key])
         for ranges in ("model", "random"):
             for b, s, sh, sg, sp, sn, iters in (
                     (BATCH, M_PROMPT, mh, mg, mp, mn, 10),   # mamba2-130m prefill
@@ -425,16 +482,24 @@ def main() -> None:
     # -- serve, then consistency, per model ------------------------------------
     counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
                "ssd_scan": ss.ssd_scan}
+
+    def attention_counts(model_spec):
+        # per layer: flash once in prefill; norm1 and norm2 in prefill and in
+        # each decode step, and the final norm
+        return {"flash_attention": model_spec.n_layers, "ssd_scan": 0,
+                "rmsnorm": (2 * model_spec.n_layers + 1) * (1 + NEW)}
+
     by_path = {}
     for model_spec, prompt, want in (
-            (spec, PROMPT, {"flash_attention": spec.n_layers, "ssd_scan": 0,
-                            "rmsnorm": (2 * spec.n_layers + 1) * (1 + NEW)}),
+            (spec, PROMPT, attention_counts(spec)),
             # per layer: norm1 and the mixer's gated norm; no FFN, no attention
             (mspec, M_PROMPT, {"flash_attention": 0, "ssd_scan": mspec.n_layers,
-                               "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW)})):
+                               "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW)}),
+            (gspec, G_PROMPT, attention_counts(gspec)),
+            (rspec, R_PROMPT, attention_counts(rspec))):
         params, prompts, by_path[model_spec.name] = serve(
             torch, np, M, Engine, counted, param_count, card, model_spec, prompt, want)
-        consistency(torch, M, map_with_path, reduced, model_spec, params, prompts)
+        consistency(torch, M, moem, map_with_path, reduced, model_spec, params, prompts)
         del params
         torch.cuda.empty_cache()
 
@@ -446,11 +511,19 @@ def main() -> None:
     def numbers(r):
         return {key: r[key] for key in case_keys if key in r}
 
-    kernels = [  # more: the kernel at the other shapes of its path (bf16 flash, decode's norm)
+    # more: the kernel at the other shapes of its paths, and bf16 flash
+    flash_more = [("bfloat16", "qwen2")] + [
+        (name, key) for key in ("gemma3 global", f"gemma3 window {gw}", "hd256 ragged 200")
+        for name in ("float32", "bfloat16")] + [("float32", "granite")]
+    norm_more = [("float32", key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
+                                              "granite prefill")]
+    kernels = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:76", case=rows[0], more=[rows[5]]),
+             replaces="src/repro/kernels/flash_attention.py:76",
+             case=named["float32", "qwen2"], more=[named[k] for k in flash_more]),
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-             replaces="src/repro/kernels/rmsnorm.py:23", case=rows[3], more=[rows[4]]),
+             replaces="src/repro/kernels/rmsnorm.py:23",
+             case=named["float32", "qwen2 prefill"], more=[named[k] for k in norm_more]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0], more=[]),
     ]

@@ -21,20 +21,27 @@
 //   * One block per (128-query tile, batch*head), 384 threads: warpgroup 0
 //     is the producer, warpgroups 1 and 2 each own 64 query rows.
 //     `setmaxnreg` gives the producer 24 registers and each consumer 240.
-//   * One producer thread loads the Q tile once and keeps a ring of 2 K/V
+//   * One producer thread loads the Q tile once and keeps a ring of K/V
 //     stages in flight with TMA (4-D tensor maps over the model layout, so
-//     rows past S or T arrive as zeros); each stage has a full barrier for K,
-//     one for V, and an empty barrier that each of the 8 consumer warps
-//     arrives on when it is done with the stage.  Rows are split into boxes
-//     of at most 128 bytes under the matching TMA swizzle (128, 64 or 32 B),
-//     so shared-memory reads are free of bank conflicts.
-//   * bf16 (key tile 128): S = Q K^T is `wgmma.m64n128k16` with both
+//     rows past S or T arrive as zeros); each stage has a full and an empty
+//     barrier for K and the same for V.  Each of the 8 consumer warps
+//     arrives on K's empty barrier once S is computed and on V's once P V
+//     is, so the next K loads while a tile's softmax and P V run.  Rows are
+//     split into boxes of at most 128 bytes under the matching TMA swizzle
+//     (128, 64 or 32 B), so shared-memory reads are free of bank conflicts.
+//   * The key tile and the number of stages are per (type, head_dim)
+//     (`Tile`): up to head_dim 128, bf16 128 keys and f32 64, two stages.
+//     head_dim 256 (gemma3) has rows of 512 (bf16) or 1024 (f32) bytes, so
+//     its Q tile alone is 64 or 128 KB of the block's 227: bf16 takes 64
+//     keys in two stages (192 KB, and o[128] + S[32] + P[16] registers of a
+//     consumer's 240), f32 the key tile and stages of `F32_HD256_*`.
+//   * bf16: S = Q K^T is `wgmma.m64n{BK}k16` with both
 //     operands K-major in shared memory; the online softmax runs on the
 //     accumulator registers (scale and mask before exp2, masks only on tiles
 //     that cross the diagonal, the window edge or T); P is packed to bf16x2
-//     in registers and is the A operand of O += P V, with V the B operand
-//     through an MN-major descriptor.
-//   * f32 (key tile 64): each warp runs `mma.sync.m16n8k8` TF32 on 16 query
+//     in registers and is the A operand of O += P V (`m64n{hd}k16`), with V
+//     the B operand through an MN-major descriptor.
+//   * f32: each warp runs `mma.sync.m16n8k8` TF32 on 16 query
 //     rows, reading its fragments from the swizzled tiles and splitting them
 //     in registers.  P stays in registers: the accumulator's column pairs
 //     (2t, 2t+1) serve as the A fragment's k = (t, t+4), and V's rows are
@@ -58,22 +65,34 @@
 namespace {
 
 constexpr int BQ = 128;           // query rows per block: two consumer warpgroups of 64
-constexpr int NSTAGE = 2;         // K/V tiles in flight
 constexpr int NTHREADS = 384;     // the producer warpgroup and two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take on the H100
 constexpr float M_FLOOR = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// f32 at head_dim 256: the Q tile alone takes 128 KB, so the K/V ring gets
+// what is left (PERF.md gives the shapes tried on the card).
+constexpr int F32_HD256_BK = 32;
+constexpr int F32_HD256_NSTAGE = 1;
+
+// The tile shape of one (type, head_dim): keys per tile (BK) and K/V stages
+// in flight (NSTAGE).  Up to head_dim 128: bf16 BK 128, f32 BK 64, two
+// stages.  At 256 the rows are four (bf16) or eight (f32) TMA boxes of 128
+// bytes, and the bf16 consumer's o[128] + S[BK/2] + P[BK/4] registers fit
+// its 240 at BK 64, not at 128.
 template <typename T, int HD>
 struct Tile {
   static constexpr int ES = sizeof(T);
-  static constexpr int BK = ES == 2 ? 128 : 64;  // keys per tile
-  static constexpr int ROWB = HD * ES;           // bytes of one row
+  static constexpr int BK = ES == 2 ? (HD <= 128 ? 128 : 64) : (HD <= 128 ? 64 : F32_HD256_BK);
+  static constexpr int NSTAGE = ES == 2 || HD <= 128 ? 2 : F32_HD256_NSTAGE;
+  static constexpr int ROWB = HD * ES;               // bytes of one row
   static constexpr int W = ROWB < 128 ? ROWB : 128;  // bytes of a row in one TMA box = swizzle span
   static constexpr int NBOX = ROWB / W;
   static constexpr int Q_BYTES = BQ * ROWB;
   static constexpr int KV_BYTES = BK * ROWB;
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * NSTAGE * KV_BYTES + 8 * (1 + 3 * NSTAGE);
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * NSTAGE * KV_BYTES + 8 * (1 + 4 * NSTAGE);
+  static_assert(SMEM <= SMEM_LIMIT, "the tiles do not fit a block's shared memory");
 };
 
 struct Params {
@@ -182,6 +201,7 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t lbo) {
 #define WG_D16(i) WG_D8(i), WG_D8(i + 8)
 #define WG_D32(i) WG_D16(i), WG_D16(i + 16)
 #define WG_D64(i) WG_D32(i), WG_D32(i + 32)
+#define WG_D128(i) WG_D64(i), WG_D64(i + 64)
 
 // d (64 x N f32, accumulated) += a (64 x 16 bf16, registers) * B (16 x N, MN-major in shared memory)
 template <int N>
@@ -252,6 +272,41 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t desc_a, uint64_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_D128(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef WG_D128
 #undef WG_D64
 #undef WG_D32
 #undef WG_D16
@@ -387,10 +442,16 @@ __device__ __forceinline__ void write_out(const Params& p, const float* o, float
   }
 }
 
+// A consumer warp is done with a stage's K or V: lane 0 arrives for the warp.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
 // What a block works on, and where its shared memory lies.
 struct Work {
   uint8_t *sq, *sk, *sv;
-  uint64_t *q_full, *k_full, *v_full, *empty;
+  uint64_t *q_full, *k_full, *v_full, *k_empty, *v_empty;
   int b, h, g, q0, k_begin, n_tiles;
 };
 
@@ -416,14 +477,16 @@ __device__ void produce(const Params& p, const Work& w) {
   for (int x = 0; x < C::NBOX; ++x)
     tma_load_4d(w.sq + x * BQ * C::W, &p.tq, w.q_full, x * C::W / C::ES, w.q0, w.h, w.b);
   for (int i = 0; i < w.n_tiles; ++i) {
-    const int s = i % NSTAGE;
-    mbar_wait(w.empty + s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes at once
+    const int s = i % C::NSTAGE;
+    const uint32_t free_ph = ((i / C::NSTAGE) & 1) ^ 1;  // the first round passes at once
     const int k0 = w.k_begin + i * C::BK;
+    mbar_wait(w.k_empty + s, free_ph);
     mbar_expect_tx(w.k_full + s, C::KV_BYTES);
 #pragma unroll
     for (int x = 0; x < C::NBOX; ++x)
       tma_load_4d(w.sk + s * C::KV_BYTES + x * C::BK * C::W, &p.tk, w.k_full + s,
                   x * C::W / C::ES, k0, w.g, w.b);
+    mbar_wait(w.v_empty + s, free_ph);
     mbar_expect_tx(w.v_full + s, C::KV_BYTES);
 #pragma unroll
     for (int x = 0; x < C::NBOX; ++x)
@@ -449,8 +512,8 @@ __device__ void consume_bf16(const Params& p, const Work& w, int cw) {
   const uint32_t q_addr = smem_u32(w.sq) + cw * 64 * C::W;
   mbar_wait(w.q_full, 0);
   for (int i = 0; i < w.n_tiles; ++i) {
-    const int s = i % NSTAGE;
-    const uint32_t ph = (i / NSTAGE) & 1;
+    const int s = i % C::NSTAGE;
+    const uint32_t ph = (i / C::NSTAGE) & 1;
     const int k0 = w.k_begin + i * BK;
     const bool skip = tile_all_masked(p, k0, BK, r_wg);
     mbar_wait(w.k_full + s, ph);
@@ -469,6 +532,7 @@ __device__ void consume_bf16(const Params& p, const Work& w, int cw) {
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<BK / 2>(sc);
+      release(w.k_empty + s, lane);
       online_softmax<BK>(sc, m, l, alpha, q_row, k0 + col, !tile_unmasked(p, k0, BK, rw), p);
       rescale<HD>(o, alpha);
       uint32_t pa[BK / 16][4];
@@ -490,10 +554,10 @@ __device__ void consume_bf16(const Params& p, const Work& w, int cw) {
       wgmma_wait_all();
       fence_regs<HD / 2>(o);
     } else {
+      release(w.k_empty + s, lane);
       mbar_wait(w.v_full + s, ph);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(w.empty + s);
+    release(w.v_empty + s, lane);
   }
   write_out<__nv_bfloat16, HD>(p, o, l, w.b, w.h, q_row, col);
 }
@@ -515,8 +579,8 @@ __device__ void consume_f32(const Params& p, const Work& w, int cw) {
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   mbar_wait(w.q_full, 0);
   for (int i = 0; i < w.n_tiles; ++i) {
-    const int s = i % NSTAGE;
-    const uint32_t ph = (i / NSTAGE) & 1;
+    const int s = i % C::NSTAGE;
+    const uint32_t ph = (i / C::NSTAGE) & 1;
     const int k0 = w.k_begin + i * BK;
     const bool skip = tile_all_masked(p, k0, BK, r_wg);
     mbar_wait(w.k_full + s, ph);
@@ -541,6 +605,7 @@ __device__ void consume_f32(const Params& p, const Work& w, int cw) {
           mma_3xtf32(sc + 4 * j, ah, al, bh, bl);
         }
       }
+      release(w.k_empty + s, lane);
       online_softmax<BK>(sc, m, l, alpha, rw + g, k0 + 2 * t, !tile_unmasked(p, k0, BK, rw), p);
       rescale<HD>(o, alpha);
       mbar_wait(w.v_full + s, ph);
@@ -562,10 +627,10 @@ __device__ void consume_f32(const Params& p, const Work& w, int cw) {
         }
       }
     } else {
+      release(w.k_empty + s, lane);
       mbar_wait(w.v_full + s, ph);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(w.empty + s);
+    release(w.v_empty + s, lane);
   }
   write_out<float, HD>(p, o, l, w.b, w.h, rw + g, 2 * t);
 }
@@ -580,11 +645,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(const __grid_con
   Work w;
   w.sq = smem;
   w.sk = w.sq + C::Q_BYTES;
-  w.sv = w.sk + NSTAGE * C::KV_BYTES;
-  w.q_full = reinterpret_cast<uint64_t*>(w.sv + NSTAGE * C::KV_BYTES);
+  w.sv = w.sk + C::NSTAGE * C::KV_BYTES;
+  w.q_full = reinterpret_cast<uint64_t*>(w.sv + C::NSTAGE * C::KV_BYTES);
   w.k_full = w.q_full + 1;
-  w.v_full = w.k_full + NSTAGE;
-  w.empty = w.v_full + NSTAGE;
+  w.v_full = w.k_full + C::NSTAGE;
+  w.k_empty = w.v_full + C::NSTAGE;
+  w.v_empty = w.k_empty + C::NSTAGE;
   w.b = blockIdx.x / p.H;
   w.h = blockIdx.x % p.H;
   w.g = w.h / (p.H / p.G);
@@ -595,10 +661,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(const __grid_con
 
   if (threadIdx.x == 0) {
     mbar_init(w.q_full, 1);
-    for (int s = 0; s < NSTAGE; ++s) {
+    for (int s = 0; s < C::NSTAGE; ++s) {
       mbar_init(w.k_full + s, 1);
       mbar_init(w.v_full + s, 1);
-      mbar_init(w.empty + s, CONSUMER_WARPS);
+      mbar_init(w.k_empty + s, CONSUMER_WARPS);
+      mbar_init(w.v_empty + s, CONSUMER_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -698,6 +765,7 @@ int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, i
     case 32: return launch<T, 32>(p, q, k, v, B, strides, stream);
     case 64: return launch<T, 64>(p, q, k, v, B, strides, stream);
     case 128: return launch<T, 128>(p, q, k, v, B, strides, stream);
+    case 256: return launch<T, 256>(p, q, k, v, B, strides, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,6 +4,10 @@
         --batch 4 --prompt-len 1000 --new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --batch 4 --prompt-len 4096 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --batch 4 --prompt-len 2040 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+        --batch 4 --prompt-len 1024 --new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of the JAX package's ``launch/serve.py``, with ``--device``

@@ -6,9 +6,14 @@ and its ``flash_attention_ref`` branch, :154-162, both become the kernel).
 Decode attends one query row against the cache with plain tensor ops, as
 the JAX package computes it outside any Pallas kernel (:248-256).
 
-Caches are a dict ``{"k", "v"}`` of (B, T, G, hd) tensors that prefill and
-decode update in place (no copy of the whole cache per token) and return.
-Only the full cache is ported; the sliding-window ring buffer is not.
+Caches are dicts of tensors that prefill and decode update in place (no
+copy of the whole cache per token) and return.  A global layer's cache is
+``{"k", "v"}`` of (B, T, G, hd) with T the serving length.  A
+sliding-window layer keeps a ring buffer of ``t = min(window, T)`` slots,
+the JAX ``attn_cache_defs`` (:170-180): token ``pos`` lives in slot
+``pos % t`` and ``kpos[slot]`` holds ``pos + 1`` (0 = empty).  ``kpos`` is
+int32 whatever the cache dtype, so it holds every position exactly; the JAX
+package keeps it in the cache dtype, where bf16 rounds 513 to 512.
 """
 from __future__ import annotations
 
@@ -18,10 +23,8 @@ import torch
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import ParamDef, apply_rope
-
-RING_CACHE_TODO = ("the sliding-window ring-buffer cache is not ported yet "
-                   "(ROADMAP.md Queue 1, item 4: window ring buffer and gemma3)")
 
 
 def attn_defs(spec: ArchSpec) -> dict[str, ParamDef]:
@@ -82,35 +85,49 @@ def attention_fwd(p, x, positions, spec: ArchSpec, *, window: int = 0) -> torch.
 
 def attn_cache_defs(spec: ArchSpec, batch: int, seq: int, *,
                     window: int = 0) -> dict[str, ParamDef]:
-    if window:
-        raise NotImplementedError(RING_CACHE_TODO)
+    """``kpos`` (ring caches only) is int32: ``model.init_caches`` makes it so."""
     g, hd = spec.n_kv_heads, spec.resolved_head_dim
-    return {"k": ParamDef((batch, seq, g, hd), "zeros"),
-            "v": ParamDef((batch, seq, g, hd), "zeros")}
+    t = min(window, seq) if window else seq
+    defs = {"k": ParamDef((batch, t, g, hd), "zeros"),
+            "v": ParamDef((batch, t, g, hd), "zeros")}
+    if window:
+        defs["kpos"] = ParamDef((t,), "zeros")  # pos + 1 of each slot, 0 = empty
+    return defs
 
 
 def attn_prefill(p, x, positions, spec: ArchSpec, cache, *, window: int = 0):
-    """Forward over the prompt, writing its k/v into ``cache[:, :S]`` in place."""
-    if window:
-        raise NotImplementedError(RING_CACHE_TODO)
+    """Forward over the prompt, writing its k/v into the cache in place: a
+    full cache takes them at ``[:, :S]``; a ring cache keeps the trailing
+    ``min(S, t)`` tokens at slot ``pos % t`` and is emptied elsewhere, as
+    the JAX ``attn_prefill`` (:193-201) rebuilds it."""
     s, t = x.shape[1], cache["k"].shape[1]
-    if s > t:
-        raise ValueError(f"prompt of {s} tokens does not fit a cache of {t}")
     y, k, v = _attend(p, x, positions, spec, window)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    if not window:
+        if s > t:
+            raise ValueError(f"prompt of {s} tokens does not fit a cache of {t}")
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        return y, cache
+    m = min(s, t)
+    tail = positions[s - m:].long()
+    slots = tail % t
+    for name, new in (("k", k), ("v", v)):
+        cache[name][:, slots] = new[:, s - m:].to(cache[name].dtype)
+        cache[name][:, m:] = 0  # m < t only when S < t: then slot i holds token i
+    cache["kpos"][slots] = (tail + 1).to(cache["kpos"].dtype)
+    cache["kpos"][m:] = 0
     return y, cache
 
 
 def attn_decode(p, x, pos: int, spec: ArchSpec, cache, *, window: int = 0):
     """One decode step.  x: (B, D); pos: the new token's position (shared
-    across the batch).  Writes its k/v at slot ``min(pos, T-1)`` in place and
-    attends to slots ``0..pos``.
+    across the batch).  A full cache takes its k/v at slot ``min(pos, T-1)``
+    in place and attends to slots ``0..pos``; a ring cache takes them at
+    ``pos % t`` and attends to every slot under the JAX mask (:241): filled,
+    not after ``pos``, and within the last ``t`` positions.
 
     GQA is computed with grouped einsums (no head-repeat copy).
     """
-    if window:
-        raise NotImplementedError(RING_CACHE_TODO)
     b, d = x.shape
     h, g, hd = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim
     q, k, v = _project_qkv(p, x[:, None, :], spec)  # (B,1,...)
@@ -119,15 +136,23 @@ def attn_decode(p, x, pos: int, spec: ArchSpec, cache, *, window: int = 0):
     k = apply_rope(k, posv, spec.rope_theta)
 
     t = cache["k"].shape[1]
-    slot = min(pos, t - 1)
+    slot = pos % t if window else min(pos, t - 1)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
+    if window:
+        cache["kpos"][slot] = pos + 1
+        kpos = cache["kpos"]
+        valid = (kpos > 0) & (kpos - 1 <= pos) & (kpos - 1 > pos - t)
+        n = t
+    else:
+        n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
 
     qg = q[:, 0].reshape(b, g, h // g, hd)
     kk = cache["k"][:, :n].to(q.dtype)
     vv = cache["v"][:, :n].to(q.dtype)
-    s = torch.einsum("bgrk,btgk->bgrt", qg, kk) * (1.0 / math.sqrt(hd))
-    pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    s = (torch.einsum("bgrk,btgk->bgrt", qg, kk) * (1.0 / math.sqrt(hd))).float()
+    if window:
+        s = torch.where(valid, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bgrt,btgk->bgrk", pr, vv).reshape(b, 1, h, hd)
     return _out_proj(p, o)[:, 0], cache

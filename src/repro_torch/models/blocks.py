@@ -6,26 +6,23 @@ stacks the parameters of a repeating block pattern and runs it under
 execution order, and runs them in a Python loop (``convert.from_jax_params``
 unstacks a JAX tree into this order).
 
-Ported: the ``attn_full`` / ``attn_local`` and ``mamba`` mixers, with the
-``mlp`` FFN or none (a layer with ``ffn == "none"`` has no ``norm2``/``ffn``
-leaves).  The ``moe`` FFN raises ``NotImplementedError``.
+Every layer kind of the JAX package: the ``attn_full`` / ``attn_local``
+(sliding-window, with a ring-buffer cache) and ``mamba`` mixers, with the
+``mlp`` or ``moe`` FFN or none (a layer with ``ffn == "none"`` has no
+``norm2``/``ffn`` leaves).
 """
 from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from repro_torch.configs.base import ArchSpec, LayerDef
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models.layers import ParamDef, rmsnorm
-
-MOE_TODO = "the MoE FFN is not ported yet (ROADMAP.md Queue 1, item 4: MoE)"
-
-
-def _check_ported(ld: LayerDef) -> None:
-    if ld.ffn == "moe":
-        raise NotImplementedError(MOE_TODO)
 
 
 def _window(spec: ArchSpec, ld: LayerDef) -> int:
@@ -33,27 +30,31 @@ def _window(spec: ArchSpec, ld: LayerDef) -> int:
 
 
 def layer_param_defs(spec: ArchSpec, ld: LayerDef) -> dict[str, Any]:
-    _check_ported(ld)
     d = spec.d_model
     defs: dict[str, Any] = {"norm1": ParamDef((d,), "zeros")}
     defs["mixer"] = mb.mamba_defs(spec) if ld.mixer == "mamba" else attn.attn_defs(spec)
     if ld.ffn != "none":
         defs["norm2"] = ParamDef((d,), "zeros")
-        defs["ffn"] = mlpm.mlp_defs(spec)
+        defs["ffn"] = moem.moe_defs(spec) if ld.ffn == "moe" else mlpm.mlp_defs(spec)
     return defs
 
 
 def layer_cache_defs(spec: ArchSpec, ld: LayerDef, batch: int, seq: int) -> dict[str, Any]:
-    _check_ported(ld)
     if ld.mixer == "mamba":
         return mb.mamba_cache_defs(spec, batch)
     return attn.attn_cache_defs(spec, batch, seq, window=_window(spec, ld))
 
 
 def _ffn(p, x, ld: LayerDef, spec: ArchSpec):
+    """x + FFN(norm2(x)) and the layer's load-balance loss (None without MoE).
+    x: (B, S, D), or (B, D) in decode, which the MoE routes as S = 1."""
     if ld.ffn == "none":
-        return x
-    return x + mlpm.mlp_apply(p["ffn"], rmsnorm(x, p["norm2"], spec.norm_eps), spec)
+        return x, None
+    h = rmsnorm(x, p["norm2"], spec.norm_eps)
+    if ld.ffn == "mlp":
+        return x + mlpm.mlp_apply(p["ffn"], h, spec), None
+    y, aux = moem.moe_apply(p["ffn"], h if h.ndim == 3 else h[:, None, :], spec)
+    return x + y.view_as(x), aux["lb_loss"]
 
 
 def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec):
@@ -72,7 +73,7 @@ def _apply_prefill(p, x, positions, ld: LayerDef, spec: ArchSpec, cache):
     else:
         y, cache = attn.attn_prefill(p["mixer"], h, positions, spec, cache,
                                      window=_window(spec, ld))
-    return _ffn(p, x + y, ld, spec), cache
+    return _ffn(p, x + y, ld, spec)[0], cache
 
 
 def _apply_decode(p, x, pos: int, ld: LayerDef, spec: ArchSpec, cache):
@@ -81,7 +82,7 @@ def _apply_decode(p, x, pos: int, ld: LayerDef, spec: ArchSpec, cache):
         y, cache = mb.mamba_decode(p["mixer"], h, spec, cache)
     else:
         y, cache = attn.attn_decode(p["mixer"], h, pos, spec, cache, window=_window(spec, ld))
-    return _ffn(p, x + y, ld, spec), cache
+    return _ffn(p, x + y, ld, spec)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -97,10 +98,15 @@ def stack_cache_defs(spec: ArchSpec, batch: int, seq: int) -> list[dict[str, Any
 
 
 def stack_forward(params, x, positions, spec: ArchSpec):
-    """The JAX ``stack_train`` forward (no remat: the port does not train)."""
+    """The JAX ``stack_train`` forward (no remat: the port does not train).
+    Returns (x, aux): aux sums ``lb_loss`` over the MoE layers (f32 0 without
+    any), as the JAX ``_apply_train`` (:66-72) does."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, ld in zip(params, spec.layer_defs()):
-        x = _apply_forward(p, x, positions, ld, spec)
-    return x
+        x, lb = _apply_forward(p, x, positions, ld, spec)
+        if lb is not None:
+            aux = aux + lb
+    return x, aux
 
 
 def stack_prefill(params, x, positions, spec: ArchSpec, caches):

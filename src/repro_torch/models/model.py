@@ -7,8 +7,8 @@ points:
   * ``decode_step`` — one token with caches
 
 The JAX package has no sharding on this path (``NULL_PLAN``), so the port
-takes no plan.  ``forward`` returns the logits alone: the JAX ``aux`` output
-is the MoE load-balance loss, which comes with the MoE FFN.
+takes no plan.  ``forward`` returns ``(logits, aux)`` as the JAX one does:
+``aux`` sums the MoE layers' load-balance losses.
 """
 from __future__ import annotations
 
@@ -50,10 +50,14 @@ def cache_defs(spec: ArchSpec, batch: int, seq: int):
 
 
 def init_caches(spec: ArchSpec, batch: int, seq: int, dtype=torch.bfloat16, *, device=None):
-    """Zeroed per-layer caches; prefill and decode fill them in place."""
+    """Zeroed per-layer caches; prefill and decode fill them in place.  Every
+    leaf takes ``dtype`` but a ring cache's ``kpos``, which is int32 so that
+    it holds positions exactly (the JAX package's takes the cache dtype)."""
     dev = resolve_device(device)
-    return map_with_path(lambda _, d: torch.zeros(d.shape, dtype=dtype, device=dev),
-                         cache_defs(spec, batch, seq))
+    return map_with_path(
+        lambda path, d: torch.zeros(d.shape, dtype=torch.int32 if path[-1] == "kpos" else dtype,
+                                    device=dev),
+        cache_defs(spec, batch, seq))
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +80,11 @@ def _positions(s: int, device) -> torch.Tensor:
 
 
 def forward(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32):
-    """inputs: (B, S) int tokens or (B, S, D) embeddings -> logits (B, S, V)."""
+    """inputs: (B, S) int tokens or (B, S, D) embeddings -> (logits (B, S, V),
+    aux: the MoE layers' summed load-balance loss, f32 0 without MoE)."""
     x = _embed_in(params, inputs, spec, compute_dtype)
-    x = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec)
-    return _head(params, x, spec)
+    x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec)
+    return _head(params, x, spec), aux
 
 
 def prefill(params, inputs, caches, spec: ArchSpec, *, compute_dtype=torch.bfloat16):

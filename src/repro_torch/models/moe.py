@@ -1,0 +1,117 @@
+"""Top-k routed Mixture-of-Experts with per-group expert capacity.
+
+Counterpart of the JAX package's ``models/moe.py``: the same routing
+(softmax, top-k, weights renormalised over the k), the same capacity per
+(group, expert), ``C = group_size * top_k * CAPACITY_FACTOR / E`` rounded
+up to a multiple of 8 (at least 8), the same drops (a token's position within an
+expert counts earlier tokens first, then earlier routing slots, dropped
+assignments included), the same group size (halved until it divides S) and
+the same chunk-major group order, so the same tokens are dropped.  The
+Switch load-balance loss over the top-1 choice and the dropped share come
+back in ``aux``.
+
+Where the JAX module builds (G, T, E, C) one-hot dispatch and combine
+tensors and contracts them (the MXU-friendly form; about 2 x 32 GFLOP per
+granite layer at B=4, S=1024), the port records which token each (group,
+expert, slot) row of an expert-major (E, G, C, D) buffer holds, gathers those rows
+(``index_select``), and gathers the expert outputs back by the same index.
+Each kept (expert, slot) holds exactly one token, so both compute the same
+function.  Nothing on the way asks the card for a count (no boolean-mask
+indexing), so the host never waits for it.  The expert products are batched
+matmuls, which the JAX package leaves to XLA outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models.layers import ParamDef
+
+CAPACITY_FACTOR = 1.25
+GROUP_SIZE = 256
+
+
+def moe_defs(spec: ArchSpec) -> dict[str, ParamDef]:
+    d, f, e = spec.d_model, spec.d_ff, spec.n_experts
+    return {
+        "router": ParamDef((d, e)),
+        "w_gate": ParamDef((e, d, f)),
+        "w_up": ParamDef((e, d, f)),
+        "w_down": ParamDef((e, f, d)),
+    }
+
+
+def expert_capacity(group_size: int, spec: ArchSpec) -> int:
+    cap = int(group_size * spec.top_k * CAPACITY_FACTOR / spec.n_experts)
+    return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8
+
+
+def group_size_for(s: int) -> int:
+    """Tokens per routing group: ``GROUP_SIZE`` (or S if shorter), halved
+    until it divides S; 1 at S = 1."""
+    tg = min(GROUP_SIZE, s) if s > 1 else 1
+    while s % tg:
+        tg //= 2
+    return tg
+
+
+def route(logits, k: int, cap: int):
+    """logits: (G, T, E) f32 -> (experts (G,T,k), slots (G,T,k), keep (G,T,k),
+    weights (G,T,k), aux).
+
+    ``slots`` is each assignment's position within its expert: the number of
+    assignments to that expert by earlier routing slots (all tokens of the
+    group) plus those by earlier tokens in the same slot, i.e. a running
+    count over the group's assignments taken slot-major.
+    """
+    g, t, e = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(probs, k, dim=-1)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    order = top_i.transpose(1, 2).reshape(g, 1, k * t)                  # slot-major
+    # one-hot laid out (G, E, kT), so the running count scans the last dim
+    oh = (order == torch.arange(e, device=logits.device)[:, None]).to(torch.int32)
+    before = torch.cumsum(oh, dim=2, dtype=torch.int32) - oh
+    slots = before.gather(1, order).view(g, k, t).transpose(1, 2)
+    keep = slots < cap
+    # Switch-style load-balance loss over the top-1 assignment
+    fraction = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
+    lb_loss = e * torch.sum(fraction * probs.mean(dim=(0, 1)))
+    drop_frac = (~keep).sum().float() / (g * t * k)
+    return top_i, slots, keep, top_w, {"lb_loss": lb_loss, "drop_frac": drop_frac}
+
+
+def moe_apply(p, x, spec: ArchSpec):
+    """x: (B, S, D) -> (y (B, S, D), aux {"lb_loss", "drop_frac"})."""
+    b, s, d = x.shape
+    e, k = spec.n_experts, spec.top_k
+    tg = group_size_for(s)
+    nc, ng = s // tg, (b * s) // tg
+    cap = expert_capacity(tg, spec)
+    # chunk-major group order, G = chunk * B + b, as the JAX module has it
+    xg = x.reshape(b, nc, tg, d).transpose(0, 1).reshape(ng, tg, d)
+    logits = (xg @ p["router"].to(x.dtype)).float()
+    top_i, slots, keep, top_w, aux = route(logits, k, cap)
+
+    # row of each assignment in the (E, G, C) buffer; a dropped one goes to a
+    # spare last entry.  src: the token each buffer row holds, ng * tg (a
+    # row of zeros) where none does
+    n_rows, n_tok = e * ng * cap, ng * tg
+    group = torch.arange(ng, device=x.device)[:, None, None]
+    row = (top_i * ng + group) * cap + slots                            # (G,T,k)
+    tok = (group * tg + torch.arange(tg, device=x.device)[None, :, None]).expand_as(row)
+    src = torch.full((n_rows + 1,), n_tok, dtype=torch.int64, device=x.device)
+    src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1), tok.reshape(-1))
+    rows = F.pad(xg.reshape(n_tok, d), (0, 0, 0, 1))
+    xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
+
+    gate = torch.bmm(xe, p["w_gate"].to(x.dtype))
+    up = torch.bmm(xe, p["w_up"].to(x.dtype))
+    ye = torch.bmm(F.silu(gate) * up, p["w_down"].to(x.dtype)).view(n_rows, d)
+
+    w = (top_w * keep).to(x.dtype)                                      # dropped: weight 0
+    picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1)).view(ng, tg, k, d)
+    y = torch.einsum("gtkd,gtk->gtd", picked, w)
+    y = y.reshape(nc, b, tg, d).transpose(0, 1).reshape(b, s, d)
+    return y, aux

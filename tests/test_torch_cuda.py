@@ -52,6 +52,17 @@ def _close(got, want, dtype):
     (1, 77, 77, 4, 2, 128, 16),
     (1, 1, 1, 2, 1, 128, 0),
     (1, 100, 300, 2, 1, 64, 0),     # T > S: keys past S are masked by causality
+    # head_dim 256 (gemma3: 4 query heads on 1 KV group), its own tile shape
+    (2, 2040, 2040, 4, 1, 256, 512),  # gemma3's prefill, local layers (B=2)
+    (1, 2040, 2040, 4, 1, 256, 0),    # and its global layers
+    (2, 256, 256, 4, 1, 256, 0),
+    (1, 600, 600, 4, 1, 256, 512),
+    (1, 300, 300, 4, 1, 256, 100),  # the window's edge inside a key tile
+    (2, 300, 300, 4, 1, 256, 37),
+    (2, 200, 200, 4, 1, 256, 0),    # ragged
+    (1, 1, 1, 4, 1, 256, 0),
+    (1, 100, 300, 4, 1, 256, 0),    # T > S
+    (1, 130, 700, 4, 2, 256, 50),   # T > S with a window, 2 groups
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, b, s, t, h, g, hd, window, dtype):
@@ -66,9 +77,10 @@ def test_flash_kernel_matches_plain(dev, b, s, t, h, g, hd, window, dtype):
 
 
 # The kernels' seams: 128-row query tiles in two 64-row halves, key tiles of
-# 128 (bf16) and 64 (f32), TMA boxes of up to 128 bytes per row.
+# 128 (bf16) and 64 (f32) up to head_dim 128 and 64 (bf16) and fewer (f32)
+# at 256, TMA boxes of up to 128 bytes per row.
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_tile_seams(dev, s, hd, dtype):
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -97,26 +109,29 @@ def test_flash_kernel_window_and_long_keys(dev, s, t, window, dtype):
            fa.flash_attention_plain(q, k, v, window=window), dtype)
 
 
-def test_flash_f32_keeps_f32_accuracy_at_large_scores(dev):
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_f32_keeps_f32_accuracy_at_large_scores(dev, hd):
     """Scores of magnitude 10 and more: one TF32 pass misses 1e-4 here (PERF.md
     gives its error), the kernel's 3xTF32 must not."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    q = torch.randn((1, 256, 4, 128), generator=gen, device=dev) * 4
-    k = torch.randn((1, 256, 2, 128), generator=gen, device=dev) * 4
-    v = torch.randn((1, 256, 2, 128), generator=gen, device=dev)
-    scores = torch.einsum("bshd,btgd->bsht", q[:, :, :2], k) / 128 ** 0.5
+    q = torch.randn((1, 256, 4, hd), generator=gen, device=dev) * 4
+    k = torch.randn((1, 256, 2, hd), generator=gen, device=dev) * 4
+    v = torch.randn((1, 256, 2, hd), generator=gen, device=dev)
+    scores = torch.einsum("bshd,btgd->bsht", q[:, :, :2], k) / hd ** 0.5
     assert scores.abs().amax(-1).min() >= 10
     _close(ops.mha_flash(q, k, v), fa.flash_attention_plain(q, k, v), torch.float32)
 
 
-@pytest.mark.parametrize("width,start", [
-    (72, 1),   # the base address off 16 bytes
-    (66, 0),   # the head stride (66 elements) no multiple of 16 bytes
+@pytest.mark.parametrize("hd,width,start", [
+    (64, 72, 1),     # the base address off 16 bytes
+    (64, 66, 0),     # the head stride (66 elements) no multiple of 16 bytes
+    (256, 264, 1),
+    (256, 258, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_rejects_views_tma_cannot_read(dev, width, start, dtype):
-    q = torch.zeros((1, 32, 4, width), device=dev, dtype=dtype)[..., start:start + 64]
-    k = torch.zeros((1, 32, 2, 64), device=dev, dtype=dtype)
+def test_flash_kernel_rejects_views_tma_cannot_read(dev, hd, width, start, dtype):
+    q = torch.zeros((1, 32, 4, width), device=dev, dtype=dtype)[..., start:start + hd]
+    k = torch.zeros((1, 32, 2, hd), device=dev, dtype=dtype)
     before = fa.flash_attention.launches
     with pytest.raises(ValueError, match="16"):
         ops.mha_flash(q, k, k)
@@ -267,7 +282,8 @@ def test_reduced_mamba_on_card_matches_cpu(dev):
     cpu = M.init_params(spec, 0, device="cpu")
     gpu = map_with_path(lambda _, t: t.to(dev), cpu)
     tok = torch.as_tensor(np.random.default_rng(3).integers(0, spec.vocab_size, (2, 70)))
-    _close(M.forward(gpu, tok.to(dev), spec).cpu(), M.forward(cpu, tok, spec), torch.float32)
+    _close(M.forward(gpu, tok.to(dev), spec)[0].cpu(), M.forward(cpu, tok, spec)[0],
+           torch.float32)
     caches = M.init_caches(spec, 2, 80, dtype=torch.float32, device=dev)
     lp, caches = M.prefill(gpu, tok.to(dev), caches, spec, compute_dtype=torch.float32)
     ld, caches = M.decode_step(gpu, caches, tok[:, -1].to(dev), 70, spec,
@@ -287,7 +303,8 @@ def test_reduced_model_on_card_matches_cpu(dev):
     cpu = M.init_params(spec, 0, device="cpu")
     gpu = map_with_path(lambda _, t: t.to(dev), cpu)
     tok = torch.as_tensor(np.random.default_rng(3).integers(0, spec.vocab_size, (2, 70)))
-    _close(M.forward(gpu, tok.to(dev), spec).cpu(), M.forward(cpu, tok, spec), torch.float32)
+    _close(M.forward(gpu, tok.to(dev), spec)[0].cpu(), M.forward(cpu, tok, spec)[0],
+           torch.float32)
     caches = M.init_caches(spec, 2, 80, dtype=torch.float32, device=dev)
     lp, caches = M.prefill(gpu, tok.to(dev), caches, spec, compute_dtype=torch.float32)
     ld, _ = M.decode_step(gpu, caches, tok[:, -1].to(dev), 70, spec, compute_dtype=torch.float32)
@@ -296,3 +313,44 @@ def test_reduced_model_on_card_matches_cpu(dev):
     cld, _ = M.decode_step(cpu, ccache, tok[:, -1], 70, spec, compute_dtype=torch.float32)
     _close(lp.cpu(), clp, torch.float32)
     _close(ld.cpu(), cld, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m", "jamba-v0.1-52b"])
+def test_reduced_ring_and_moe_models_on_card_match_cpu(dev, arch):
+    """Ring caches (window 16, a 70-token prompt, then decode across the
+    wrap), MoE FFNs and the hybrid: forward with its aux, prefill, six decode
+    steps and every cache leaf on the card against the CPU's plain path,
+    within 1e-4 of each one's scale: the same code on both devices."""
+    tol = 1e-4
+    spec = reduced(ARCHS[arch])
+    cpu = M.init_params(spec, 0, device="cpu")
+    gpu = map_with_path(lambda _, t: t.to(dev), cpu)
+    tok = torch.as_tensor(np.random.default_rng(3).integers(0, spec.vocab_size, (2, 76)))
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol * scale)
+
+    gl, ga = M.forward(gpu, tok[:, :70].to(dev), spec)
+    cl, ca = M.forward(cpu, tok[:, :70], spec)
+    close(gl, cl)
+    close(ga, ca)
+    f32 = torch.float32
+    caches = M.init_caches(spec, 2, 80, dtype=f32, device=dev)
+    ccache = M.init_caches(spec, 2, 80, dtype=f32, device="cpu")
+    lp, caches = M.prefill(gpu, tok[:, :70].to(dev), caches, spec, compute_dtype=f32)
+    clp, ccache = M.prefill(cpu, tok[:, :70], ccache, spec, compute_dtype=f32)
+    close(lp, clp)
+    for pos in range(70, 76):
+        ld, caches = M.decode_step(gpu, caches, tok[:, pos].to(dev), pos, spec, compute_dtype=f32)
+        cld, ccache = M.decode_step(cpu, ccache, tok[:, pos], pos, spec, compute_dtype=f32)
+        close(ld, cld)
+    for got, want in zip(caches, ccache):
+        assert got.keys() == want.keys()
+        for name in got:
+            if name == "kpos":
+                assert got[name].dtype == torch.int32 and torch.equal(got[name].cpu(), want[name])
+            else:
+                close(got[name], want[name])

@@ -52,6 +52,7 @@ def _np(x):
     (1, 128, 2, 2, 32),
     (2, 128, 8, 1, 16),
     (1, 512, 4, 4, 64),
+    (1, 128, 4, 1, 256),  # gemma3's head_dim and 4:1 grouping
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_mha_flash_causal_matches_jax(b, s, h, g, hd, dtype):
@@ -69,6 +70,16 @@ def test_mha_flash_sliding_window_matches_jax(window, h, g):
     expect = jops.mha_flash(jq, jk, jv, causal=True, window=window, block_q=64, block_k=64)
     got = ops.mha_flash(tq, tk, tv, causal=True, window=window)
     np.testing.assert_allclose(_np(got), _np(expect), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [16, 100])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mha_flash_sliding_window_at_head_dim_256_matches_jax(window, dtype):
+    """gemma3's local layers: head_dim 256, 4 query heads on 1 KV group."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(4, 1, 256, 256, 4, 1, 256, dtype)
+    expect = jops.mha_flash(jq, jk, jv, causal=True, window=window, block_q=64, block_k=64)
+    got = ops.mha_flash(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(expect), **_tol(dtype))
 
 
 @pytest.mark.parametrize("h,g,window", [(2, 2, 0), (4, 2, 0), (4, 1, 48)])

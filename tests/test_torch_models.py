@@ -15,10 +15,13 @@ import torch
 
 from repro.configs import ARCHS as JARCHS, reduced as jreduced
 from repro.models import model as JM
-from repro.models.layers import param_count as param_count_jax
+from repro.models import moe as jmoe
+from repro.models.layers import init_tree as jinit_tree, param_count as param_count_jax
+from repro.parallel.sharding import NULL_PLAN
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.convert import from_jax_params
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.layers import param_count
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -55,17 +58,29 @@ def _tokens(spec, b, s, seed=1):
     # layer's output; one layer of it agrees to 1e-5
     ("gemma3-1b", dict(rtol=3e-3, atol=3e-3)),
     ("mamba2-130m", TOL),
-], ids=["qwen2-1.5b", "gpt3-13b", "gemma3-1b", "mamba2-130m"])
+    ("granite-moe-3b-a800m", TOL),
+    # 16 layers, 14 of them Mamba at random-init w_dt: the JAX chunked SSD's
+    # f32 exp(cum_l - cum_m) loses digits there (see the mamba test below),
+    # ~4e-4 on logits of ~4
+    ("jamba-v0.1-52b", dict(rtol=1e-3, atol=1e-3)),
+], ids=["qwen2-1.5b", "gpt3-13b", "gemma3-1b", "mamba2-130m", "granite-moe-3b-a800m",
+        "jamba-v0.1-52b"])
 def test_forward_matches_jax(arch, tol):
     """qwen2: bias + tied head; gpt3: untied head, GELU; gemma3: sliding-window
     layers and a remainder (tail) of the block pattern; mamba2: SSD mixers
-    through ``ops.ssd`` with no FFN."""
+    through ``ops.ssd`` with no FFN; granite: MoE FFNs; jamba: attention,
+    Mamba and MoE layers in one stack.  ``aux`` is the summed load-balance
+    loss (0 without MoE)."""
     jspec, spec, jp, tp = _setup(arch)
     tok = _tokens(spec, 2, 24)
-    expect, _ = JM.forward(jax.tree.map(jnp.asarray, jp), jnp.asarray(tok), jspec, remat="none")
-    got = M.forward(tp, torch.from_numpy(tok), spec)
+    expect, expect_aux = JM.forward(jax.tree.map(jnp.asarray, jp), jnp.asarray(tok), jspec,
+                                    remat="none")
+    got, aux = M.forward(tp, torch.from_numpy(tok), spec)
     assert got.shape == (2, 24, spec.vocab_size)
+    assert aux.shape == () and aux.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), **tol)
+    np.testing.assert_allclose(aux.item(), float(expect_aux), rtol=1e-5)
+    assert (aux.item() > 0) == bool(spec.n_experts)
 
 
 def test_prefill_decode_and_caches_match_jax():
@@ -140,7 +155,7 @@ def test_mamba_prefill_then_decode_matches_forward():
     also for a prompt shorter than the conv window."""
     _, spec, _, tp = _setup("mamba2-130m")
     tok = torch.from_numpy(_tokens(spec, 2, 24))
-    full = M.forward(tp, tok, spec)
+    full, _ = M.forward(tp, tok, spec)
     for s in (23, 2):
         caches = M.init_caches(spec, 2, 24, dtype=torch.float32, device="cpu")
         lp, caches = M.prefill(tp, tok[:, :s], caches, spec, compute_dtype=torch.float32)
@@ -154,7 +169,7 @@ def test_prefill_then_decode_matches_forward():
     flash path over S tokens vs the flash path over S-1 plus plain decode."""
     _, spec, _, tp = _setup("qwen2-1.5b")
     tok = torch.from_numpy(_tokens(spec, 2, 24))
-    full = M.forward(tp, tok, spec)
+    full, _ = M.forward(tp, tok, spec)
     caches = M.init_caches(spec, 2, 24, dtype=torch.float32, device="cpu")
     lp, caches = M.prefill(tp, tok[:, :-1], caches, spec, compute_dtype=torch.float32)
     ld, _ = M.decode_step(tp, caches, tok[:, -1], 23, spec, compute_dtype=torch.float32)
@@ -163,7 +178,7 @@ def test_prefill_then_decode_matches_forward():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b", "gpt3-13b", "phi-3-vision-4.2b",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "granite-moe-3b-a800m", "jamba-v0.1-52b"])
 def test_param_defs_match_jax_names_shapes_and_inits(arch):
     jspec, spec = jreduced(JARCHS[arch]), reduced(ARCHS[arch])
     pattern, reps, _ = jspec.block_pattern()
@@ -238,13 +253,200 @@ def test_param_count_gap_is_the_references_missing_dt_bias():
     assert got - spec.param_count() == spec.n_layers * spec.ssm_heads == 576
 
 
-def test_unported_layers_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.model_param_defs(reduced(ARCHS["jamba-v0.1-52b"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.model_param_defs(reduced(ARCHS["granite-moe-3b-a800m"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_caches(reduced(ARCHS["gemma3-1b"]), 1, 8, device="cpu")
+def _jax_layer(tree, spec, i, *path):
+    """Layer ``i``'s node at ``path`` in a JAX stacked-plus-tail tree (the
+    ``stack`` of the parameters, or the caches)."""
+    pattern, reps, _ = spec.block_pattern()
+    n = reps * len(pattern)
+    node = tree["blocks"][f"sub{i % len(pattern)}"] if i < n else tree["tail"][f"tail{i - n}"]
+    for key in path:
+        node = node[key]
+    return np.asarray(node)[i // len(pattern)] if i < n else np.asarray(node)
+
+
+TOL_GEMMA = dict(rtol=3e-3, atol=3e-3)  # the gemma3 case of test_forward_matches_jax
+
+
+def _jax_decoder(jspec):
+    """``JM.decode_step`` at f32 compute, jitted once for every position."""
+    step = jax.jit(lambda p, c, t, pos: JM.decode_step(p, c, t, pos, jspec,
+                                                       compute_dtype=jnp.float32))
+    return lambda p, c, t, pos: step(p, c, jnp.asarray(t), jnp.asarray(pos, jnp.int32))
+
+
+def _close_to_scale(got, want, tol=3e-3):
+    """Within ``tol`` of the largest |want| (a cache leaf of a deep gemma3
+    layer holds values up to ~3 whose fp32 rounding drifts to ~1e-3 of it)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
+
+
+def test_ring_cache_prefill_and_decode_across_the_wrap_match_jax():
+    """gemma3-reduced (window 16): a 40-token prompt leaves its last 16 tokens
+    in each local layer's ring at slot ``pos % 16``, then 24 decode steps wrap
+    the ring (slot 0 again at position 48).  Logits and every cache leaf, slot
+    by slot, against the JAX package with f32 caches, after prefill and after
+    each step; ``kpos`` exactly."""
+    jspec, spec, jp, tp = _setup("gemma3-1b")
+    b, s, n_new, t = 2, 40, 24, 64
+    tok = _tokens(spec, b, s + n_new)
+    jpj = jax.tree.map(jnp.asarray, jp)
+    jc = JM.init_caches(jspec, b, t, dtype=jnp.float32)
+    tc = M.init_caches(spec, b, t, dtype=torch.float32, device="cpu")
+    jl, jc = JM.prefill(jpj, jnp.asarray(tok[:, :s]), jc, jspec, compute_dtype=jnp.float32)
+    tl, tc = M.prefill(tp, torch.from_numpy(tok[:, :s]), tc, spec, compute_dtype=torch.float32)
+    layers = spec.layer_defs()
+    assert {ld.mixer for ld in layers} == {"attn_local", "attn_full"}
+
+    def check():
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL_GEMMA)
+        for i, (layer, ld) in enumerate(zip(tc, layers)):
+            if ld.mixer == "attn_local":
+                assert layer["k"].shape[1] == spec.sliding_window
+                assert layer["kpos"].dtype == torch.int32
+                np.testing.assert_array_equal(layer["kpos"].numpy(), _jax_layer(jc, spec, i, "kpos"))
+            else:
+                assert "kpos" not in layer and layer["k"].shape[1] == t
+            for name in ("k", "v"):
+                _close_to_scale(layer[name].numpy(), _jax_layer(jc, spec, i, name))
+    check()
+    assert sorted(tc[0]["kpos"].tolist()) == list(range(s - 15, s + 1))
+    decode = _jax_decoder(jspec)
+    for pos in range(s, s + n_new):
+        jl, jc = decode(jpj, jc, tok[:, pos], pos)
+        tl, tc = M.decode_step(tp, tc, torch.from_numpy(tok[:, pos]), pos, spec,
+                               compute_dtype=torch.float32)
+        check()
+        assert tc[0]["kpos"][pos % 16] == pos + 1
+
+
+def test_short_prompt_fills_the_ring_from_slot_0_and_empties_the_rest():
+    """S < window: slot i holds token i and the other slots are emptied, as
+    the JAX prefill rebuilds the ring from zeros."""
+    jspec, spec, jp, tp = _setup("gemma3-1b")
+    tok = _tokens(spec, 1, 10)
+    jc = JM.init_caches(jspec, 1, 32, dtype=jnp.float32)
+    _, jc = JM.prefill(jax.tree.map(jnp.asarray, jp), jnp.asarray(tok), jc, jspec,
+                       compute_dtype=jnp.float32)
+    tc = M.init_caches(spec, 1, 32, dtype=torch.float32, device="cpu")
+    for layer in tc:
+        for leaf in layer.values():
+            leaf.fill_(7)  # a used cache: prefill must clear what it does not write
+    _, tc = M.prefill(tp, torch.from_numpy(tok), tc, spec, compute_dtype=torch.float32)
+    assert tc[0]["kpos"].tolist() == list(range(1, 11)) + [0] * 6
+    for name in ("k", "v", "kpos"):
+        _close_to_scale(tc[0][name].numpy(), _jax_layer(jc, spec, 0, name))
+    assert not tc[0]["k"][:, 10:].any()
+
+
+def test_ring_kpos_is_exact_where_the_jax_bf16_cache_rounds():
+    """The JAX ring keeps ``kpos`` in the cache dtype: in bf16, position 512's
+    ``kpos`` of 513 is stored as 512, and position 514's 515 as 516, which
+    masks the new token out of its own attention (ROADMAP Queue 3).  The
+    port's ``kpos`` is int32.  With bf16 k/v the port's ring follows the JAX
+    ring kept in f32: the same ``kpos`` exactly, the prompt's k/v within one
+    bf16 rounding, and decode logits within 0.1 of their scale (bf16 keys and
+    values through 14 layers whose residual grows), where the JAX bf16 ring
+    is off by more than half of it."""
+    jspec, spec, jp, tp = _setup("gemma3-1b")
+    b, s, t = 1, 513, 520
+    tok = _tokens(spec, b, s + 3)
+    jpj = jax.tree.map(jnp.asarray, jp)
+    jc16 = JM.init_caches(jspec, b, t, dtype=jnp.bfloat16)
+    jc32 = JM.init_caches(jspec, b, t, dtype=jnp.float32)
+    tc = M.init_caches(spec, b, t, dtype=torch.bfloat16, device="cpu")
+    _, jc16 = JM.prefill(jpj, jnp.asarray(tok[:, :s]), jc16, jspec, compute_dtype=jnp.float32)
+    _, jc32 = JM.prefill(jpj, jnp.asarray(tok[:, :s]), jc32, jspec, compute_dtype=jnp.float32)
+    _, tc = M.prefill(tp, torch.from_numpy(tok[:, :s]), tc, spec, compute_dtype=torch.float32)
+    slot = 512 % spec.sliding_window
+    assert float(_jax_layer(jc16, spec, 0, "kpos")[slot]) == 512.0
+    assert float(_jax_layer(jc32, spec, 0, "kpos")[slot]) == 513.0
+    assert tc[0]["kpos"].dtype == torch.int32 and tc[0]["kpos"][slot] == 513
+    local = [i for i, ld in enumerate(spec.layer_defs()) if ld.mixer == "attn_local"]
+    for i in local:
+        for name in ("k", "v"):
+            _close_to_scale(tc[i][name].float().numpy(), _jax_layer(jc32, spec, i, name), 2 ** -8)
+    decode = _jax_decoder(jspec)
+    gap_jax_bf16 = []
+    for pos in range(s, s + 3):
+        j16, jc16 = decode(jpj, jc16, tok[:, pos], pos)
+        j32, jc32 = decode(jpj, jc32, tok[:, pos], pos)
+        got, tc = M.decode_step(tp, tc, torch.from_numpy(tok[:, pos]), pos, spec,
+                                compute_dtype=torch.float32)
+        for i in local:
+            np.testing.assert_array_equal(tc[i]["kpos"].numpy(), _jax_layer(jc32, spec, i, "kpos"))
+        j32 = np.asarray(j32)
+        scale = np.abs(j32).max()
+        assert np.abs(got.numpy() - j32).max() < 0.1 * scale
+        gap_jax_bf16.append(np.abs(np.asarray(j16) - j32).max() / scale)
+    assert float(_jax_layer(jc16, spec, 0, "kpos")[(s + 1) % spec.sliding_window]) == 516.0
+    assert max(gap_jax_bf16) > 0.5
+
+
+@pytest.mark.parametrize("s,factor,drops", [
+    (1, None, False),    # decode: a group of one token, capacity 8
+    (300, 0.5, False),   # groups halved from 256 to 4 (300 = 4 x 75), capacity 8
+    (256, 0.5, True),    # one group per sequence, capacity 64 of ~128 per expert
+    (256, None, False),  # capacity 160 (the default factor 1.25)
+], ids=["S1", "S300", "S256-drops", "S256"])
+def test_moe_apply_matches_jax(s, factor, drops, monkeypatch):
+    """y, ``lb_loss`` and ``drop_frac`` against the JAX ``moe_apply`` on
+    granite-reduced (4 experts, top 2).  y within 1e-5 of its scale: f32,
+    the same products summed in another order."""
+    jspec, spec = jreduced(JARCHS["granite-moe-3b-a800m"]), reduced(ARCHS["granite-moe-3b-a800m"])
+    assert (moe.CAPACITY_FACTOR, moe.GROUP_SIZE) == (jmoe.CAPACITY_FACTOR, jmoe.GROUP_SIZE)
+    if factor is not None:
+        monkeypatch.setattr(moe, "CAPACITY_FACTOR", factor)
+    p = jax.tree.map(np.asarray, jinit_tree(jax.random.PRNGKey(0), jmoe.moe_defs(jspec)))
+    x = np.random.default_rng(s).standard_normal((2, s, spec.d_model)).astype(np.float32)
+    jy, jaux = jmoe.moe_apply(p, jnp.asarray(x), jspec, NULL_PLAN, capacity_factor=factor)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    y, aux = moe.moe_apply(tp, torch.from_numpy(x), spec)
+    jy = np.asarray(jy)
+    np.testing.assert_allclose(y.numpy(), jy, rtol=1e-5, atol=1e-5 * np.abs(jy).max())
+    np.testing.assert_allclose(aux["lb_loss"].item(), float(jaux["lb_loss"]), rtol=1e-6)
+    assert aux["drop_frac"].item() == pytest.approx(float(jaux["drop_frac"]), abs=1e-7)
+    assert (aux["drop_frac"].item() > 0) == drops
+    tg = moe.group_size_for(s)
+    assert moe.expert_capacity(tg, spec) == jmoe.expert_capacity(tg, jspec, factor)
+
+
+def test_moe_routing_drops_the_latest_slots_first():
+    """Positions within an expert count every earlier routing slot (all
+    tokens) before the earlier tokens of the same slot, dropped assignments
+    included: a hand-made group where expert 0 takes every assignment."""
+    logits = torch.tensor([[[3.0, 2.0, 0.0], [3.0, 2.0, 0.0], [2.0, 3.0, 0.0]]])  # (1, 3, 3)
+    experts, slots, keep, weights, aux = moe.route(logits, 2, cap=2)
+    assert experts.tolist() == [[[0, 1], [0, 1], [1, 0]]]
+    # expert 0: slot-0 tokens 0, 1 at 0, 1; then token 2's slot 1 at 2
+    # expert 1: token 2's slot 0 at 0; then slot-1 tokens 0, 1 at 1, 2
+    assert slots.tolist() == [[[0, 1], [1, 2], [0, 2]]]
+    assert keep.tolist() == [[[True, True], [True, False], [True, False]]]
+    assert aux["drop_frac"].item() == pytest.approx(2 / 6)
+    torch.testing.assert_close(weights.sum(-1), torch.ones(1, 3))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "gemma3-1b", "jamba-v0.1-52b"])
+def test_conversion_of_moe_and_stacked_plus_tail_trees(arch):
+    """``from_jax_params`` consumes the MoE leaves (``router`` (D, E);
+    ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D)) and gemma3's layout
+    (4 repeats of a 6-layer pattern at full depth, 2 here, then a 2-layer
+    tail): layer i of the port holds layer i of the JAX tree, leaf for leaf."""
+    jspec, spec, jp, tp = _setup(arch)
+    assert param_count(tp) == param_count_jax(JM.model_param_defs(jspec))
+    layers = spec.layer_defs()
+    assert len(tp["stack"]) == len(layers)
+    for i, ld in enumerate(layers):
+        assert ("ffn" in tp["stack"][i] and "router" in tp["stack"][i]["ffn"]) == (ld.ffn == "moe")
+        for sub, leaves in tp["stack"][i].items():
+            for name, leaf in (leaves.items() if isinstance(leaves, dict) else [(None, leaves)]):
+                path = (sub,) if name is None else (sub, name)
+                np.testing.assert_array_equal(leaf.numpy(), _jax_layer(jp["stack"], spec, i, *path))
+    if spec.n_experts:
+        ffn = next(layer["ffn"] for layer in tp["stack"] if "router" in layer.get("ffn", {}))
+        e, d, f = spec.n_experts, spec.d_model, spec.d_ff
+        assert (ffn["router"].shape, ffn["w_gate"].shape, ffn["w_down"].shape) == (
+            (d, e), (e, d, f), (e, f, d))
 
 
 def test_ssm_init_kinds_are_seeded_and_in_range():

@@ -41,15 +41,32 @@ def test_greedy_generate_of_mamba2_matches_jax_engine():
     _greedy_matches_jax("mamba2-130m")
 
 
-def _greedy_matches_jax(arch):
+def test_greedy_generate_of_gemma3_matches_jax_engine():
+    """Sliding-window layers with ring caches (window 16): a 40-token prompt,
+    then 24 tokens that wrap the ring, token for token."""
+    _greedy_matches_jax("gemma3-1b", prompt=40, new=24)
+
+
+def test_greedy_generate_of_granite_moe_matches_jax_engine():
+    """MoE FFNs: prefill routes groups of 16 tokens, decode groups of one."""
+    _greedy_matches_jax("granite-moe-3b-a800m")
+
+
+def test_greedy_generate_of_jamba_matches_jax_engine():
+    """The hybrid: attention, Mamba and MoE layers in one stack, with a
+    full-cache attention layer and Mamba conv/SSM caches."""
+    _greedy_matches_jax("jamba-v0.1-52b")
+
+
+def _greedy_matches_jax(arch, prompt=16, new=8):
     jspec, spec = jreduced(JARCHS[arch]), reduced(ARCHS[arch])
     jp = seeded_jax_params(jspec)
-    prompts = np.random.default_rng(7).integers(0, spec.vocab_size, (2, 16)).astype(np.int32)
-    expect, _ = JEngine(jspec, jp).generate(prompts, max_new=8)
+    prompts = np.random.default_rng(7).integers(0, spec.vocab_size, (2, prompt)).astype(np.int32)
+    expect, _ = JEngine(jspec, jp).generate(prompts, max_new=new)
     eng = Engine(spec, from_jax_params(jp, spec, device="cpu"), device="cpu")
-    got, stats = eng.generate(prompts, max_new=8)
+    got, stats = eng.generate(prompts, max_new=new)
     np.testing.assert_array_equal(got, expect)
-    assert stats.tokens_out == 16 and stats.prefill_s > 0 and stats.decode_s > 0
+    assert stats.tokens_out == 2 * new and stats.prefill_s > 0 and stats.decode_s > 0
 
 
 def test_sampling_is_seeded():
@@ -74,6 +91,17 @@ def test_serve_cli_runs_on_cpu():
 def test_serve_cli_runs_mamba2_on_cpu():
     r = _run(["-m", "repro_torch.launch.serve", "--arch", "mamba2-130m", "--reduced",
               "--device", "cpu", "--batch", "2", "--prompt-len", "70", "--new", "4"])
+    assert r.returncode == 0, r.stderr
+    assert "[serve] cpu" in r.stdout and "request 1:" in r.stdout
+
+
+@pytest.mark.parametrize("arch,prompt", [
+    ("gemma3-1b", 40),             # past the reduced window of 16
+    ("granite-moe-3b-a800m", 16),
+], ids=["gemma3-1b", "granite-moe-3b-a800m"])
+def test_serve_cli_runs_on_cpu_per_arch(arch, prompt):
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--reduced",
+              "--device", "cpu", "--batch", "2", "--prompt-len", str(prompt), "--new", "4"])
     assert r.returncode == 0, r.stderr
     assert "[serve] cpu" in r.stdout and "request 1:" in r.stdout
 
@@ -106,7 +134,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"} <= set(mods)
+    assert {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
+            "repro_torch.models.moe"} <= set(mods)
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 22
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
