@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, one or more lines each:
-  build        compile the port's three CUDA sources (flash attention,
-               RMSNorm, the SSD scan) from this checkout, one nvcc each, in
-               parallel
+  build        compile the port's four CUDA sources (flash attention forward
+               and backward, RMSNorm forward and backward, the SSD scan) from
+               this checkout, one nvcc each, in parallel
   kernels      hold each kernel against its plain version on the card, at the
                serving paths' shapes plus windowed, ragged and grouped cases,
                in float32 and bfloat16 (flash attention also at gemma3's
@@ -25,7 +25,17 @@ Phases, one or more lines each:
                bytes the row gives), ssd_scan_state_pass (the chain over
                chunks: the state entering each chunk, and the final state)
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
-               and its entering state)
+               and its entering state).  Flash attention at head_dim 96
+               (phi-3-vision-4.2b, 32 heads).  The backward kernels: flash
+               attention's (three launches: D = rowsum(dO o O), then dK/dV and
+               dQ) at qwen2's, gemma3's (global and window 512), granite's
+               and phi-3's shapes against autograd through the plain version,
+               timed beside SDPA's backward (torch.autograd.grad), with a
+               bound of 10 hd flops per unmasked pair (f32 as 3xTF32);
+               RMSNorm's (dx, and dw through per-block column sums) at the
+               train path's rows against autograd through the plain version
+               and through F.rms_norm; and the SSD scan's refusal of a
+               gradient on the card
   serve        each model at full width and depth (random weights from a seed)
                through repro_torch.serve.engine.Engine, fp32, greedy, batch 4,
                32 new tokens: qwen2-1.5b (prompt 1000), mamba2-130m (4096),
@@ -43,6 +53,19 @@ Phases, one or more lines each:
                prefill routes groups of 256 that can overflow an expert, the
                1023-token one groups of 1 that cannot), and that gap is
                printed beside the check
+  train        qwen2-1.5b at full width and depth (random weights from a
+               seed), f32, B=4, S=1024, SyntheticLM batches, remat "dots",
+               AdamW with warmup 2, through repro_torch.train: 6 steps with
+               the launch counts set to 0 just before them; each step's loss
+               finite and every parameter's gradient finite and not all zero;
+               step ms (median of the last 4), tokens/s, peak memory, device
+               busy share and device ms by kernel class (torch.profiler, one
+               step); from one state and batch, loss and grad norm under
+               remat "none" and "full" against "dots" (rtol 1e-5); the
+               trained full-width state (params, m, v, step: 18.5 GB)
+               through repro_torch.ckpt save and restore, exactly; then a
+               reduced qwen2 step on the card against the CPU, and a reduced
+               bf16 state's round trip (bf16 params with their f32 master)
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -73,6 +96,11 @@ RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # SSD scan: max |got - want| / max |want| of y per dtype; the f32 state at 1e-4
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 24-28 layers
+PHI3 = "phi-3-vision-4.2b"  # head_dim 96
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
+REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
+# the reduced train step, card vs CPU: loss rtol, grads rtol / atol
+STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
 
 
 def fail(msg: str) -> None:
@@ -132,7 +160,8 @@ def device_ms(fn, iters: int) -> float | None:
 
 
 KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
-                  "flash_attention": ("flash_fwd",), "rmsnorm": ("rmsnorm",),
+                  "flash_attention": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
+                  "rmsnorm": ("rmsnorm_rows", "rmsnorm_wide"), "rmsnorm_bwd": ("rmsnorm_bwd",),
                   # gathers, scatters, top-k and running sums: the MoE's routing
                   # and dispatch, the embedding's gather, mamba2's cumsums
                   "index_scan": ("index", "gather", "scatter", "topk", "sort", "scan")}
@@ -217,6 +246,98 @@ def check_rmsnorm(torch, F, rn, ref, rows, d, dtype, iters):
         case=f"rmsnorm {name} rows={rows} d={d}", max_abs_err=err, tol=RMS_TOL[name],
         ok=bool(ok), ms=ms, device_ms=device_ms(kernel, iters),
         plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(x, w), iters),
+        library_ms=library_ms, library_device_ms=device_ms(lib, iters),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] {json.dumps(row)}")
+    return row
+
+
+def rel_close(torch, got, want, tol: float) -> tuple[float, float, bool]:
+    """(max |got - want|, that over max |want|, allclose at rtol = tol and
+    atol = tol * max |want|): a gradient's element sums products that
+    cancel, so rounding shows against the tensor's scale."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return err, err / max(scale, 1e-30), bool(torch.allclose(got, want, rtol=tol,
+                                                              atol=tol * scale + 1e-6))
+
+
+def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
+    """The backward kernels (dq, dk, dv from q, k, v, o, lse, dO) vs autograd
+    through the plain version; timed beside SDPA's backward."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((b, n, heads, hd), generator=gen, device="cuda").to(dtype)
+                   for n, heads in ((s, h), (t, g), (t, g), (s, h)))
+    scale = hd ** -0.5
+    o, lse = fa._launch(q, k, v, True, window, scale, with_lse=True)
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window,
+                                            scale=scale)
+    got = kernel()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention_plain(*leaves, causal=True, window=window)
+    plain = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+    want = plain()
+    torch.cuda.synchronize()
+    name = dtype_name(dtype)
+    errs = [rel_close(torch, x, y, TOL[name]) for x, y in zip(got, want)]
+    lib_leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(t, device="cuda")[None, :]
+    band = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+    mask = dict(attn_mask=band) if window else dict(is_causal=True)
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, enable_gqa=True, **mask)
+    do_t = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(lib_out, lib_leaves, do_t, retain_graph=True)
+    pairs = int(band.sum().item())
+    esize = q.element_size()
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * o.numel()) * esize + lse.numel() * 4
+    flops = 10.0 * hd * pairs * b * h  # Q K^T, dO V^T, P^T dO, dS^T Q, dS K
+    if name == "float32":  # the least at f32 accuracy: three TF32 products per f32 one
+        bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
+        extra = dict(zip(("bound_f32_cores_ms", "bound_f32_cores_by"), bound(nbytes, flops, name)))
+    else:
+        bound_ms, bound_by = bound(nbytes, flops, name)
+        extra = {}
+    ms, library_ms = paired_ms(kernel, lib, iters)
+    row = dict(
+        case=f"flash_attention_bwd {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal "
+             f"window={window}",
+        max_abs_err=max(e[0] for e in errs), rel_err_by_grad=[e[1] for e in errs],
+        tol=TOL[name], ok=all(e[2] for e in errs),
+        ms=ms, device_ms=device_ms(kernel, iters), plain_ms=cuda_ms(plain, iters),
+        library_ms=library_ms, library_device_ms=device_ms(lib, iters),
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
+    print(f"[kernels] {json.dumps(row)}")
+    return row
+
+
+def check_rmsnorm_bwd(torch, F, rn, ref, rows, d, dtype, iters):
+    """dx and dw of the backward kernels vs autograd through the plain
+    version; timed beside autograd of F.rms_norm."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(dtype)
+    w = (torch.randn((d,), generator=gen, device="cuda") * 0.1).to(dtype)
+    g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    kernel = lambda: rn.rmsnorm_bwd(x, w, g)
+    got = kernel()
+    leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+    out = ref.rmsnorm_ref(*leaves)
+    plain = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    want = plain()
+    torch.cuda.synchronize()
+    name = dtype_name(dtype)
+    errs = [rel_close(torch, a, b, RMS_TOL[name]) for a, b in zip(got, want)]
+    lx, lw = x.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_out = F.rms_norm(lx, (d,), weight=1.0 + lw, eps=1e-5)
+    lib = lambda: torch.autograd.grad(lib_out, (lx, lw), g, retain_graph=True)
+    nbytes = (3 * x.numel() + 2 * w.numel()) * x.element_size()  # x, g, dx; w, dw
+    bound_ms, bound_by = bound(nbytes, 8.0 * rows * d, name)
+    ms, library_ms = paired_ms(kernel, lib, iters)
+    row = dict(
+        case=f"rmsnorm_bwd {name} rows={rows} d={d}", max_abs_err=max(e[0] for e in errs),
+        rel_err_dx_dw=[e[1] for e in errs], tol=RMS_TOL[name], ok=all(e[2] for e in errs),
+        ms=ms, device_ms=device_ms(kernel, iters), plain_ms=cuda_ms(plain, iters),
         library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] {json.dumps(row)}")
@@ -390,6 +511,179 @@ def consistency(torch, M, moem, map_with_path, reduced, spec, params, prompts):
         fail(f"{spec.name}: the card's forward disagrees with the CPU's")
 
 
+def train_counts(n_layers: int, remat: str) -> dict[str, int]:
+    """Launches of one train step of an attention model: flash and each
+    layer's two norms run again in the backward under a remat policy (the
+    recompute), the final norm once; one backward per call."""
+    again = 2 if remat != "none" else 1
+    return {"flash_attention": again * n_layers, "flash_attention_bwd": n_layers,
+            "rmsnorm": again * 2 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1, "ssd_scan": 0}
+
+
+def train(torch, counted, card, spec):
+    """qwen2-1.5b at full width: TRAIN_STEPS steps of f32 AdamW under remat
+    "dots" with the launch counts set to 0 just before them, then the remat
+    policies against each other from one state and batch.  Returns the
+    launches of the counted steps."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
+                                              make_train_step, to_device)
+    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    t0 = time.perf_counter()
+    state = init_train_state(spec, cfg, seed=SEED, device="cuda")
+    data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+    batches = [to_device(data.batch_at(i), "cuda") for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    print(f"[train] {spec.name} full width f32 state (params, m, v) and {TRAIN_STEPS + 1} "
+          f"SyntheticLM batches of B={TRAIN_BATCH} S={TRAIN_SEQ} on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    step_fn = make_train_step(spec, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            fail(f"train step {i}: loss {loss}")
+    launches = {name: fn.launches for name, fn in counted.items()}
+    want = {k: TRAIN_STEPS * v for k, v in train_counts(spec.n_layers, cfg.remat).items()}
+    if launches != want:
+        fail(f"train: kernel launches in {TRAIN_STEPS} steps {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = sorted(step_ms[-4:])
+    median = (ms[1] + ms[2]) / 2
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {card} | {spec.name} B={TRAIN_BATCH} S={TRAIN_SEQ} f32 remat=dots: losses "
+          f"{[round(x, 4) for x in losses]}; step ms {[round(x, 3) for x in step_ms]}, median of "
+          f"the last 4 {median:.3f} ms, {tokens / median * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches per step "
+          f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} } (expected "
+          f"{train_counts(spec.n_layers, cfg.remat)})")
+    by_name = device_by_kernel(lambda: step_fn(state, batches[TRAIN_STEPS]), 1)
+    if by_name:
+        dev = sum(by_name.values())
+        classes = ", ".join(f"{c} {v:.3f}" for c, v in by_class(by_name).items())
+        busy = f"{dev:.3f} ms = {dev / median:.3f} of the step's wall ({classes} ms)"
+    else:
+        busy = "not measured"
+    print(f"[train] {spec.name} device busy (torch.profiler, one step): {busy}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[train] {spec.name} step's largest device kernels (ms): "
+          + "; ".join(f"{name[:80]} {v:.3f}" for name, v in top))
+    other = sorted(((n, v) for n, v in by_name.items() if by_class({n: v})["other"]),
+                   key=lambda kv: -kv[1])[:8]
+    print(f"[train] {spec.name} step's largest kernels of class other (ms): "
+          + "; ".join(f"{name[:80]} {v:.3f}" for name, v in other))
+
+    # -- remat policies: loss and grad norm from one state and batch
+    batch, params = batches[TRAIN_STEPS], state["params"]
+    leaves = opt.leaves(params)
+    got = {}
+    for remat in ("dots", "none", "full"):
+        loss, _ = make_loss_fn(spec, cfg.with_(remat=remat))(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        bad = [i for i, g in enumerate(grads)
+               if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+        if bad:
+            fail(f"train remat={remat}: {len(bad)} of {len(grads)} parameters have a gradient "
+                 f"that is not finite or all zero (leaves {bad[:8]})")
+        got[remat] = (loss.item(), opt.global_norm(grads).item())
+        del grads, loss
+    (l0, n0) = got["dots"]
+    for remat in ("none", "full"):
+        l1, n1 = got[remat]
+        if not (abs(l1 - l0) <= REMAT_TOL * abs(l0) and abs(n1 - n0) <= REMAT_TOL * abs(n0)):
+            fail(f"train: remat={remat} gives loss {l1} and grad norm {n1}, dots {l0} and {n0}")
+    print(f"[train] {spec.name} remat policies from one state and batch: (loss, grad norm) "
+          f"{got}; every one of {len(leaves)} parameters has a finite gradient that is not all "
+          f"zero; none and full within {REMAT_TOL} of dots")
+    round_trip(torch, state, f"{spec.name} full-width trained f32")
+    return launches
+
+
+def round_trip(torch, state, name: str) -> None:
+    """``state`` saved with repro_torch.ckpt.checkpoint and restored onto the
+    card, bit for bit, in a temporary directory under TMPDIR or, if that has
+    less room than the state, under this checkout's (git-ignored) build
+    directory."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import flatten, restore, save
+    from repro_torch.kernels import _build
+    flat = flatten(state)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    where = None
+    if shutil.disk_usage(tempfile.gettempdir()).free < 1.5 * nbytes:
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        where = _build.BUILD_DIR
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=where) as tmp:
+        save(tmp, state, step=int(state["step"]))
+        t1 = time.perf_counter()
+        back, step = restore(tmp, state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = flatten(back)
+    same = sorted(flat) == sorted(got) and all(
+        flat[k].dtype == got[k].dtype and flat[k].device == got[k].device
+        and torch.equal(flat[k], got[k]) for k in flat)
+    parts = sorted({key.split("]")[0] + "]" for key in flat})
+    print(f"[train] {name} train state ({len(flat)} tensors, {nbytes / 1e9:.3f} GB: "
+          f"{parts}) saved at step {step} in "
+          f"{t1 - t0:.3f} s and restored on the card in {t2 - t1:.3f} s: exact {same}")
+    if not same:
+        fail(f"the {name} train state did not survive save/restore exactly")
+
+
+def train_consistency(torch, map_with_path, reduced, spec):
+    """A reduced train step on the card vs the CPU, and the exact save/restore
+    round trip of a bf16 train state with its f32 master."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (BF16_RUN, RunConfig, init_train_state,
+                                              make_loss_fn, make_train_step)
+    small = reduced(spec)
+    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    batch = SyntheticLM(small, DataConfig(4, 128, seed=SEED)).batch_at(0)
+    cpu = init_train_state(small, cfg, seed=SEED, device="cpu")
+    states = {"cpu": cpu, "cuda": map_with_path(lambda _, t: t.detach().cuda(), cpu)}
+    out = {}
+    for dev, st in states.items():
+        for t in opt.leaves(st["params"]):
+            t.requires_grad_(True)
+        loss, _ = make_loss_fn(small, cfg)(st["params"], {k: torch.as_tensor(v, device=dev)
+                                                           for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, opt.leaves(st["params"]))
+        _, metrics = make_train_step(small, cfg)(st, batch)
+        out[dev] = (loss.item(), [g.cpu() for g in grads], metrics["loss"].item())
+    (lc, gc, mc), (lg, gg, mg) = out["cpu"], out["cuda"]
+    worst = max(((a - b).abs() - STEP_TOL["grad_rtol"] * b.abs()).max().item()
+                for a, b in zip(gg, gc))
+    rel_scale = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gg, gc))
+    ok = (abs(lg - lc) <= STEP_TOL["loss"] * abs(lc) and abs(mg - mc) <= STEP_TOL["loss"] * abs(mc)
+          and all(torch.allclose(a, b, rtol=STEP_TOL["grad_rtol"], atol=STEP_TOL["grad_atol"])
+                  for a, b in zip(gg, gc)))
+    print(f"[train] reduced {spec.name} train step B=4 S=128, card vs CPU: loss {lg:.6f} vs "
+          f"{lc:.6f}, step loss {mg:.6f} vs {mc:.6f}; grads: largest |diff| - rtol*|want| "
+          f"{worst:.3e} (atol {STEP_TOL['grad_atol']}), largest |diff| / max |want| per tensor "
+          f"{rel_scale:.3e}")
+    if not ok:
+        fail(f"{spec.name}: the card's reduced train step disagrees with the CPU's")
+    # a bf16 train state (bf16 params, their f32 master) through a checkpoint
+    bf16 = init_train_state(small, BF16_RUN, seed=SEED, device="cuda")
+    make_train_step(small, BF16_RUN.with_(remat="dots"))(bf16, batch)
+    round_trip(torch, bf16, f"reduced {spec.name} bf16 + f32 master")
+
+
 def nvidia_smi() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -412,7 +706,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.kernels import _build, flash_attention as fa, ref, rmsnorm as rn
+    from repro_torch.kernels import _build, flash_attention as fa, ops, ref, rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.models import moe as moem
@@ -440,6 +734,7 @@ def main() -> None:
 
     # -- kernels ---------------------------------------------------------------
     spec, mspec, gspec, rspec = get_arch(ARCH), get_arch(MAMBA), get_arch(GEMMA), get_arch(GRANITE)
+    pspec = get_arch(PHI3)
     h, g, hd, d = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim, spec.d_model
     mh, mg, mp, mn = mspec.ssm_heads, mspec.ssm_groups, mspec.ssm_head_dim, mspec.ssm_state
     gh, gg, ghd, gw = gspec.n_heads, gspec.n_kv_heads, gspec.resolved_head_dim, gspec.sliding_window
@@ -457,8 +752,28 @@ def main() -> None:
                 (f"gemma3 window {gw}", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, gw), 10),
                 ("hd256 ragged 200", (BATCH, 200, 200, gh, gg, ghd, 0), 20),
                 ("granite", (BATCH, R_PROMPT, R_PROMPT, rspec.n_heads, rspec.n_kv_heads,
-                             rspec.resolved_head_dim, 0), 10)):
+                             rspec.resolved_head_dim, 0), 10),
+                ("phi3 hd96", (BATCH, 1024, 1024, pspec.n_heads, pspec.n_kv_heads,
+                               pspec.resolved_head_dim, 0), 10)):
             named[name, key] = check_flash(torch, F, fa, *args, dtype, iters)
+            rows.append(named[name, key])
+        # the backward kernels, at the train path's shape first
+        for key, args, iters in (
+                ("bwd qwen2", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, g, hd, 0), 5),
+                ("bwd qwen2 ragged 1000", (BATCH, PROMPT, PROMPT, h, g, hd, 0), 5),
+                ("bwd gemma3 global", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, 0), 3),
+                (f"bwd gemma3 window {gw}", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, gw), 3),
+                ("bwd granite", (BATCH, R_PROMPT, R_PROMPT, rspec.n_heads, rspec.n_kv_heads,
+                                 rspec.resolved_head_dim, 0), 5),
+                ("bwd phi3 hd96", (BATCH, 1024, 1024, pspec.n_heads, pspec.n_kv_heads,
+                                   pspec.resolved_head_dim, 0), 3)):
+            named[name, key] = check_flash_bwd(torch, F, fa, *args, dtype, iters)
+            rows.append(named[name, key])
+        for key, (n_rows, width), iters in (
+                ("bwd qwen2 train", (TRAIN_BATCH * TRAIN_SEQ, d), 50),
+                ("bwd 4000x1536", (4000, d), 50),
+                ("bwd gemma3 8160x1152", (BATCH * G_PROMPT, gspec.d_model), 50)):
+            named[name, key] = check_rmsnorm_bwd(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
         for key, (n_rows, width), iters in (
                 ("qwen2 prefill", (BATCH * PROMPT, d), 100), ("qwen2 decode", (BATCH, d), 200),
@@ -478,23 +793,33 @@ def main() -> None:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     print(f"[kernels] all {len(rows) + len(ssd_rows)} cases within tolerance")
+    x, dt_, a_, bb, cc = ssd_inputs(torch, 1, 64, 2, 1, 16, 16, torch.float32, "model")
+    try:
+        ops.ssd(x.requires_grad_(), dt_, a_, bb, cc)
+    except NotImplementedError as e:
+        print(f"[kernels] ssd_scan on a CUDA tensor that requires grad raises: {e}")
+    else:
+        fail("ssd_scan ran on a CUDA tensor that requires grad: its gradient would be dropped")
 
     # -- serve, then consistency, per model ------------------------------------
     counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
-               "ssd_scan": ss.ssd_scan}
+               "ssd_scan": ss.ssd_scan, "flash_attention_bwd": fa.flash_attention_bwd,
+               "rmsnorm_bwd": rn.rmsnorm_bwd}
 
     def attention_counts(model_spec):
         # per layer: flash once in prefill; norm1 and norm2 in prefill and in
-        # each decode step, and the final norm
+        # each decode step, and the final norm; serving launches no backward
         return {"flash_attention": model_spec.n_layers, "ssd_scan": 0,
-                "rmsnorm": (2 * model_spec.n_layers + 1) * (1 + NEW)}
+                "rmsnorm": (2 * model_spec.n_layers + 1) * (1 + NEW),
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
     by_path = {}
     for model_spec, prompt, want in (
             (spec, PROMPT, attention_counts(spec)),
             # per layer: norm1 and the mixer's gated norm; no FFN, no attention
             (mspec, M_PROMPT, {"flash_attention": 0, "ssd_scan": mspec.n_layers,
-                               "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW)}),
+                               "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW),
+                               "flash_attention_bwd": 0, "rmsnorm_bwd": 0}),
             (gspec, G_PROMPT, attention_counts(gspec)),
             (rspec, R_PROMPT, attention_counts(rspec))):
         params, prompts, by_path[model_spec.name] = serve(
@@ -503,10 +828,15 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
 
+    # -- train ---------------------------------------------------------------------
+    by_path[f"{spec.name} train"] = train(torch, counted, card, spec)
+    torch.cuda.empty_cache()
+    train_consistency(torch, map_with_path, reduced, spec)
+
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                 "bound_3xtf32_ms", "library_ms")
+                 "bound_3xtf32_ms", "bound_f32_cores_ms", "library_ms")
 
     def numbers(r):
         return {key: r[key] for key in case_keys if key in r}
@@ -514,7 +844,15 @@ def main() -> None:
     # more: the kernel at the other shapes of its paths, and bf16 flash
     flash_more = [("bfloat16", "qwen2")] + [
         (name, key) for key in ("gemma3 global", f"gemma3 window {gw}", "hd256 ragged 200")
-        for name in ("float32", "bfloat16")] + [("float32", "granite")]
+        for name in ("float32", "bfloat16")] + [("float32", "granite")] + [
+        (name, "phi3 hd96") for name in ("float32", "bfloat16")]
+    bwd_more = [("bfloat16", "bwd qwen2")] + [
+        (name, key) for key in ("bwd qwen2 ragged 1000", "bwd gemma3 global",
+                                f"bwd gemma3 window {gw}", "bwd granite", "bwd phi3 hd96")
+        for name in ("float32", "bfloat16")]
+    norm_bwd_more = [("bfloat16", "bwd qwen2 train")] + [
+        (name, key) for key in ("bwd 4000x1536", "bwd gemma3 8160x1152")
+        for name in ("float32", "bfloat16")]
     norm_more = [("float32", key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
                                               "granite prefill")]
     kernels = [
@@ -526,6 +864,15 @@ def main() -> None:
              case=named["float32", "qwen2 prefill"], more=[named[k] for k in norm_more]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0], more=[]),
+        # the gradients of the first two: the JAX package differentiates jnp
+        # attention and normalisation, and has no Pallas backward
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:76",
+             case=named["float32", "bwd qwen2"], more=[named[k] for k in bwd_more]),
+        dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:23",
+             case=named["float32", "bwd qwen2 train"], more=[named[k] for k in norm_bwd_more]),
     ]
     for k in kernels:
         r, more = k.pop("case"), k.pop("more")

@@ -31,6 +31,9 @@
 //     (128, 64 or 32 B), so shared-memory reads are free of bank conflicts.
 //   * The key tile and the number of stages are per (type, head_dim)
 //     (`Tile`): up to head_dim 128, bf16 128 keys and f32 64, two stages.
+//     head_dim 96 (phi-3-vision) has bf16 rows of 192 bytes, three boxes of
+//     64 bytes under the 64 B swizzle (P V is `wgmma.m64n96k16`), and f32
+//     rows of 384 bytes, three boxes of 128.
 //     head_dim 256 (gemma3) has rows of 512 (bf16) or 1024 (f32) bytes, so
 //     its Q tile alone is 64 or 128 KB of the block's 227: bf16 takes 64
 //     keys in two stages (192 KB, and o[128] + S[32] + P[16] registers of a
@@ -55,6 +58,10 @@
 //     starts at -1e30, so a row with no valid key keeps p = 0 and writes 0.
 //   * Rows, strides and base pointers must suit TMA: 16-byte aligned base,
 //     byte strides that are multiples of 16 (the wrapper checks both).
+//   * Optionally (training) each row's log-sum-exp of its scaled scores,
+//     m + log(l) in natural log, goes to an f32 (B, H, S) array for the
+//     backward kernels (`flash_attention_bwd.cu`); serving passes no array
+//     and writes none.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -87,8 +94,11 @@ struct Tile {
   static constexpr int BK = ES == 2 ? (HD <= 128 ? 128 : 64) : (HD <= 128 ? 64 : F32_HD256_BK);
   static constexpr int NSTAGE = ES == 2 || HD <= 128 ? 2 : F32_HD256_NSTAGE;
   static constexpr int ROWB = HD * ES;               // bytes of one row
-  static constexpr int W = ROWB < 128 ? ROWB : 128;  // bytes of a row in one TMA box = swizzle span
+  // bytes of a row in one TMA box = swizzle span: the widest of 128, 64 and
+  // 32 that divides the row (192-byte rows take three boxes of 64)
+  static constexpr int W = ROWB % 128 == 0 ? 128 : ROWB % 64 == 0 ? 64 : 32;
   static constexpr int NBOX = ROWB / W;
+  static_assert(NBOX * W == ROWB, "a row must be whole TMA boxes");
   static constexpr int Q_BYTES = BQ * ROWB;
   static constexpr int KV_BYTES = BK * ROWB;
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * NSTAGE * KV_BYTES + 8 * (1 + 4 * NSTAGE);
@@ -98,6 +108,7 @@ struct Tile {
 struct Params {
   CUtensorMap tq, tk, tv;  // (hd, S, H, B) for q; (hd, T, G, B) for k and v
   void* o;
+  float* lse;              // (B, H, S) row log-sum-exp, or null
   long long os[3];         // element strides of o: batch, sequence, head
   int S, T, H, G, causal, window;
   float scale_log2;        // softmax scale times log2(e)
@@ -241,6 +252,19 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D16(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -423,10 +447,12 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b)
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// Divides by the row sums and writes the rows below S, one cast each.
+// Divides by the row sums and writes the rows below S, one cast each, and
+// the rows' log-sum-exp where asked (+inf for a row with no valid key, so
+// that the backward gives it p = 0).
 template <typename T, int HD>
-__device__ __forceinline__ void write_out(const Params& p, const float* o, float* l, int b, int h,
-                                          int q_row, int col) {
+__device__ __forceinline__ void write_out(const Params& p, const float* o, const float* m, float* l,
+                                          int b, int h, int q_row, int col) {
   T* og = static_cast<T*>(p.o) + b * p.os[0] + h * p.os[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -434,6 +460,9 @@ __device__ __forceinline__ void write_out(const Params& p, const float* o, float
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = q_row + 8 * r;
     if (qi >= p.S) continue;  // padded query rows are dropped
+    if (p.lse != nullptr && col == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qi] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * (1.f / LOG2E) : INFINITY;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* row = og + qi * p.os[1] + col;
 #pragma unroll
@@ -559,7 +588,7 @@ __device__ void consume_bf16(const Params& p, const Work& w, int cw) {
     }
     release(w.v_empty + s, lane);
   }
-  write_out<__nv_bfloat16, HD>(p, o, l, w.b, w.h, q_row, col);
+  write_out<__nv_bfloat16, HD>(p, o, m, l, w.b, w.h, q_row, col);
 }
 
 // ---------------------------------------------------------------------------
@@ -632,7 +661,7 @@ __device__ void consume_f32(const Params& p, const Work& w, int cw) {
     }
     release(w.v_empty + s, lane);
   }
-  write_out<float, HD>(p, o, l, w.b, w.h, rw + g, 2 * t);
+  write_out<float, HD>(p, o, m, l, w.b, w.h, rw + g, 2 * t);
 }
 
 // ---------------------------------------------------------------------------
@@ -764,6 +793,7 @@ int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, i
     case 16: return launch<T, 16>(p, q, k, v, B, strides, stream);
     case 32: return launch<T, 32>(p, q, k, v, B, strides, stream);
     case 64: return launch<T, 64>(p, q, k, v, B, strides, stream);
+    case 96: return launch<T, 96>(p, q, k, v, B, strides, stream);
     case 128: return launch<T, 128>(p, q, k, v, B, strides, stream);
     case 256: return launch<T, 256>(p, q, k, v, B, strides, stream);
     default: return cudaErrorInvalidValue;
@@ -773,19 +803,21 @@ int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, i
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,T,G,hd), o (B,S,H,hd) with the last dim contiguous;
+// lse: an f32 (B,H,S) contiguous array for each row's log-sum-exp, or null;
 // strides[12] = (batch, seq, head) element strides of q, k, v, o.  q, k and v
 // must suit TMA: 16-byte aligned base, byte strides that are multiples of 16
 // (dims of extent 1 aside).  dtype: 0 = float32, 1 = bfloat16.  Returns 0 on
 // success, -1 if a tensor map could not be encoded, else the CUDA error of
 // the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int T, int H, int G, int hd,
+                                   float* lse, int dtype, int B, int S, int T, int H, int G, int hd,
                                    const long long* strides, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = o;
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.S = S;
   p.T = T;

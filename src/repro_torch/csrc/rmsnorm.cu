@@ -27,6 +27,18 @@
 // A decode step launches it on a few rows, where the host's launch path is
 // the cost: the C entry takes one argument block and only picks an instance
 // and launches.
+//
+// The backward (`rmsnorm_bwd`, training): with r = rsqrt(mean(x^2) + eps)
+// and u = g * (1 + w) for the output's gradient g,
+//   dx = r * u - x * r^3 * mean(u * x),   dw = sum over rows of g * x * r.
+// Also bound by bytes (x and g read, dx written).  `rmsnorm_bwd_rows`: a
+// grid of `parts` blocks of 256 threads (the wrapper's choice, two per SM)
+// walks the rows, one row at a time per block: the two sums reduce over the block, dx is written,
+// and g * x * r adds into the block's f32 column sums in shared memory (a
+// column is always the same thread's, so no atomics).  Each block writes its
+// column sums to a (blocks, d) scratch, and `rmsnorm_bwd_dw` adds them up per
+// column in block order: dw is deterministic.  The row's second pass
+// re-reads x and g, which hits L1/L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -254,7 +266,122 @@ cudaError_t dispatch_w(const void* x, const void* w, void* o, int w_dtype, long 
                         : cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// backward
+
+template <typename T>
+__device__ __forceinline__ float as_f(T v);
+template <>
+__device__ __forceinline__ float as_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float as_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T of_f(float v);
+template <>
+__device__ __forceinline__ float of_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 of_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_bwd_rows(const T* __restrict__ x, const TW* __restrict__ w, const T* __restrict__ g,
+                     T* __restrict__ dx, float* __restrict__ dw_part, long long xs, long long gs,
+                     long long rows, int d, float eps) {
+  extern __shared__ float col_sum[];  // d floats
+  __shared__ float part[2][THREADS / 32];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  for (int c = tid; c < d; c += THREADS) col_sum[c] = 0.f;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * xs;
+    const T* gr = g + row * gs;
+    float ss = 0.f, su = 0.f;
+    for (int c = tid; c < d; c += THREADS) {
+      const float xv = as_f(xr[c]);
+      ss = fmaf(xv, xv, ss);
+      su = fmaf(as_f(gr[c]) * (1.f + as_f(w[c])), xv, su);
+    }
+    ss = warp_sum(ss);
+    su = warp_sum(su);
+    if (lane == 0) {
+      part[0][warp] = ss;
+      part[1][warp] = su;
+    }
+    __syncthreads();
+    ss = su = 0.f;
+#pragma unroll
+    for (int i = 0; i < THREADS / 32; ++i) {  // every thread adds in the same order
+      ss += part[0][i];
+      su += part[1][i];
+    }
+    const float r = rsqrtf(ss / d + eps);
+    const float coef = r * r * r * (su / d);
+    T* dxr = dx + row * d;
+    for (int c = tid; c < d; c += THREADS) {
+      const float xv = as_f(xr[c]), gv = as_f(gr[c]);
+      dxr[c] = of_f<T>(r * (gv * (1.f + as_f(w[c]))) - xv * coef);
+      col_sum[c] = fmaf(gv * xv, r, col_sum[c]);
+    }
+    __syncthreads();  // `part` is rewritten by the next row
+  }
+  for (int c = tid; c < d; c += THREADS) dw_part[static_cast<long long>(blockIdx.x) * d + c] = col_sum[c];
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_bwd_dw(const float* __restrict__ dw_part, TW* __restrict__ dw, int parts, int d) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int i = 0; i < parts; ++i) s += dw_part[static_cast<long long>(i) * d + c];
+  dw[c] = of_f<TW>(s);
+}
+
+template <typename T, typename TW>
+cudaError_t launch_bwd(const long long* args, float eps) {
+  const long long rows = args[7], xs = args[9], gs = args[10];
+  const int d = static_cast<int>(args[8]), parts = static_cast<int>(args[12]);
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[11]);
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        rmsnorm_bwd_rows<T, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
+  }
+  float* part = reinterpret_cast<float*>(args[5]);
+  rmsnorm_bwd_rows<T, TW><<<parts, THREADS, smem, st>>>(
+      reinterpret_cast<const T*>(args[0]), reinterpret_cast<const TW*>(args[1]),
+      reinterpret_cast<const T*>(args[2]), reinterpret_cast<T*>(args[3]), part, xs, gs, rows, d, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dw<TW><<<(d + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      part, reinterpret_cast<TW*>(args[4]), parts, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// args[13] = {x, w, g, dx, dw, scratch, dtypes, rows, d, xs, gs, stream,
+// parts}: x (rows, d) with row stride xs and contiguous rows, w (d,)
+// contiguous, g (the output's gradient, x's dtype) with row stride gs, dx
+// (rows, d) contiguous in x's dtype, dw (d,) in w's dtype, scratch f32 of
+// parts * d floats, one row of column sums per block (1 <= parts <= rows);
+// dtypes as for rmsnorm_fwd.  d * 4 bytes of
+// column sums must fit a block's shared memory (d <= 58112).  Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int rmsnorm_bwd(const long long* args, float eps) {
+  const long long code = args[6], rows = args[7], d = args[8], parts = args[12];
+  if (rows <= 0 || d <= 0 || d * 4 > 232448 || code < 0 || code > 3 || parts < 1 ||
+      parts > rows || parts > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int x_dtype = static_cast<int>(code % 2), w_dtype = static_cast<int>(code / 2);
+  cudaError_t err;
+  if (x_dtype == 0)
+    err = w_dtype == 0 ? launch_bwd<float, float>(args, eps) : launch_bwd<float, __nv_bfloat16>(args, eps);
+  else
+    err = w_dtype == 0 ? launch_bwd<__nv_bfloat16, float>(args, eps)
+                       : launch_bwd<__nv_bfloat16, __nv_bfloat16>(args, eps);
+  return static_cast<int>(err);
+}
 
 // args[8] = {x, w, o, dtypes, rows, d, xs, stream}: x (rows, d) with row
 // stride xs (elements) and contiguous rows; w (d,) contiguous; o (rows, d)

@@ -1,3 +1,4 @@
 """Hopper kernels of the port, each with its plain-PyTorch twin and a launch
-counter: ``flash_attention`` (CUDA C++, ``csrc/flash_attention.cu``) and
-``rmsnorm`` (Triton).  Callers use ``repro_torch.kernels.ops``."""
+counter, all CUDA C++ under ``csrc/``: ``flash_attention`` (forward, and its
+backward ``flash_attention_bwd``), ``rmsnorm`` (forward and ``rmsnorm_bwd``)
+and ``ssd_scan`` (forward only).  Callers use ``repro_torch.kernels.ops``."""

@@ -16,6 +16,14 @@ raises ``ValueError`` on a view that breaks this, and never copies it.
 (``flash_attention_plain``, built on ``ref.attention_ref``) for a CPU tensor;
 any other device raises.  ``flash_attention.launches`` counts kernel
 launches.
+
+Gradients.  When grad mode is on and an input requires grad, a CUDA call
+goes through ``FlashAttentionFn``: its forward launches the same kernel and
+also keeps each row's log-sum-exp, and its backward is
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, three launches per
+call; ``flash_attention_bwd.launches`` counts calls).  Otherwise (serving,
+``inference_mode``) the call launches the forward alone, as lean as before.
+A CPU call differentiates through the plain version.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -35,8 +43,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
+    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
                    ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.c_float, vp]
+    fn.restype = i
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    i, pll = ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+    fn.argtypes = [pll, pll, i, i, i, i, i, i, i, i, i, ctypes.c_float, ctypes.c_void_p]
     fn.restype = i
     return fn
 
@@ -86,6 +103,98 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _check_card(q, k, v):
+    b, s, h, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, not {hd}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the kernel takes {sorted(map(str, _DTYPES))}, not {q.dtype}")
+    if b * s * h == 0 or k.shape[1] == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        problem = tma_layout_problem(x.shape, x.stride(), x.element_size(), x.data_ptr())
+        if problem:
+            raise ValueError(f"{name} {tuple(x.shape)} strides {x.stride()}: {problem}")
+
+
+def _launch(q, k, v, causal, window, scale, with_lse: bool):
+    """One forward launch on checked CUDA tensors: o, and each row's f32
+    log-sum-exp (B, H, S) if ``with_lse`` (else None)."""
+    b, s, h, hd = q.shape
+    t, g = k.shape[1], k.shape[2]
+    o = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *o.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, _DTYPES[q.dtype], b, s, t, h, g, hd, strides,
+            int(causal), int(window), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _entry()(*args)
+    if err:
+        raise RuntimeError("flash_attention: a TMA descriptor could not be encoded" if err == -1
+                           else f"flash_attention kernel launch failed with CUDA error {err}")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """The backward kernels on CUDA tensors: q/o/do (B,S,H,hd), k/v
+    (B,T,G,hd), lse the forward's f32 (B,H,S).  Returns dq, dk, dv in the
+    layouts and dtype of q, k and v."""
+    _check(q, k, v, window)
+    _check_card(q, k, v)
+    b, s, h, hd = q.shape
+    t, g = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} or lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError("o and do take q's dtype, lse float32")
+    if b * h > 65535:
+        raise ValueError(f"the kernels take at most 65535 batch*heads, not {b * h}")
+    # the kernels read rows of o and do with any (batch, seq, head) strides;
+    # an autograd gradient may come expanded (stride 0)
+    o, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (o, do))
+    lse = lse.contiguous()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
+    ts = (q, k, v, o, do, lse, delta, dq, dk, dv)
+    ptrs = (ctypes.c_longlong * 10)(*(x.data_ptr() for x in ts))
+    strides = (ctypes.c_longlong * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
+                                        for st in x.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = _bwd_entry()(ptrs, strides, _DTYPES[q.dtype], b, s, t, h, g, hd, int(causal),
+                           int(window), float(scale or 1.0 / math.sqrt(hd)),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed with CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with its gradient: the forward keeps q, k, v, o and each
+    row's log-sum-exp; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = _launch(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """q: (B, S, H, hd); k/v: (B, T, G, hd).  Returns (B, S, H, hd) of q.dtype."""
@@ -94,32 +203,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
-    b, s, h, hd = q.shape
-    t, g = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, not {hd}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"the kernel takes {sorted(map(str, _DTYPES))}, not {q.dtype}")
-    if b * s * h == 0 or t == 0:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        problem = tma_layout_problem(x.shape, x.stride(), x.element_size(), x.data_ptr())
-        if problem:
-            raise ValueError(f"{name} {tuple(x.shape)} strides {x.stride()}: {problem}")
-    o = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
-    scale = scale or 1.0 / math.sqrt(hd)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:3])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], b, s, t,
-            h, g, hd, strides, int(causal), int(window), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    with torch.cuda.device(q.device):
-        err = _entry()(*args)
-    if err:
-        raise RuntimeError("flash_attention: a TMA descriptor could not be encoded" if err == -1
-                           else f"flash_attention kernel launch failed with CUDA error {err}")
-    flash_attention.launches += 1
-    return o
+    _check_card(q, k, v)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -16,6 +16,12 @@ off the current device.
 ``ref.rmsnorm_ref`` for a CPU tensor; any other device raises.
 ``rmsnorm.launches`` counts kernel launches.
 
+Gradients.  When grad mode is on and x or w requires grad, a CUDA call goes
+through ``RMSNormFn``, whose backward is ``rmsnorm_bwd`` (dx and dw, two
+launches in ``csrc/rmsnorm.cu``; ``rmsnorm_bwd.launches`` counts calls).
+Otherwise the call takes the lean path below, as serving always does.  A
+CPU call differentiates through the plain version.
+
 The JAX model's ``layers.rmsnorm`` (:81-85) casts to the working dtype
 *before* the ``(1 + w)`` multiply, while the kernel (and ``rmsnorm_ref``)
 multiply in f32 and cast once.  The two agree exactly in fp32, the serving
@@ -25,6 +31,7 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -70,6 +77,12 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
     the CUDA path does as little in Python as it can."""
     if not x.is_cuda:
         return _off_card(x, w, eps)
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return RMSNormFn.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x, w, eps):
     if x.ndim != 2 or w.ndim != 1:
         raise ValueError(f"want x (rows, d) and w (d,); got {tuple(x.shape)}, {tuple(w.shape)}")
     rows, d = x.shape
@@ -99,3 +112,66 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
 
 
 rmsnorm.launches = 0
+
+
+BWD_BLOCKS = 264  # blocks of one backward, two per SM of the H100; each sums d columns
+
+
+def rmsnorm_bwd(x, w, g, *, eps: float = 1e-5):
+    """The backward kernels on CUDA tensors: x (rows, d), w (d,), g the
+    output's gradient (rows, d).  Returns dx (rows, d) of x.dtype and dw (d,)
+    of w.dtype."""
+    if x.ndim != 2 or w.shape != (x.shape[1],) or g.shape != x.shape:
+        raise ValueError(f"want x and g (rows, d), w (d,); got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(w.shape)}")
+    rows, d = x.shape
+    code = _CODES.get((x.dtype, w.dtype))
+    if code is None or g.dtype != x.dtype or not x.is_cuda or {w.device, g.device} != {x.device}:
+        raise ValueError(f"the kernel takes CUDA float32 or bfloat16 x and g of one dtype on one "
+                         f"device; got x {x.dtype}, g {g.dtype}, w {w.dtype}")
+    if not rows or not d or d * 4 > 232448:
+        raise ValueError(f"the kernel takes rows > 0 and 0 < d <= 58112, not {tuple(x.shape)}")
+    x, g = (t if t.stride(1) == 1 else t.contiguous() for t in (x, g))
+    w = w.contiguous()
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=x.device)
+    parts = min(rows, BWD_BLOCKS)
+    scratch = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    args = (ctypes.c_longlong * 13)(x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                    dw.data_ptr(), scratch.data_ptr(), code, rows, d,
+                                    x.stride(0), g.stride(0),
+                                    torch.cuda.current_stream(x.device).cuda_stream, parts)
+    with torch.cuda.device(x.device):
+        err = _bwd_entry()(args, ctypes.c_float(eps))
+    if err:
+        raise RuntimeError(f"rmsnorm_bwd kernel launch failed with CUDA error {err}")
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("rmsnorm").rmsnorm_bwd
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel with its gradient: the forward keeps x and w, the backward
+    is ``rmsnorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, g, eps=ctx.eps)
+        return dx, dw, None
+
+
+rmsnorm_bwd.launches = 0

@@ -27,6 +27,11 @@ copied first.
 (``ssd_scan_plain``, built on ``ref.ssd_ref``) for a CPU tensor; any other
 device raises.  ``ssd_scan.launches`` counts calls that launched the kernels:
 one per call, whatever the three launches inside it.
+
+The kernels have no backward yet (ROADMAP.md Queue 1: the SSD scan backward
+kernel, with mamba2-130m training).  So that no gradient is ever dropped
+silently, a CUDA call raises ``NotImplementedError`` when grad mode is on and
+an input requires grad.  A CPU call differentiates through the plain version.
 """
 from __future__ import annotations
 
@@ -108,6 +113,11 @@ def ssd_scan(x, dt, a, b, c):
         return ssd_scan_plain(x, dt, a, b, c)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel on the card yet (ROADMAP.md Queue 1: the SSD scan "
+            "backward kernel, with mamba2-130m training); run the forward under torch.no_grad() "
+            "or inference_mode, or differentiate on the CPU")
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if p not in DIMS or n not in DIMS:

@@ -1,0 +1,157 @@
+"""End-to-end training entry point, on the GPU.
+
+Wires together: the config registry (--arch), the synthetic data pipeline
+with prefetch, the train step (``repro_torch.train``: the flash-attention and
+RMSNorm kernels forward and backward on the card), async atomic
+checkpointing with auto-resume, heartbeats, straggler monitoring, and
+failure injection for fault-tolerance drills.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --batch 4 --seq 1024 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --steps 4 --batch 8 --seq 32 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --steps 6 --ckpt-dir /tmp/ckpt --ckpt-every 2 --fail-at 3   # restart drill
+
+Counterpart of the JAX package's ``launch/train.py``, with its flags plus
+``--device`` (``cuda`` by default; ``cpu`` runs the kernels' plain versions)
+and ``--loss-chunk``.  One card: a non-empty ``--mesh`` raises (ROADMAP.md
+Queue 1: parallel).  With ``--fail-at``, ``main`` runs the loop under
+``run_with_restarts``: the first attempt fails at that step and the restart
+resumes from the latest checkpoint.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.ckpt.checkpoint import AsyncCheckpointer, latest_step, restore
+from repro_torch.configs import ARCHS, get_arch, reduced
+from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.runtime.fault import Heartbeat, StragglerMonitor, run_with_restarts
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_step import RunConfig, init_train_state, make_train_step
+
+
+def build(spec, cfg: RunConfig, seed: int = 0, device=None):
+    """(train step, initial state) on ``device`` (the card by default)."""
+    return make_train_step(spec, cfg), init_train_state(spec, cfg, seed=seed, device=device)
+
+
+def _clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def train_loop(args, spec, fail_at: int | None = None) -> int:
+    if args.mesh:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the port trains on one card; meshes come with ROADMAP.md "
+            "Queue 1 (parallel, launch, cost analysis)")
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    cfg = RunConfig(
+        compute_dtype=dtype, param_dtype=dtype,
+        remat=args.remat, microbatches=args.microbatches, loss_chunk=args.loss_chunk,
+        opt=opt.OptConfig(lr=args.lr, warmup_steps=args.warmup),
+    )
+    step_fn, state = build(spec, cfg, args.seed, device)
+
+    ckpt = AsyncCheckpointer(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    start = 0
+    if ckpt and latest_step(args.ckpt_dir) is not None:
+        state, start = restore(args.ckpt_dir, state)
+        print(f"[train] resumed from step {start}", flush=True)
+
+    data = SyntheticLM(spec, DataConfig(args.batch, args.seq, seed=args.seed))
+    prefetch = Prefetcher(data, start_step=start, depth=2)
+    hb = Heartbeat(Path(args.ckpt_dir) / "heartbeat.json") if args.ckpt_dir else None
+    straggler = StragglerMonitor(k_sigma=args.straggler_sigma)
+    tokens = args.batch * args.seq
+
+    losses = []
+    step = start
+    try:
+        for step, batch in iter(prefetch):
+            if step >= args.steps:
+                break
+            if fail_at is not None and step == fail_at:
+                raise RuntimeError(f"injected failure at step {step}")
+            t0 = _clock(device)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = _clock(device) - t0
+            losses.append(loss)
+            if straggler.observe(step, dt):
+                print(f"[straggler] step {step} took {dt:.3f}s "
+                      f"(mean {straggler.mean:.3f}s) — mitigation hook fired", flush=True)
+            if hb:
+                hb.beat(step)
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(state, step + 1)
+            if step % args.log_every == 0:
+                print(f"[train] {device.type} step {step} loss {loss:.4f} ({dt * 1e3:.1f} ms, "
+                      f"{tokens / dt:.1f} tokens/s)", flush=True)
+        final = min(args.steps, step + 1) if losses else start
+    finally:
+        prefetch.close()
+    if ckpt:
+        ckpt.save(state, final, block=True)
+    if losses:
+        print(f"[train] done at step {final}; loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+              flush=True)
+    return final
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale config of the same family")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--remat", default="none", choices=["none", "dots", "full", "save_kv"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--loss-chunk", type=int, default=0,
+                    help=">0: chunked cross-entropy over this many positions at a time")
+    ap.add_argument("--mesh", default="", help="not supported on one card")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--straggler-sigma", type=float, default=3.0)
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a failure at this step (fault drill under run_with_restarts)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parser().parse_args(argv)
+    spec = get_arch(args.arch)
+    if args.reduced:
+        spec = reduced(spec)
+    if args.fail_at is None:
+        train_loop(args, spec)
+        return
+    attempts = []
+
+    def loop(start: int) -> int:
+        attempts.append(start)  # only the first attempt fails
+        return train_loop(args, spec, fail_at=args.fail_at if len(attempts) == 1 else None)
+
+    rep = run_with_restarts(loop, target_step=args.steps)
+    print(f"[train] fault drill: completed {rep.completed_steps} steps after "
+          f"{rep.restarts} restart(s): {rep.failures}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import ParamDef, apply_rope
+from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name
 
 
 def attn_defs(spec: ArchSpec) -> dict[str, ParamDef]:
@@ -69,6 +69,9 @@ def _attend(p, x, positions, spec: ArchSpec, window: int):
     q, k, v = _project_qkv(p, x, spec)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
+    # what the 'save_kv' remat policy keeps for the backward (JAX :141-142)
+    k = checkpoint_name(k, "attn_kv")
+    v = checkpoint_name(v, "attn_kv")
     o = ops.mha_flash(q, k, v, causal=True, window=window,
                       scale=1.0 / math.sqrt(spec.resolved_head_dim))
     return _out_proj(p, o), k, v

@@ -10,19 +10,55 @@ Every layer kind of the JAX package: the ``attn_full`` / ``attn_local``
 (sliding-window, with a ring-buffer cache) and ``mamba`` mixers, with the
 ``mlp`` or ``moe`` FFN or none (a layer with ``ffn == "none"`` has no
 ``norm2``/``ffn`` leaves).
+
+Remat (``stack_forward(..., remat=)``): the JAX ``REMAT_POLICIES`` (:27-35)
+applied per layer, as the JAX ``stack_train`` applies them per sublayer
+(:139-169), through ``torch.utils.checkpoint``:
+  * ``none``: nothing is recomputed;
+  * ``full``: each layer saves only its input and recomputes the rest;
+  * ``dots``: selective checkpointing that saves the outputs of 2-D matrix
+    products (``mm``/``addmm``: every projection, the router) and recomputes
+    the rest, batched products included, as the JAX
+    ``dots_with_no_batch_dims_saveable`` does;
+  * ``save_kv``: saves only the roped k and v that enter attention
+    (``checkpoint_name(.., "attn_kv")``, as the JAX module names them).
+The kernels write through ctypes into fresh ``torch.empty`` buffers, which
+the dispatch mode of selective checkpointing sees only as ``empty``: it
+recomputes the ``empty`` and the launch fills it again, so no cached buffer
+is ever read empty.  Remat only matters while autograd records: with grad
+mode off, every policy runs the layers plainly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchSpec, LayerDef
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
-from repro_torch.models.layers import ParamDef, rmsnorm
+from repro_torch.models.layers import REMAT_NAMES, ParamDef, rmsnorm
+
+REMAT_POLICIES = ("none", "full", "dots", "save_kv")
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_kv_policy(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if getattr(REMAT_NAMES, "current", None) == "attn_kv"
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_CONTEXTS = {"dots": functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+             "save_kv": functools.partial(create_selective_checkpoint_contexts, _save_kv_policy)}
 
 
 def _window(spec: ArchSpec, ld: LayerDef) -> int:
@@ -97,13 +133,42 @@ def stack_cache_defs(spec: ArchSpec, batch: int, seq: int) -> list[dict[str, Any
     return [layer_cache_defs(spec, ld, batch, seq) for ld in spec.layer_defs()]
 
 
-def stack_forward(params, x, positions, spec: ArchSpec):
-    """The JAX ``stack_train`` forward (no remat: the port does not train).
-    Returns (x, aux): aux sums ``lb_loss`` over the MoE layers (f32 0 without
-    any), as the JAX ``_apply_train`` (:66-72) does."""
+def _apply_saving(names, p, x, positions, ld: LayerDef, spec: ArchSpec):
+    """``_apply_forward`` with ``checkpoint_name`` copying ``names``: the
+    checkpointed function itself sets them, so its recompute in the backward
+    makes the same ops as its forward."""
+    saving = getattr(REMAT_NAMES, "saving", ())
+    REMAT_NAMES.saving = names
+    try:
+        return _apply_forward(p, x, positions, ld, spec)
+    finally:
+        REMAT_NAMES.saving = saving
+
+
+def _remat_forward(p, x, positions, ld: LayerDef, spec: ArchSpec, remat: str):
+    if remat == "full":
+        return checkpoint(_apply_forward, p, x, positions, ld, spec, use_reentrant=False,
+                          preserve_rng_state=False)
+    names = ("attn_kv",) if remat == "save_kv" else ()
+    return checkpoint(_apply_saving, names, p, x, positions, ld, spec, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_CONTEXTS[remat])
+
+
+def stack_forward(params, x, positions, spec: ArchSpec, remat: str = "none"):
+    """The JAX ``stack_train`` forward, each layer under the ``remat`` policy
+    (``REMAT_POLICIES``).  Returns (x, aux): aux sums ``lb_loss`` over the
+    MoE layers (f32 0 without any), as the JAX ``_apply_train`` (:66-72)
+    does."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, not {remat!r}")
+    if not torch.is_grad_enabled():
+        remat = "none"  # nothing is saved for a backward, so nothing to recompute
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, ld in zip(params, spec.layer_defs()):
-        x, lb = _apply_forward(p, x, positions, ld, spec)
+        if remat == "none":
+            x, lb = _apply_forward(p, x, positions, ld, spec)
+        else:
+            x, lb = _remat_forward(p, x, positions, ld, spec, remat)
         if lb is not None:
             aux = aux + lb
     return x, aux

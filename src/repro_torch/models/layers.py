@@ -11,6 +11,7 @@ functions consume the resulting tree of tensors.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -73,6 +74,25 @@ def rmsnorm(x, weight, eps: float = 1e-5):
     the ``(1 + w)`` multiply, this multiplies in f32 and casts once: equal in
     fp32, one bf16 rounding apart in bf16 (see ``kernels/rmsnorm.py``)."""
     return ops.fused_rmsnorm(x, weight, eps=eps)
+
+
+# the names a remat policy keeps (.saving) and the name being made (.current);
+# set by models/blocks.py
+REMAT_NAMES = threading.local()
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Counterpart of ``jax.ad_checkpoint.checkpoint_name``: marks ``x`` for a
+    remat policy that saves ``name``.  Where such a policy runs, ``x`` is
+    copied once under the name (the one op the policy then saves); elsewhere
+    ``x`` comes back as it is."""
+    if name not in getattr(REMAT_NAMES, "saving", ()):
+        return x
+    REMAT_NAMES.current = name
+    try:
+        return x.clone()
+    finally:
+        REMAT_NAMES.current = None
 
 
 def linear(x, w, b=None):

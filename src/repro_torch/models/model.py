@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``models/model.py``, with its three entry
 points:
-  * ``forward``     — full-sequence logits
+  * ``forward``     — full-sequence logits (training; ``remat`` per layer)
   * ``prefill``     — prompt pass that also fills decode caches
   * ``decode_step`` — one token with caches
+and ``forward_hidden`` / ``head_fn`` for chunked cross-entropy (:99-121).
 
 The JAX package has no sharding on this path (``NULL_PLAN``), so the port
 takes no plan.  ``forward`` returns ``(logits, aux)`` as the JAX one does:
@@ -68,23 +69,46 @@ def _embed_in(params, inputs, spec: ArchSpec, compute_dtype):
     return inputs.to(compute_dtype)  # precomputed (B, S, D) embeddings
 
 
-def _head(params, x, spec: ArchSpec):
-    x = rmsnorm(x, params["final_norm"], spec.norm_eps)
+def _project(params, h, spec: ArchSpec):
     if spec.frontend == "tokens" and spec.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        return h @ params["embed"].to(h.dtype).T
+    return h @ params["lm_head"].to(h.dtype)
+
+
+def _head(params, x, spec: ArchSpec):
+    return _project(params, rmsnorm(x, params["final_norm"], spec.norm_eps), spec)
 
 
 def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)
 
 
-def forward(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32):
+def forward(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32,
+            remat: str = "dots"):
     """inputs: (B, S) int tokens or (B, S, D) embeddings -> (logits (B, S, V),
-    aux: the MoE layers' summed load-balance loss, f32 0 without MoE)."""
+    aux: the MoE layers' summed load-balance loss, f32 0 without MoE).
+    ``remat``: the per-layer policy while autograd records
+    (``blocks.REMAT_POLICIES``)."""
     x = _embed_in(params, inputs, spec, compute_dtype)
-    x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec)
+    x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec,
+                                  remat)
     return _head(params, x, spec), aux
+
+
+def forward_hidden(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32,
+                   remat: str = "dots"):
+    """Like ``forward`` but stops before the LM head: returns the final-normed
+    hidden states (B, S, D) and aux.  Pair with ``head_fn`` for chunked
+    cross-entropy, which never holds the (B, S, V) logits."""
+    x = _embed_in(params, inputs, spec, compute_dtype)
+    x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec,
+                                  remat)
+    return rmsnorm(x, params["final_norm"], spec.norm_eps), aux
+
+
+def head_fn(params, spec: ArchSpec):
+    """Closure projecting (already final-normed) hidden chunks to logits."""
+    return lambda h: _project(params, h, spec)
 
 
 def prefill(params, inputs, caches, spec: ArchSpec, *, compute_dtype=torch.bfloat16):

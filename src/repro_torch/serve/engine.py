@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``serve/engine.py``.  Prompts run through
 ``prefill`` (which fills the caches), then tokens decode step by step with
 greedy (argmax) or temperature sampling from a ``torch.Generator`` seeded by
 ``seed``.  The engine runs on the card unless given ``device="cpu"``; its
-timers wait for the card before reading the clock.
+timers wait for the card before reading the clock.  ``generate`` runs under
+``torch.inference_mode``: parameters that require grad (a train state's)
+build no graph, and the kernels take their lean forward-only path.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ class Engine:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
+    @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new: int = 32,
                  temperature: float = 0.0, seed: int = 0) -> tuple[np.ndarray, ServeStats]:
         """prompts: (B, S) int32 (same length; pad upstream)."""

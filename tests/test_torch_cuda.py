@@ -11,7 +11,11 @@ Imports torch and the port only, so it needs no JAX there.  Tolerances:
 large-score case), 2e-2 in bf16 (bf16 operands and one bf16 rounding of the
 output).  The SSD scan is held at those bounds relative
 to max |y| and max |state|: its chunked form and the sequential recurrence
-sum through exp in other orders.
+sum through exp in other orders.  Gradients (flash attention's and RMSNorm's
+backward kernels, whole models) are held at those bounds relative to the
+largest |gradient| of each tensor (plus rtol at the same bound): an element
+of a gradient sums many products that cancel, so rounding in another order
+shows against the tensor's scale.
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def test_flash_kernel_matches_plain(dev, b, s, t, h, g, hd, window, dtype):
 # 128 (bf16) and 64 (f32) up to head_dim 128 and 64 (bf16) and fewer (f32)
 # at 256, TMA boxes of up to 128 bytes per row.
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_tile_seams(dev, s, hd, dtype):
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -146,7 +150,7 @@ def test_flash_kernel_reads_strided_inputs(dev):
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(dev):
-    q = torch.zeros((1, 8, 2, 96), device=dev)
+    q = torch.zeros((1, 8, 2, 80), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         ops.mha_flash(q, q, q)
 
@@ -354,3 +358,183 @@ def test_reduced_ring_and_moe_models_on_card_match_cpu(dev, arch):
                 assert got[name].dtype == torch.int32 and torch.equal(got[name].cpu(), want[name])
             else:
                 close(got[name], want[name])
+
+
+# ---------------------------------------------------------------------------
+# head_dim 96 (phi-3-vision-4.2b), the forward's log-sum-exp, and backward
+
+
+@pytest.mark.parametrize("b,s,t,h,g,window", [
+    (4, 1024, 1024, 32, 32, 0),   # phi-3-vision-4.2b's prefill
+    (2, 200, 200, 4, 2, 0),
+    (1, 77, 77, 4, 4, 16),
+    (2, 129, 300, 4, 1, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_96(dev, b, s, t, h, g, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((b, s, h, 96), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, g, 96), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, g, 96), generator=gen, device=dev).to(dtype)
+    _close(ops.mha_flash(q, k, v, window=window),
+           fa.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_log_sum_exp(dev, hd, dtype):
+    """The training forward's per-row log-sum-exp of the scaled scores."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, h, g, window = 2, 150, 4, 2, 37
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, g, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, g, hd), generator=gen, device=dev).to(dtype)
+    o, lse = fa._launch(q, k, v, True, window, hd ** -0.5, with_lse=True)
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), k.float().repeat_interleave(h // g, 2))
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+    want = torch.logsumexp((sc * hd ** -0.5).masked_fill(~mask, float("-inf")), -1)
+    _close(lse, want, torch.float32)
+    _close(o, fa.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+def _close_grad(got, want, dtype, scale=None):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = want.float().abs().max().item() if scale is None else scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype] * scale + 1e-6)
+
+
+def _flash_grads(q, k, v, do, window, plain):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    fn = fa.flash_attention_plain if plain else ops.mha_flash
+    fn(q, k, v, causal=True, window=window).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("b,s,t,h,g,window", [
+    (2, 200, 200, 4, 2, 0),      # ragged, GQA
+    (1, 77, 77, 4, 4, 16),       # window, no grouping
+    (2, 130, 130, 8, 1, 0),      # one KV group for 8 heads
+    (2, 300, 300, 4, 1, 100),    # the window's edge inside a tile
+    (1, 100, 300, 2, 1, 0),      # T > S
+    (1, 1, 1, 2, 1, 0),
+    (1, 65, 65, 2, 2, 1),        # each row sees itself only
+])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain(dev, b, s, t, h, g, window, hd, dtype):
+    """dq, dk, dv of the backward kernels (through FlashAttentionFn) vs
+    autograd through the plain version, in the inputs' dtype, each held
+    against the largest of the three: where a row sees a single key (window
+    1), dq and dk are 0 by cancellation (dP - D), which the kernel reaches
+    to rounding of the dO V products that dv's scale measures."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, g, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, g, hd), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    got = _flash_grads(q, k, v, do, window, plain=False)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _flash_grads(q, k, v, do, window, plain=True)
+    scale = max(w.float().abs().max().item() for w in want)
+    for x, y in zip(got, want):
+        _close_grad(x, y, dtype, scale)
+
+
+def test_flash_backward_reads_strided_inputs(dev):
+    """q, k, v as views into one packed projection and an expanded (stride
+    0) output gradient, as ``o.sum().backward()`` gives."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qkv = torch.randn((2, 96, 4 + 2 + 2, 64), generator=gen, device=dev, requires_grad=True)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    ops.mha_flash(q, k, v).sum().backward()
+    got = qkv.grad.clone()
+    qkv.grad = None
+    fa.flash_attention_plain(q, k, v).sum().backward()
+    _close_grad(got, qkv.grad, torch.float32)
+
+
+@pytest.mark.parametrize("rows,d", [(4000, 1536), (8160, 1152), (3, 100), (37, 8960), (1, 768),
+                                    (300, 3072)])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_rmsnorm_backward_matches_plain(dev, rows, d, dtype, wdtype):
+    """dx and dw of the backward kernels (through RMSNormFn) vs autograd
+    through the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
+    w = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(wdtype)
+    g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    grads = []
+    before = rn.rmsnorm_bwd.launches
+    for fn in (ops.fused_rmsnorm, ref.rmsnorm_ref):
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        fn(xg, wg).backward(g)
+        grads.append((xg.grad, wg.grad))
+    assert rn.rmsnorm_bwd.launches == before + 1
+    (dx, dw), (dx_want, dw_want) = grads
+    _close_grad(dx, dx_want, dtype)
+    _close_grad(dw, dw_want, wdtype if wdtype == torch.bfloat16 else dtype)
+
+
+def test_ssd_kernel_raises_when_grad_is_required(dev):
+    x, dt, a, bb, cc = _ssd_inputs(dev, 1, 64, 2, 1, 16, 16, torch.float32, "model")
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd(x, dt, a, bb, cc)
+    with torch.no_grad():
+        ops.ssd(x, dt, a, bb, cc)  # no graph, no gradient to drop
+
+
+def _card_and_cpu_grads(arch, n_layers, remat, dev):
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loss import cross_entropy
+    spec = reduced(ARCHS[arch], n_layers=n_layers)
+    cpu = M.init_params(spec, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    tok = torch.as_tensor(rng.integers(0, spec.vocab_size, (2, 150)))
+    lab = torch.as_tensor(rng.integers(0, spec.vocab_size, (2, 150)))
+    out = []
+    for device, r in (("cpu", "none"), (dev, remat)):
+        params = map_with_path(lambda _, t: t.detach().to(device).requires_grad_(), cpu)
+        logits, _ = M.forward(params, tok.to(device), spec, remat=r)
+        loss = cross_entropy(logits, lab.to(device))
+        loss.backward()
+        out.append((loss.item(), [p.grad.cpu() for p in opt.leaves(params)]))
+    return out
+
+
+@pytest.mark.parametrize("arch,n_layers", [("qwen2-1.5b", 2), ("gemma3-1b", 4)])
+@pytest.mark.parametrize("remat", ["none", "dots", "full", "save_kv"])
+def test_reduced_model_gradients_on_card_match_cpu(dev, arch, n_layers, remat):
+    """Every parameter's gradient on the card (the kernels forward and
+    backward, under each remat policy) vs the CPU's plain path."""
+    before = (fa.flash_attention_bwd.launches, rn.rmsnorm_bwd.launches)
+    (cpu_loss, cpu_grads), (loss, grads) = _card_and_cpu_grads(arch, n_layers, remat, dev)
+    assert fa.flash_attention_bwd.launches == before[0] + n_layers
+    assert rn.rmsnorm_bwd.launches == before[1] + 2 * n_layers + 1
+    np.testing.assert_allclose(loss, cpu_loss, rtol=1e-5)
+    for got, want in zip(grads, cpu_grads):
+        assert bool(got.abs().max() > 0)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item() + 1e-6)
+
+
+def test_serving_under_inference_mode_keeps_its_launch_counts(dev):
+    """Parameters that require grad (a train state's) still serve through
+    the lean forward path: the same launch counts, no backward launches."""
+    from repro_torch.serve.engine import Engine
+    spec = reduced(ARCHS["qwen2-1.5b"])
+    params = map_with_path(lambda _, t: t.requires_grad_(), M.init_params(spec, 0, device=dev))
+    eng = Engine(spec, params, max_len=40, device=dev)
+    prompts = np.random.default_rng(0).integers(0, spec.vocab_size, (2, 24)).astype(np.int32)
+    counters = (fa.flash_attention, fa.flash_attention_bwd, rn.rmsnorm, rn.rmsnorm_bwd)
+    before = [c.launches for c in counters]
+    out, _ = eng.generate(prompts, max_new=8)
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got == [spec.n_layers, 0, (2 * spec.n_layers + 1) * (1 + 8), 0]
+    assert out.shape == (2, 8)

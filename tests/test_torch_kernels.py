@@ -146,7 +146,7 @@ def test_flash_tma_layout_rule_accepts_the_models_tensors():
 
 
 def test_build_compiles_every_kernel_source():
-    assert _build.sources() == ["flash_attention", "rmsnorm", "ssd_scan"]
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan"]
 
 
 def test_build_path_changes_with_a_header(tmp_path, monkeypatch):

@@ -135,7 +135,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert {"repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
-            "repro_torch.models.moe"} <= set(mods)
+            "repro_torch.models.moe", "repro_torch.train.train_step", "repro_torch.train.loss",
+            "repro_torch.train.optimizer", "repro_torch.ckpt.checkpoint",
+            "repro_torch.data.pipeline", "repro_torch.runtime.fault",
+            "repro_torch.launch.train"} <= set(mods)
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 22
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
