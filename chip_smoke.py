@@ -27,15 +27,21 @@ Phases, one or more lines each:
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
                and its entering state).  Flash attention at head_dim 96
                (phi-3-vision-4.2b, 32 heads).  The backward kernels: flash
-               attention's (three launches: D = rowsum(dO o O), then dK/dV and
-               dQ) at qwen2's, gemma3's (global and window 512), granite's
-               and phi-3's shapes against autograd through the plain version,
+               attention's (up to four launches, each row's device ms split
+               by kernel: flash_bwd_delta, D = rowsum(dO o O) and the padded
+               log-sum-exp; flash_bwd_dkdv, keys as rows; flash_bwd_dq; and
+               under GQA flash_bwd_group_sum, each group's heads added) at
+               qwen2's, gemma3's (global and window 512), granite's and
+               phi-3's shapes against autograd through the plain version,
                timed beside SDPA's backward (torch.autograd.grad), with a
                bound of 10 hd flops per unmasked pair (f32 as 3xTF32);
-               RMSNorm's (dx, and dw through per-block column sums) at the
-               train path's rows against autograd through the plain version
-               and through F.rms_norm; and the SSD scan's refusal of a
-               gradient on the card
+               RMSNorm's (rmsnorm_bwd_rows_kernel, dx with each block's dw
+               column sums, then rmsnorm_bwd_dw) at the train path's rows
+               against autograd through the plain version and through
+               F.rms_norm, and its time at the train shape with its grid
+               capped at several block counts; every backward row also run twice on the same
+               inputs, which must give the same gradients bit for bit; and
+               the SSD scan's refusal of a gradient on the card
   serve        each model at full width and depth (random weights from a seed)
                through repro_torch.serve.engine.Engine, fp32, greedy, batch 4,
                32 new tokens: qwen2-1.5b (prompt 1000), mamba2-130m (4096),
@@ -159,6 +165,22 @@ def device_ms(fn, iters: int) -> float | None:
     return sum(device_by_kernel(fn, iters).values()) or None
 
 
+def device_ms_split(fn, iters: int, prefix: str) -> dict[str, float]:
+    """Device ms per call of ``fn``'s kernels by short name: the first
+    ``prefix``... identifier of each kernel's name (without namespace and
+    template arguments)."""
+    phases: dict[str, float] = {}
+    for kname, ms in device_by_kernel(fn, iters).items():
+        short = re.search(prefix + r"\w*", kname)
+        kname = short.group(0) if short else kname
+        phases[kname] = phases.get(kname, 0.0) + ms
+    return phases
+
+
+def same_bits(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
                   "flash_attention": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
                   "rmsnorm": ("rmsnorm_rows", "rmsnorm_wide"), "rmsnorm_bwd": ("rmsnorm_bwd",),
@@ -274,6 +296,7 @@ def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
     kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window,
                                             scale=scale)
     got = kernel()
+    deterministic = same_bits(torch, got, kernel())
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention_plain(*leaves, causal=True, window=window)
     plain = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -300,12 +323,15 @@ def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
         bound_ms, bound_by = bound(nbytes, flops, name)
         extra = {}
     ms, library_ms = paired_ms(kernel, lib, iters)
+    phases = device_ms_split(kernel, iters, "flash_bwd")
     row = dict(
         case=f"flash_attention_bwd {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal "
              f"window={window}",
         max_abs_err=max(e[0] for e in errs), rel_err_by_grad=[e[1] for e in errs],
-        tol=TOL[name], ok=all(e[2] for e in errs),
-        ms=ms, device_ms=device_ms(kernel, iters), plain_ms=cuda_ms(plain, iters),
+        tol=TOL[name], deterministic=deterministic,
+        ok=all(e[2] for e in errs) and deterministic,
+        ms=ms, device_ms=sum(phases.values()) or None, device_ms_by_kernel=phases,
+        plain_ms=cuda_ms(plain, iters),
         library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {json.dumps(row)}")
@@ -321,6 +347,7 @@ def check_rmsnorm_bwd(torch, F, rn, ref, rows, d, dtype, iters):
     g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
     kernel = lambda: rn.rmsnorm_bwd(x, w, g)
     got = kernel()
+    deterministic = same_bits(torch, got, kernel())
     leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
     out = ref.rmsnorm_ref(*leaves)
     plain = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
@@ -334,14 +361,36 @@ def check_rmsnorm_bwd(torch, F, rn, ref, rows, d, dtype, iters):
     nbytes = (3 * x.numel() + 2 * w.numel()) * x.element_size()  # x, g, dx; w, dw
     bound_ms, bound_by = bound(nbytes, 8.0 * rows * d, name)
     ms, library_ms = paired_ms(kernel, lib, iters)
+    phases = device_ms_split(kernel, iters, "rmsnorm_bwd")
     row = dict(
         case=f"rmsnorm_bwd {name} rows={rows} d={d}", max_abs_err=max(e[0] for e in errs),
-        rel_err_dx_dw=[e[1] for e in errs], tol=RMS_TOL[name], ok=all(e[2] for e in errs),
-        ms=ms, device_ms=device_ms(kernel, iters), plain_ms=cuda_ms(plain, iters),
+        rel_err_dx_dw=[e[1] for e in errs], tol=RMS_TOL[name], deterministic=deterministic,
+        ok=all(e[2] for e in errs) and deterministic,
+        ms=ms, device_ms=sum(phases.values()) or None, device_ms_by_kernel=phases,
+        plain_ms=cuda_ms(plain, iters),
         library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] {json.dumps(row)}")
     return row
+
+
+def rmsnorm_bwd_blocks(torch, rn, rows, d, dtype, iters):
+    """Device ms of the RMSNorm backward at (rows, d) with its grid capped at
+    several block counts (``rn.BWD_BLOCKS``; uncapped, it takes one wave at
+    its occupancy), the cap restored after."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, g = (torch.randn((rows, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    w = torch.randn((d,), generator=gen, device="cuda").to(dtype)
+    chosen, out = rn.BWD_BLOCKS, {}
+    try:
+        for blocks in (132, 264, 528, 792, 1056):
+            rn.BWD_BLOCKS = blocks
+            out[blocks] = device_ms(lambda: rn.rmsnorm_bwd(x, w, g), iters)
+    finally:
+        rn.BWD_BLOCKS = chosen
+    print(f"[kernels] rmsnorm_bwd {dtype_name(dtype)} rows={rows} d={d} device ms with the "
+          f"grid capped at N blocks (the default cap, BWD_BLOCKS = {chosen}, leaves it one wave "
+          f"at its occupancy): {json.dumps(out)}")
 
 
 def ssd_inputs(torch, b, s, h, g, p, n, dtype, ranges):
@@ -382,13 +431,8 @@ def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
     flops = 4.0 * s * n * p * b * h
     bound_ms, bound_by = bound(nbytes, flops, name)
     kernel = lambda: ss.ssd_scan(*args)
-    # the three launches of one call, by kernel name (without namespace and
-    # template arguments)
-    phases: dict[str, float] = {}
-    for kname, ms in device_by_kernel(kernel, iters).items():
-        short = re.search(r"ssd_scan\w*", kname)
-        kname = short.group(0) if short else kname
-        phases[kname] = phases.get(kname, 0.0) + ms
+    # the three launches of one call, by kernel name
+    phases = device_ms_split(kernel, iters, "ssd_scan")
     row = dict(
         case=f"ssd_scan {name} {ranges} ranges B={b} S={s} H={h} G={g} P={p} N={n}",
         max_abs_err=err, rel_err=rel, rel_err_state=rel_state, tol=SSD_TOL[name],
@@ -775,6 +819,7 @@ def main() -> None:
                 ("bwd gemma3 8160x1152", (BATCH * G_PROMPT, gspec.d_model), 50)):
             named[name, key] = check_rmsnorm_bwd(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
+        rmsnorm_bwd_blocks(torch, rn, TRAIN_BATCH * TRAIN_SEQ, d, dtype, 50)
         for key, (n_rows, width), iters in (
                 ("qwen2 prefill", (BATCH * PROMPT, d), 100), ("qwen2 decode", (BATCH, d), 200),
                 ("gemma3 prefill", (BATCH * G_PROMPT, gspec.d_model), 100),
@@ -835,7 +880,8 @@ def main() -> None:
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
-    case_keys = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+    case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
+                 "plain_ms", "bound_ms", "bound_by",
                  "bound_3xtf32_ms", "bound_f32_cores_ms", "library_ms")
 
     def numbers(r):

@@ -31,14 +31,26 @@
 // The backward (`rmsnorm_bwd`, training): with r = rsqrt(mean(x^2) + eps)
 // and u = g * (1 + w) for the output's gradient g,
 //   dx = r * u - x * r^3 * mean(u * x),   dw = sum over rows of g * x * r.
-// Also bound by bytes (x and g read, dx written).  `rmsnorm_bwd_rows`: a
-// grid of `parts` blocks of 256 threads (the wrapper's choice, two per SM)
-// walks the rows, one row at a time per block: the two sums reduce over the block, dx is written,
-// and g * x * r adds into the block's f32 column sums in shared memory (a
-// column is always the same thread's, so no atomics).  Each block writes its
-// column sums to a (blocks, d) scratch, and `rmsnorm_bwd_dw` adds them up per
-// column in block order: dw is deterministic.  The row's second pass
-// re-reads x and g, which hits L1/L2.
+// Also bound by bytes: x and g read once, dx written once.  The forward's
+// register-held design, with one wave of blocks (the SMs times the blocks
+// an SM holds at the kernel's registers) walking the rows with a grid
+// stride:
+//   * `rmsnorm_bwd_rows_kernel`: TPR threads per row (the fewest that hold
+//     it at up to 2 vectors of 16 bytes each of x and g), several rows per
+//     block of 256 threads.  All loads of a row are in flight before the
+//     first use; both row sums reduce over the row's warps (one
+//     __syncthreads per row, the partial sums double-buffered); dx is
+//     written from the registers.  A thread always owns the same columns,
+//     so its (1 + w) and its dw partial sums stay in registers across the
+//     loop, and each block writes its column sums once to a (parts, d)
+//     scratch.
+//   * `rmsnorm_bwd_wide_kernel`, rows wider than that: a block per row at a
+//     time, x and g read twice (the second read hits L1/L2), the column
+//     sums in shared memory.
+//   * 16-byte loads where the pointers, the row strides and d allow them;
+//     element by element otherwise.
+//   * `rmsnorm_bwd_dw` adds the scratch up per column in a fixed order, so
+//     dw is the same bit for bit on every call (no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +58,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // threads per block, both kernels
+constexpr int THREADS = 256;  // threads per block, every kernel
 constexpr int NV = 2;         // vectors per thread in the register-held kernel
 
 __device__ __forceinline__ void unpack_bf16x2(uint32_t w, float* out) {
@@ -270,92 +282,305 @@ cudaError_t dispatch_w(const void* x, const void* w, void* o, int w_dtype, long 
 // backward
 
 template <typename T>
-__device__ __forceinline__ float as_f(T v);
-template <>
-__device__ __forceinline__ float as_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float as_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
 __device__ __forceinline__ T of_f(float v);
 template <>
 __device__ __forceinline__ float of_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 of_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
 
-template <typename T, typename TW>
+// One row-sum pair per warp, double-buffered so a row needs one
+// __syncthreads: the buffer a row writes was last read two rows before, by
+// threads that have since passed the previous row's barrier.
+struct RowSums {
+  float s[2][2][THREADS / 32];  // [buffer][sum of x^2, sum of u*x][warp]
+};
+
+// TPR threads per row, THREADS / TPR rows per block at a time; the block
+// walks its rows with a grid stride.  Each thread holds up to NV vectors of
+// x and of g and always the same columns, so (1 + w) and its dw partial
+// sums stay in registers across the loop.
+template <typename T, typename TW, int VEC, int TPR>
 __global__ void __launch_bounds__(THREADS)
-    rmsnorm_bwd_rows(const T* __restrict__ x, const TW* __restrict__ w, const T* __restrict__ g,
-                     T* __restrict__ dx, float* __restrict__ dw_part, long long xs, long long gs,
-                     long long rows, int d, float eps) {
-  extern __shared__ float col_sum[];  // d floats
-  __shared__ float part[2][THREADS / 32];
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                            const T* __restrict__ g, T* __restrict__ dx,
+                            float* __restrict__ dw_part, long long xs, long long gs,
+                            long long rows, int d, float eps) {
+  constexpr int WPR = TPR / 32, RPB = THREADS / TPR;
+  __shared__ RowSums part;
+  const int sub = threadIdx.x / TPR, tid = threadIdx.x % TPR, warp = threadIdx.x / 32;
+  const int nvec = d / VEC;
+  float w1[NV][VEC], acc[NV][VEC];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = tid + TPR * i;
+    if (c < nvec) load_vec<VEC>(w + c * VEC, w1[i]);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (c < nvec) w1[i][e] += 1.f;
+      acc[i][e] = 0.f;
+    }
+  }
+  int buf = 0;
+  for (long long row0 = static_cast<long long>(blockIdx.x) * RPB; row0 < rows;
+       row0 += static_cast<long long>(gridDim.x) * RPB, buf ^= 1) {
+    const long long row = row0 + sub;
+    const int live = row < rows ? nvec : 0;
+    const T* xr = x + (row < rows ? row : 0) * xs;
+    const T* gr = g + (row < rows ? row : 0) * gs;
+    float xv[NV][VEC], gv[NV][VEC];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + TPR * i;
+      if (c < live) {
+        load_vec<VEC>(xr + c * VEC, xv[i]);
+        load_vec<VEC>(gr + c * VEC, gv[i]);
+      }
+    }
+    float ss = 0.f, su = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (tid + TPR * i < live) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ss = fmaf(xv[i][e], xv[i][e], ss);
+          su = fmaf(gv[i][e] * w1[i][e], xv[i][e], su);
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    su = warp_sum(su);
+    if constexpr (WPR > 1) {
+      if (threadIdx.x % 32 == 0) {
+        part.s[buf][0][warp] = ss;
+        part.s[buf][1][warp] = su;
+      }
+      __syncthreads();
+      ss = su = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPR; ++j) {  // every thread of a row adds in the same order
+        ss += part.s[buf][0][sub * WPR + j];
+        su += part.s[buf][1][sub * WPR + j];
+      }
+    }
+    const float r = rsqrtf(ss / d + eps);
+    const float coef = r * r * r * (su / d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + TPR * i;
+      if (c < live) {
+        float y[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          y[e] = r * (gv[i][e] * w1[i][e]) - xv[i][e] * coef;
+          acc[i][e] = fmaf(gv[i][e] * xv[i][e], r, acc[i][e]);
+        }
+        store_vec<VEC>(dx + row * d + c * VEC, y);
+      }
+    }
+  }
+  // the block's column sums: its RPB rows' partial sums added in row order
+  float* out = dw_part + static_cast<long long>(blockIdx.x) * d;
+  if constexpr (RPB == 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + TPR * i;
+      if (c < nvec) store_vec<VEC>(out + c * VEC, acc[i]);
+    }
+  } else {
+    __shared__ float cols[RPB][NV * TPR * VEC];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + TPR * i;
+      if (c < nvec)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) cols[sub][c * VEC + e] = acc[i][e];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < d; c += THREADS) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < RPB; ++j) s += cols[j][c];
+      out[c] = s;
+    }
+  }
+}
+
+constexpr int WIDE_SUMS = 2 * THREADS / 32;  // the wide kernel's row sums, after its column sums
+
+// One block per row at a time, for rows wider than NV vectors per thread of
+// a block: the row sums first, then dx, with x and g read twice (the second
+// read hits L1/L2) and the dw partial sums in shared memory (a column is
+// always the same thread's).
+template <typename T, typename TW, int VEC>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                            const T* __restrict__ g, T* __restrict__ dx,
+                            float* __restrict__ dw_part, long long xs, long long gs,
+                            long long rows, int d, float eps) {
+  extern __shared__ float col_sum[];  // d floats, then the row's two sums per warp
+  float* part = col_sum + d;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int c = tid; c < d; c += THREADS) col_sum[c] = 0.f;
+  const int nvec = d / VEC;
+  for (int c = tid; c < nvec; c += THREADS)  // a thread's own columns, as it sums them
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) col_sum[c * VEC + e] = 0.f;
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
     const T* xr = x + row * xs;
     const T* gr = g + row * gs;
     float ss = 0.f, su = 0.f;
-    for (int c = tid; c < d; c += THREADS) {
-      const float xv = as_f(xr[c]);
-      ss = fmaf(xv, xv, ss);
-      su = fmaf(as_f(gr[c]) * (1.f + as_f(w[c])), xv, su);
+    for (int c = tid; c < nvec; c += THREADS) {
+      float xv[VEC], gv[VEC], wv[VEC];
+      load_vec<VEC>(xr + c * VEC, xv);
+      load_vec<VEC>(gr + c * VEC, gv);
+      load_vec<VEC>(w + c * VEC, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        ss = fmaf(xv[e], xv[e], ss);
+        su = fmaf(gv[e] * (1.f + wv[e]), xv[e], su);
+      }
     }
     ss = warp_sum(ss);
     su = warp_sum(su);
     if (lane == 0) {
-      part[0][warp] = ss;
-      part[1][warp] = su;
+      part[warp] = ss;
+      part[THREADS / 32 + warp] = su;
     }
     __syncthreads();
     ss = su = 0.f;
 #pragma unroll
     for (int i = 0; i < THREADS / 32; ++i) {  // every thread adds in the same order
-      ss += part[0][i];
-      su += part[1][i];
+      ss += part[i];
+      su += part[THREADS / 32 + i];
     }
+    __syncthreads();  // `part` is rewritten by the next row
     const float r = rsqrtf(ss / d + eps);
     const float coef = r * r * r * (su / d);
     T* dxr = dx + row * d;
-    for (int c = tid; c < d; c += THREADS) {
-      const float xv = as_f(xr[c]), gv = as_f(gr[c]);
-      dxr[c] = of_f<T>(r * (gv * (1.f + as_f(w[c]))) - xv * coef);
-      col_sum[c] = fmaf(gv * xv, r, col_sum[c]);
+    for (int c = tid; c < nvec; c += THREADS) {
+      float xv[VEC], gv[VEC], wv[VEC], y[VEC];
+      load_vec<VEC>(xr + c * VEC, xv);
+      load_vec<VEC>(gr + c * VEC, gv);
+      load_vec<VEC>(w + c * VEC, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        y[e] = r * (gv[e] * (1.f + wv[e])) - xv[e] * coef;
+        col_sum[c * VEC + e] = fmaf(gv[e] * xv[e], r, col_sum[c * VEC + e]);
+      }
+      store_vec<VEC>(dxr + c * VEC, y);
     }
-    __syncthreads();  // `part` is rewritten by the next row
   }
-  for (int c = tid; c < d; c += THREADS) dw_part[static_cast<long long>(blockIdx.x) * d + c] = col_sum[c];
+  float* out = dw_part + static_cast<long long>(blockIdx.x) * d;
+  for (int c = tid; c < nvec; c += THREADS) store_vec<VEC>(out + c * VEC, col_sum + c * VEC);
 }
+
+// dw = the column sums of the (parts, d) scratch: 8 columns per block and
+// 32 groups of parts (group k adds parts k, k + 32, ... in order), then the
+// groups added in order.
+constexpr int DW_COLS = 8;
 
 template <typename TW>
 __global__ void __launch_bounds__(THREADS)
     rmsnorm_bwd_dw(const float* __restrict__ dw_part, TW* __restrict__ dw, int parts, int d) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  if (c >= d) return;
+  constexpr int GROUPS = THREADS / DW_COLS;
+  __shared__ float red[GROUPS][DW_COLS];
+  const int col = threadIdx.x % DW_COLS, grp = threadIdx.x / DW_COLS;
+  const int c = blockIdx.x * DW_COLS + col;
   float s = 0.f;
-  for (int i = 0; i < parts; ++i) s += dw_part[static_cast<long long>(i) * d + c];
-  dw[c] = of_f<TW>(s);
+  if (c < d) {
+#pragma unroll 4
+    for (int i = grp; i < parts; i += GROUPS) s += dw_part[static_cast<long long>(i) * d + c];
+  }
+  red[grp][col] = s;
+  __syncthreads();
+  if (threadIdx.x < DW_COLS && c < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < GROUPS; ++k) t += red[k][threadIdx.x];
+    dw[c] = of_f<TW>(t);
+  }
+}
+
+struct BwdArgs {
+  const void *x, *w, *g;
+  void *dx, *dw;
+  float* part;
+  long long rows, xs, gs;
+  int d, parts;
+  float eps;
+  cudaStream_t stream;
+};
+
+// Blocks of `kernel` (THREADS threads and `smem` dynamic bytes each) that
+// fill the card once: its SMs times the blocks an SM holds.
+template <typename K>
+int one_wave(K kernel, int smem) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+inline int fewest(long long a, long long b, long long c) {
+  const long long m = a < b ? (a < c ? a : c) : (b < c ? b : c);
+  return static_cast<int>(m);
+}
+
+// Launches the row kernel on one wave of blocks (at most a.parts, at most
+// one per RPB rows); returns the blocks launched.
+template <typename T, typename TW, int VEC, int TPR>
+int launch_bwd_rows(const BwdArgs& a) {
+  constexpr int RPB = THREADS / TPR;
+  static const int wave = one_wave(rmsnorm_bwd_rows_kernel<T, TW, VEC, TPR>, 0);
+  const int blocks = fewest((a.rows + RPB - 1) / RPB, a.parts, wave);
+  rmsnorm_bwd_rows_kernel<T, TW, VEC, TPR><<<blocks, THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const TW*>(a.w), static_cast<const T*>(a.g),
+      static_cast<T*>(a.dx), a.part, a.xs, a.gs, a.rows, a.d, a.eps);
+  return blocks;
+}
+
+template <typename T, typename TW, int VEC>
+cudaError_t launch_bwd_vec(const BwdArgs& a) {
+  const int nvec = a.d / VEC;
+  int blocks;
+  if (nvec <= 32 * NV) {
+    blocks = launch_bwd_rows<T, TW, VEC, 32>(a);
+  } else if (nvec <= 64 * NV) {
+    blocks = launch_bwd_rows<T, TW, VEC, 64>(a);
+  } else if (nvec <= 128 * NV) {
+    blocks = launch_bwd_rows<T, TW, VEC, 128>(a);
+  } else if (nvec <= 256 * NV) {
+    blocks = launch_bwd_rows<T, TW, VEC, 256>(a);
+  } else {
+    const int smem = (a.d + WIDE_SUMS) * 4;
+    if (smem > 48 * 1024) {
+      const cudaError_t attr = cudaFuncSetAttribute(
+          rmsnorm_bwd_wide_kernel<T, TW, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return attr;
+    }
+    blocks = fewest(a.rows, a.parts, one_wave(rmsnorm_bwd_wide_kernel<T, TW, VEC>, smem));
+    rmsnorm_bwd_wide_kernel<T, TW, VEC><<<blocks, THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const TW*>(a.w), static_cast<const T*>(a.g),
+        static_cast<T*>(a.dx), a.part, a.xs, a.gs, a.rows, a.d, a.eps);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dw<TW><<<(a.d + DW_COLS - 1) / DW_COLS, THREADS, 0, a.stream>>>(
+      a.part, static_cast<TW*>(a.dw), blocks, a.d);
+  return cudaGetLastError();
 }
 
 template <typename T, typename TW>
-cudaError_t launch_bwd(const long long* args, float eps) {
-  const long long rows = args[7], xs = args[9], gs = args[10];
-  const int d = static_cast<int>(args[8]), parts = static_cast<int>(args[12]);
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[11]);
-  if (smem > 48 * 1024) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        rmsnorm_bwd_rows<T, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (attr != cudaSuccess) return attr;
-  }
-  float* part = reinterpret_cast<float*>(args[5]);
-  rmsnorm_bwd_rows<T, TW><<<parts, THREADS, smem, st>>>(
-      reinterpret_cast<const T*>(args[0]), reinterpret_cast<const TW*>(args[1]),
-      reinterpret_cast<const T*>(args[2]), reinterpret_cast<T*>(args[3]), part, xs, gs, rows, d, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_dw<TW><<<(d + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      part, reinterpret_cast<TW*>(args[4]), parts, d);
-  return cudaGetLastError();
+cudaError_t launch_bwd(const BwdArgs& a) {
+  constexpr int VEC = 16 / sizeof(T);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                         reinterpret_cast<uintptr_t>(a.g) | reinterpret_cast<uintptr_t>(a.dx);
+  const bool vec = addr % 16 == 0 && a.d % VEC == 0 && a.xs % VEC == 0 && a.gs % VEC == 0;
+  return vec ? launch_bwd_vec<T, TW, VEC>(a) : launch_bwd_vec<T, TW, 1>(a);
 }
 
 }  // namespace
@@ -364,22 +589,37 @@ cudaError_t launch_bwd(const long long* args, float eps) {
 // parts}: x (rows, d) with row stride xs and contiguous rows, w (d,)
 // contiguous, g (the output's gradient, x's dtype) with row stride gs, dx
 // (rows, d) contiguous in x's dtype, dw (d,) in w's dtype, scratch f32 of
-// parts * d floats, one row of column sums per block (1 <= parts <= rows);
-// dtypes as for rmsnorm_fwd.  d * 4 bytes of
-// column sums must fit a block's shared memory (d <= 58112).  Returns
-// cudaGetLastError() after the launches (0 on success).
+// parts * d floats, one row of column sums per block of the first launch,
+// which takes one wave of blocks at its occupancy but at most parts
+// (1 <= parts <= rows); dtypes as for rmsnorm_fwd.  Rows wider than 2048
+// (f32) or 4096 (bf16) elements keep their column sums in shared memory:
+// d <= 58096.  Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int rmsnorm_bwd(const long long* args, float eps) {
   const long long code = args[6], rows = args[7], d = args[8], parts = args[12];
-  if (rows <= 0 || d <= 0 || d * 4 > 232448 || code < 0 || code > 3 || parts < 1 ||
-      parts > rows || parts > 0x7fffffffLL)
+  if (rows <= 0 || d <= 0 || (d + WIDE_SUMS) * 4 > 232448 || code < 0 ||
+      code > 3 || parts < 1 || parts > rows || parts > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.x = reinterpret_cast<const void*>(args[0]);
+  a.w = reinterpret_cast<const void*>(args[1]);
+  a.g = reinterpret_cast<const void*>(args[2]);
+  a.dx = reinterpret_cast<void*>(args[3]);
+  a.dw = reinterpret_cast<void*>(args[4]);
+  a.part = reinterpret_cast<float*>(args[5]);
+  a.rows = rows;
+  a.d = static_cast<int>(d);
+  a.xs = args[9];
+  a.gs = args[10];
+  a.stream = reinterpret_cast<cudaStream_t>(args[11]);
+  a.parts = static_cast<int>(parts);
+  a.eps = eps;
   const int x_dtype = static_cast<int>(code % 2), w_dtype = static_cast<int>(code / 2);
   cudaError_t err;
   if (x_dtype == 0)
-    err = w_dtype == 0 ? launch_bwd<float, float>(args, eps) : launch_bwd<float, __nv_bfloat16>(args, eps);
+    err = w_dtype == 0 ? launch_bwd<float, float>(a) : launch_bwd<float, __nv_bfloat16>(a);
   else
-    err = w_dtype == 0 ? launch_bwd<__nv_bfloat16, float>(args, eps)
-                       : launch_bwd<__nv_bfloat16, __nv_bfloat16>(args, eps);
+    err = w_dtype == 0 ? launch_bwd<__nv_bfloat16, float>(a)
+                       : launch_bwd<__nv_bfloat16, __nv_bfloat16>(a);
   return static_cast<int>(err);
 }
 

@@ -20,8 +20,10 @@ launches.
 Gradients.  When grad mode is on and an input requires grad, a CUDA call
 goes through ``FlashAttentionFn``: its forward launches the same kernel and
 also keeps each row's log-sum-exp, and its backward is
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, three launches per
-call; ``flash_attention_bwd.launches`` counts calls).  Otherwise (serving,
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, also on the tensor
+cores: D = rowsum(dO o O), a dK/dV pass with keys as rows, a dQ pass, and
+under GQA a sum of each group's heads, deterministic throughout;
+``flash_attention_bwd.launches`` counts calls).  Otherwise (serving,
 ``inference_mode``) the call launches the forward alone, as lean as before.
 A CPU call differentiates through the plain version.
 """
@@ -37,6 +39,7 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LSE_ROWS = 128  # the backward's (B, H, S) row statistics are padded to a multiple of this
 
 
 @functools.cache
@@ -139,6 +142,18 @@ def _launch(q, k, v, causal, window, scale, with_lse: bool):
     return o, lse
 
 
+def _tma_ready(x):
+    """x itself if TMA can read it (a stride of 0, as an expanded gradient
+    has, is never handed to a tensor map), else a copy in a fresh, hence
+    aligned, contiguous buffer (``contiguous()`` would keep an unaligned
+    view that is contiguous already)."""
+    shape, strides = x.shape, x.stride()
+    if any(n > 1 and st == 0 for n, st in zip(shape, strides)) or tma_layout_problem(
+            shape, strides, x.element_size(), x.data_ptr()):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                         scale: float | None = None):
     """The backward kernels on CUDA tensors: q/o/do (B,S,H,hd), k/v
@@ -153,24 +168,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                          f"do not fit q {tuple(q.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("o and do take q's dtype, lse float32")
-    if b * h > 65535:
-        raise ValueError(f"the kernels take at most 65535 batch*heads, not {b * h}")
-    # the kernels read rows of o and do with any (batch, seq, head) strides;
-    # an autograd gradient may come expanded (stride 0)
-    o, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (o, do))
+    # dO goes through TMA and o through 16-byte loads: an autograd gradient
+    # may come expanded (stride 0) or unaligned, and is then copied
+    o, do = _tma_ready(o), _tma_ready(do)
     lse = lse.contiguous()
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
-    ts = (q, k, v, o, do, lse, delta, dq, dk, dv)
-    ptrs = (ctypes.c_longlong * 10)(*(x.data_ptr() for x in ts))
-    strides = (ctypes.c_longlong * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
-                                        for st in x.stride()[:3]))
-    with torch.cuda.device(q.device):
+    dev, f32 = q.device, torch.float32
+    rows = -(-s // _LSE_ROWS) * _LSE_ROWS  # lse2 and D, padded for the kernels' query tiles
+    lse2, delta = (torch.empty((b, h, rows), dtype=f32, device=dev) for _ in range(2))
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=dev) for x in (q, k, v))
+    # GQA: each query head's dK and dV in f32, summed per group by the last launch
+    sk, sv = ((torch.empty((b, t, h, hd), dtype=f32, device=dev) for _ in range(2)) if h > g
+              else (None, None))
+    ts = (q, k, v, o, do, lse, lse2, delta, dq, dk, dv, sk, sv)
+    ptrs = (ctypes.c_longlong * 13)(*(0 if x is None else x.data_ptr() for x in ts))
+    strides = (ctypes.c_longlong * 15)(*(st for x in (q, k, v, o, do) for st in x.stride()[:3]))
+    with torch.cuda.device(dev):
         err = _bwd_entry()(ptrs, strides, _DTYPES[q.dtype], b, s, t, h, g, hd, int(causal),
                            int(window), float(scale or 1.0 / math.sqrt(hd)),
-                           torch.cuda.current_stream(q.device).cuda_stream)
+                           torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError("flash_attention_bwd: a TMA descriptor could not be encoded"
+                           if err == -1 else
+                           f"flash_attention_bwd kernel launch failed with CUDA error {err}")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -17,8 +17,10 @@ off the current device.
 ``rmsnorm.launches`` counts kernel launches.
 
 Gradients.  When grad mode is on and x or w requires grad, a CUDA call goes
-through ``RMSNormFn``, whose backward is ``rmsnorm_bwd`` (dx and dw, two
-launches in ``csrc/rmsnorm.cu``; ``rmsnorm_bwd.launches`` counts calls).
+through ``RMSNormFn``, whose backward is ``rmsnorm_bwd`` (two launches in
+``csrc/rmsnorm.cu``: dx from rows held in registers, as the forward holds
+them, with each block's dw column sums; then dw summed over the blocks in a
+fixed order; ``rmsnorm_bwd.launches`` counts calls).
 Otherwise the call takes the lean path below, as serving always does.  A
 CPU call differentiates through the plain version.
 
@@ -114,7 +116,11 @@ def _forward(x, w, eps):
 rmsnorm.launches = 0
 
 
-BWD_BLOCKS = 264  # blocks of one backward, two per SM of the H100; each sums d columns
+# The backward's first launch takes one wave of blocks at its occupancy
+# (SMs x blocks per SM), each summing d columns of dw: at most this many,
+# eight blocks of 256 threads on each of the H100's 132 SMs.
+BWD_BLOCKS = 1056
+BWD_MAX_D = 58096  # wider rows' column sums (and 16 row sums) would not fit a block's shared memory
 
 
 def rmsnorm_bwd(x, w, g, *, eps: float = 1e-5):
@@ -129,8 +135,9 @@ def rmsnorm_bwd(x, w, g, *, eps: float = 1e-5):
     if code is None or g.dtype != x.dtype or not x.is_cuda or {w.device, g.device} != {x.device}:
         raise ValueError(f"the kernel takes CUDA float32 or bfloat16 x and g of one dtype on one "
                          f"device; got x {x.dtype}, g {g.dtype}, w {w.dtype}")
-    if not rows or not d or d * 4 > 232448:
-        raise ValueError(f"the kernel takes rows > 0 and 0 < d <= 58112, not {tuple(x.shape)}")
+    if not rows or not d or d > BWD_MAX_D:
+        raise ValueError(f"the kernel takes rows > 0 and 0 < d <= {BWD_MAX_D}, not "
+                         f"{tuple(x.shape)}")
     x, g = (t if t.stride(1) == 1 else t.contiguous() for t in (x, g))
     w = w.contiguous()
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)

@@ -421,6 +421,9 @@ def _flash_grads(q, k, v, do, window, plain):
     (1, 100, 300, 2, 1, 0),      # T > S
     (1, 1, 1, 2, 1, 0),
     (1, 65, 65, 2, 2, 1),        # each row sees itself only
+    (2, 333, 333, 6, 6, 0),      # H == G (dk, dv written by the dK/dV blocks), ragged S and T
+    (1, 190, 250, 4, 2, 70),     # T > S, the window's edge inside a 128-key tile
+    (8, 256, 256, 16, 4, 0),     # B * H = 128: more than one wave of blocks
 ])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -459,7 +462,11 @@ def test_flash_backward_reads_strided_inputs(dev):
 
 
 @pytest.mark.parametrize("rows,d", [(4000, 1536), (8160, 1152), (3, 100), (37, 8960), (1, 768),
-                                    (300, 3072)])
+                                    (300, 3072),
+                                    # rows held in registers: several rows per block, rows
+                                    # no multiple of them; the widest such row
+                                    (37, 1152), (4097, 1536), (1001, 2048),
+                                    (3, rn.BWD_MAX_D)])  # the widest row the kernel takes
 @pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
                                           (torch.bfloat16, torch.float32),
                                           (torch.bfloat16, torch.bfloat16)])
@@ -480,6 +487,69 @@ def test_rmsnorm_backward_matches_plain(dev, rows, d, dtype, wdtype):
     (dx, dw), (dx_want, dw_want) = grads
     _close_grad(dx, dx_want, dtype)
     _close_grad(dw, dw_want, wdtype if wdtype == torch.bfloat16 else dtype)
+
+
+def test_rmsnorm_backward_refuses_wider_rows(dev):
+    x = torch.ones((2, rn.BWD_MAX_D + 1), device=dev)
+    w = torch.zeros((rn.BWD_MAX_D + 1,), device=dev)
+    with pytest.raises(ValueError, match="d <="):
+        rn.rmsnorm_bwd(x, w, x)
+
+
+@pytest.mark.parametrize("rows,d,stride", [
+    (300, 1536, 1537),   # a row stride that rules out 16-byte loads: element by element, wide
+    (64, 255, 256),      # d no multiple of the vector: element by element, rows in registers
+    (50, 1536, 1540),    # 16-byte aligned rows with padding between them
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_reads_strided_rows(dev, rows, d, stride, dtype):
+    """x as a view with a row stride other than d, through RMSNormFn."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    base = (torch.randn((rows, stride), generator=gen, device=dev) * 3).to(dtype)
+    x = base[:, :d]
+    w = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype)
+    g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    grads = []
+    for fn in (ops.fused_rmsnorm, ref.rmsnorm_ref):
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        assert xg.stride() == (stride, 1)
+        fn(xg, wg).backward(g)
+        grads.append((xg.grad, wg.grad))
+    (dx, dw), (dx_want, dw_want) = grads
+    _close_grad(dx, dx_want, dtype)
+    _close_grad(dw, dw_want, dtype)
+
+
+@pytest.mark.parametrize("h,g,hd,window", [(12, 2, 128, 0), (4, 1, 256, 512), (6, 6, 64, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(dev, h, g, hd, window, dtype):
+    """Two backward calls on the same inputs give the same dq, dk and dv bit
+    for bit: every output element is summed by one block in a fixed order,
+    the GQA heads of a group in head order."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, s = 2, 700
+    q, do = (torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, g, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    o, lse = fa._launch(q, k, v, True, window, hd ** -0.5, with_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 1536), (37, 8960)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_is_deterministic(dev, rows, d, dtype):
+    """Two backward calls on the same inputs give the same dx and dw bit for
+    bit: dw adds the blocks' column sums in block order."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x, g = (torch.randn((rows, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    w = torch.randn((d,), generator=gen, device=dev).to(dtype)
+    first, again = rn.rmsnorm_bwd(x, w, g), rn.rmsnorm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_ssd_kernel_raises_when_grad_is_required(dev):

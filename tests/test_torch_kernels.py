@@ -145,6 +145,26 @@ def test_flash_tma_layout_rule_accepts_the_models_tensors():
         assert fa.tma_layout_problem(t.shape, t.stride(), t.element_size(), t.data_ptr()) is None
 
 
+@pytest.mark.parametrize("make,kept", [
+    (lambda: torch.zeros(2, 50, 8, 64), True),                          # contiguous
+    (lambda: torch.zeros(2, 50, 12 * 64).view(2, 50, 12, 64)[:, :, 4:], True),  # a head slice
+    (lambda: torch.ones(()).expand(2, 50, 8, 64), False),               # o.sum()'s gradient
+    (lambda: torch.zeros(2, 50, 8, 65)[..., :64], False),               # rows 260 bytes apart
+    (lambda: torch.zeros(2 * 50 * 8 * 64 + 1)[1:].view(2, 50, 8, 64), False),  # base off 16 B
+])
+def test_flash_backward_hands_tma_readable_gradients(make, kept):
+    """The backward reads dO through TMA and o with 16-byte loads: a view
+    TMA can read is passed as it is, any other (stride 0, unaligned) as a
+    contiguous copy of the same values."""
+    x = make()
+    got = fa._tma_ready(x)
+    assert (got is x) is kept
+    assert got.shape == x.shape and torch.equal(got, x)
+    assert fa.tma_layout_problem(got.shape, got.stride(), got.element_size(),
+                                 got.data_ptr()) is None
+    assert 0 not in got.stride()
+
+
 def test_build_compiles_every_kernel_source():
     assert _build.sources() == ["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan"]
 
