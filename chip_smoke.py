@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one or more lines each:
-  build        compile the port's four CUDA sources (flash attention forward
-               and backward, RMSNorm forward and backward, the SSD scan) from
-               this checkout, one nvcc each, in parallel
+  build        compile the port's five CUDA sources (flash attention forward
+               and backward, RMSNorm forward and backward, the SSD scan
+               forward and backward) from this checkout, one nvcc each, in
+               parallel
   kernels      hold each kernel against its plain version on the card, at the
                serving paths' shapes plus windowed, ragged and grouped cases,
                in float32 and bfloat16 (flash attention also at gemma3's
@@ -36,12 +37,22 @@ Phases, one or more lines each:
                timed beside SDPA's backward (torch.autograd.grad), with a
                bound of 10 hd flops per unmasked pair (f32 as 3xTF32);
                RMSNorm's (rmsnorm_bwd_rows_kernel, dx with each block's dw
-               column sums, then rmsnorm_bwd_dw) at the train path's rows
-               against autograd through the plain version and through
-               F.rms_norm, and its time at the train shape with its grid
-               capped at several block counts; every backward row also run twice on the same
-               inputs, which must give the same gradients bit for bit; and
-               the SSD scan's refusal of a gradient on the card
+               column sums, then rmsnorm_bwd_dw) at the train paths' rows
+               (qwen2's; mamba2-130m's at d_model and at the mixer's gated
+               norm's d_inner) against autograd through the plain version
+               and through F.rms_norm, and its time at the train shape with its grid
+               capped at several block counts; the SSD scan's (six
+               launches, each row's device ms split by kernel:
+               ssd_bwd_chunk_grad, each chunk's share of the state gradient;
+               ssd_bwd_state_pass, the chain over chunks in reverse;
+               ssd_bwd_dx, dx, ddt and da per chunk; ssd_bwd_dbc, each
+               head's dB and dC; ssd_bwd_group_sum and ssd_bwd_da) at
+               mamba2-130m's train shape and at a ragged grouped shape
+               against autograd through the plain version, with a bound of 8 S N P
+               flops per (batch, head); every backward row also run twice on
+               the same inputs, which must give the same gradients bit for
+               bit; and ops.ssd under grad on the card: one forward and one
+               backward call, gradients against the plain version's
   serve        each model at full width and depth (random weights from a seed)
                through repro_torch.serve.engine.Engine, fp32, greedy, batch 4,
                32 new tokens: qwen2-1.5b (prompt 1000), mamba2-130m (4096),
@@ -71,7 +82,9 @@ Phases, one or more lines each:
                trained full-width state (params, m, v, step: 18.5 GB)
                through repro_torch.ckpt save and restore, exactly; then a
                reduced qwen2 step on the card against the CPU, and a reduced
-               bf16 state's round trip (bf16 params with their f32 master)
+               bf16 state's round trip (bf16 params with their f32 master);
+               then all of that again for mamba2-130m at B=4, S=4096 (the
+               SSD scan forward and backward; launch counts by layer kind)
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -101,9 +114,12 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # allclose atol = rtol, per dtype
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # SSD scan: max |got - want| / max |want| of y per dtype; the f32 state at 1e-4
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRACE_TRIES = 3  # torch.profiler traces taken before a device time counts as not measured
+TRACES = {"taken": 0, "empty": 0}  # traces taken, and those without device events
 CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 24-28 layers
 PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
+M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
 REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
 STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
@@ -149,14 +165,19 @@ def device_by_kernel(fn, iters: int) -> dict[str, float]:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.device_time_total:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
+    for _ in range(TRACE_TRIES):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.device_time_total:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
+        TRACES["taken"] += 1
+        if by_name:
+            break
+        TRACES["empty"] += 1
     return by_name
 
 
@@ -182,6 +203,7 @@ def same_bits(torch, a, b) -> bool:
 
 
 KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
+                  "ssd_scan_bwd": ("ssd_bwd",),
                   "flash_attention": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
                   "rmsnorm": ("rmsnorm_rows", "rmsnorm_wide"), "rmsnorm_bwd": ("rmsnorm_bwd",),
                   # gathers, scatters, top-k and running sums: the MoE's routing
@@ -447,6 +469,60 @@ def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
     return row
 
 
+def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
+    """The backward kernels (dx, ddt, da, db, dc from the forward's inputs and
+    scratch, dy and a nonzero dstate) against autograd through the plain
+    version, ``ssd_scan_plain``, on the same inputs; plain_ms is that one
+    backward through its graph (at mamba2-130m's shape it keeps 4096 steps
+    of states, 13 GB).  Two calls must give the same bits."""
+    x, dt, a, bb, cc = ssd_inputs(torch, b, s, h, g, p, n, dtype, "model")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    _, _, scratch = ss._launch(x, dt, a, bb, cc)
+    kernel = lambda: ss.ssd_scan_bwd(x, dt, a, bb, cc, scratch, dy, dstate)
+    got = kernel()
+    deterministic = same_bits(torch, got, kernel())
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
+    plain_out = ss.ssd_scan_plain(*leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = torch.autograd.grad(plain_out, leaves, (dy, dstate))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del plain_out, leaves
+    name = dtype_name(dtype)
+    errs = [rel_close(torch, u, w, TOL[name]) for u, w in zip(got, want)]
+    del want
+    torch.cuda.empty_cache()
+    esize = x.element_size()
+    # each input read once, each gradient written once: x, dy, dx; b, c, db, dc;
+    # dt, ddt, a, da and dstate in f32
+    nbytes = ((3 * x.numel() + 4 * bb.numel()) * esize
+              + (2 * dt.numel() + 2 * a.numel() + dstate.numel()) * 4)
+    # the least work of the gradient of the sequential recurrence: per token
+    # and (batch, head), a multiply-add per state element for each of the
+    # state gradient's C dY term, dC = h dY, dx = dt dh B and dB = dt dh x
+    # (the forward's 4 S N P convention: decays and the recompute of h left out)
+    flops = 8.0 * s * n * p * b * h
+    bound_ms, bound_by = bound(nbytes, flops, name)
+    phases = device_ms_split(kernel, iters, "ssd_bwd")
+    row = dict(
+        case=f"ssd_scan_bwd {name} model ranges B={b} S={s} H={h} G={g} P={p} N={n}",
+        reference="autograd through ssd_scan_plain",
+        max_abs_err=max(e[0] for e in errs), rel_err_by_grad=[e[1] for e in errs],
+        tol=TOL[name], deterministic=deterministic,
+        ok=all(e[2] for e in errs) and deterministic,
+        ms=cuda_ms(kernel, iters), device_ms=sum(phases.values()) or None,
+        device_ms_by_kernel=phases,
+        scratch_bytes=4 * ss.bwd_scratch_floats(b, s, h, p, n),
+        plain_ms=plain_ms,
+        library_ms=None, library_note="no single PyTorch call computes the SSD scan's gradient",
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] {json.dumps(row)}")
+    return row
+
+
 def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
     """One full-width ``Engine.generate`` (B=BATCH, NEW new tokens, fp32,
     greedy) with every launch count set to 0 just before it; fails unless the
@@ -555,20 +631,28 @@ def consistency(torch, M, moem, map_with_path, reduced, spec, params, prompts):
         fail(f"{spec.name}: the card's forward disagrees with the CPU's")
 
 
-def train_counts(n_layers: int, remat: str) -> dict[str, int]:
-    """Launches of one train step of an attention model: flash and each
-    layer's two norms run again in the backward under a remat policy (the
-    recompute), the final norm once; one backward per call."""
+def train_counts(spec, remat: str) -> dict[str, int]:
+    """Launches of one train step, by layer kind: an attention layer calls
+    flash once, a Mamba layer the SSD scan once; each layer calls RMSNorm for
+    norm1, for norm2 if it has an FFN and, if Mamba, for the mixer's gated
+    norm; the final norm once.  Under a remat policy each layer's forward
+    calls run again in the backward (the recompute); one backward per
+    forward call."""
     again = 2 if remat != "none" else 1
-    return {"flash_attention": again * n_layers, "flash_attention_bwd": n_layers,
-            "rmsnorm": again * 2 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1, "ssd_scan": 0}
+    lds = spec.layer_defs()
+    n_mamba = sum(ld.mixer == "mamba" for ld in lds)
+    n_attn = len(lds) - n_mamba
+    norms = sum(1 + (ld.ffn != "none") + (ld.mixer == "mamba") for ld in lds)
+    return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
+            "rmsnorm": again * norms + 1, "rmsnorm_bwd": norms + 1,
+            "ssd_scan": again * n_mamba, "ssd_scan_bwd": n_mamba}
 
 
-def train(torch, counted, card, spec):
-    """qwen2-1.5b at full width: TRAIN_STEPS steps of f32 AdamW under remat
-    "dots" with the launch counts set to 0 just before them, then the remat
-    policies against each other from one state and batch.  Returns the
-    launches of the counted steps."""
+def train(torch, counted, card, spec, seq):
+    """``spec`` at full width, batches of TRAIN_BATCH x ``seq``: TRAIN_STEPS
+    steps of f32 AdamW under remat "dots" with the launch counts set to 0
+    just before them, then the remat policies against each other from one
+    state and batch.  Returns the launches of the counted steps."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
@@ -576,11 +660,11 @@ def train(torch, counted, card, spec):
     cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
     t0 = time.perf_counter()
     state = init_train_state(spec, cfg, seed=SEED, device="cuda")
-    data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+    data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, seq, seed=SEED))
     batches = [to_device(data.batch_at(i), "cuda") for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     print(f"[train] {spec.name} full width f32 state (params, m, v) and {TRAIN_STEPS + 1} "
-          f"SyntheticLM batches of B={TRAIN_BATCH} S={TRAIN_SEQ} on the card in "
+          f"SyntheticLM batches of B={TRAIN_BATCH} S={seq} on the card in "
           f"{time.perf_counter() - t0:.3f} s")
     step_fn = make_train_step(spec, cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -598,19 +682,19 @@ def train(torch, counted, card, spec):
         if not math.isfinite(loss):
             fail(f"train step {i}: loss {loss}")
     launches = {name: fn.launches for name, fn in counted.items()}
-    want = {k: TRAIN_STEPS * v for k, v in train_counts(spec.n_layers, cfg.remat).items()}
+    want = {k: TRAIN_STEPS * v for k, v in train_counts(spec, cfg.remat).items()}
     if launches != want:
         fail(f"train: kernel launches in {TRAIN_STEPS} steps {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     ms = sorted(step_ms[-4:])
     median = (ms[1] + ms[2]) / 2
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[train] {card} | {spec.name} B={TRAIN_BATCH} S={TRAIN_SEQ} f32 remat=dots: losses "
+    tokens = TRAIN_BATCH * seq
+    print(f"[train] {card} | {spec.name} B={TRAIN_BATCH} S={seq} f32 remat=dots: losses "
           f"{[round(x, 4) for x in losses]}; step ms {[round(x, 3) for x in step_ms]}, median of "
           f"the last 4 {median:.3f} ms, {tokens / median * 1e3:.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB; launches per step "
           f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} } (expected "
-          f"{train_counts(spec.n_layers, cfg.remat)})")
+          f"{train_counts(spec, cfg.remat)})")
     by_name = device_by_kernel(lambda: step_fn(state, batches[TRAIN_STEPS]), 1)
     if by_name:
         dev = sum(by_name.values())
@@ -781,6 +865,7 @@ def main() -> None:
     pspec = get_arch(PHI3)
     h, g, hd, d = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim, spec.d_model
     mh, mg, mp, mn = mspec.ssm_heads, mspec.ssm_groups, mspec.ssm_head_dim, mspec.ssm_state
+    m_rows = TRAIN_BATCH * M_TRAIN_SEQ  # mamba2's train rows, as many as its prefill's
     gh, gg, ghd, gw = gspec.n_heads, gspec.n_kv_heads, gspec.resolved_head_dim, gspec.sliding_window
     small = reduced(mspec)
     rows, ssd_rows = [], []
@@ -816,7 +901,10 @@ def main() -> None:
         for key, (n_rows, width), iters in (
                 ("bwd qwen2 train", (TRAIN_BATCH * TRAIN_SEQ, d), 50),
                 ("bwd 4000x1536", (4000, d), 50),
-                ("bwd gemma3 8160x1152", (BATCH * G_PROMPT, gspec.d_model), 50)):
+                ("bwd gemma3 8160x1152", (BATCH * G_PROMPT, gspec.d_model), 50),
+                # mamba2-130m training: norm1 and the final norm, the gated norm
+                ("bwd mamba2 train", (m_rows, mspec.d_model), 50),
+                ("bwd mamba2 train gated", (m_rows, mspec.d_inner), 50)):
             named[name, key] = check_rmsnorm_bwd(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
         rmsnorm_bwd_blocks(torch, rn, TRAIN_BATCH * TRAIN_SEQ, d, dtype, 50)
@@ -824,7 +912,11 @@ def main() -> None:
                 ("qwen2 prefill", (BATCH * PROMPT, d), 100), ("qwen2 decode", (BATCH, d), 200),
                 ("gemma3 prefill", (BATCH * G_PROMPT, gspec.d_model), 100),
                 ("gemma3 decode", (BATCH, gspec.d_model), 200),
-                ("granite prefill", (BATCH * R_PROMPT, rspec.d_model), 100)):
+                ("granite prefill", (BATCH * R_PROMPT, rspec.d_model), 100),
+                # mamba2-130m's prefill and training rows, and its decode
+                ("mamba2 prefill", (m_rows, mspec.d_model), 100),
+                ("mamba2 prefill gated", (m_rows, mspec.d_inner), 100),
+                ("mamba2 decode", (BATCH, mspec.d_model), 200)):
             named[name, key] = check_rmsnorm(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
         for ranges in ("model", "random"):
@@ -834,29 +926,44 @@ def main() -> None:
                     (BATCH, 2048, 8, 2, 64, 16, 20),         # grouped, jamba's widths
                     (2, 1000, small.ssm_heads, 1, small.ssm_head_dim, small.ssm_state, 20)):
                 ssd_rows.append(check_ssd(torch, ss, b, s, sh, sg, sp, sn, dtype, ranges, iters))
+        # the SSD backward: mamba2-130m's train shape, then ragged and grouped
+        for key, args, iters in (
+                ("bwd mamba2 train", (TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, mp, mn), 5),
+                ("bwd ragged grouped", (2, 1000, 8, 2, 64, 16), 10)):
+            named[name, key] = check_ssd_bwd(torch, ss, *args, dtype, iters)
+            rows.append(named[name, key])
     bad = [r["case"] for r in rows + ssd_rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     print(f"[kernels] all {len(rows) + len(ssd_rows)} cases within tolerance")
-    x, dt_, a_, bb, cc = ssd_inputs(torch, 1, 64, 2, 1, 16, 16, torch.float32, "model")
-    try:
-        ops.ssd(x.requires_grad_(), dt_, a_, bb, cc)
-    except NotImplementedError as e:
-        print(f"[kernels] ssd_scan on a CUDA tensor that requires grad raises: {e}")
-    else:
-        fail("ssd_scan ran on a CUDA tensor that requires grad: its gradient would be dropped")
+    # under grad mode ops.ssd goes through SSDScanFn: one forward call, and
+    # one backward call that matches autograd through the plain version
+    args = [t.requires_grad_() for t in ssd_inputs(torch, 2, 200, 4, 2, 16, 16, torch.float32,
+                                                    "model")]
+    before = (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches)
+    y, st = ops.ssd(*args)
+    grads = torch.autograd.grad((y.square().sum() + st.sum()), args)
+    calls = (ss.ssd_scan.launches - before[0], ss.ssd_scan_bwd.launches - before[1])
+    y_p, st_p = ss.ssd_scan_plain(*args)
+    want = torch.autograd.grad((y_p.square().sum() + st_p.sum()), args)
+    errs = [rel_close(torch, u, w, TOL["float32"]) for u, w in zip(grads, want)]
+    print(f"[kernels] ops.ssd under grad on the card: {calls[0]} forward and {calls[1]} backward "
+          f"call(s); gradients vs autograd through the plain version, max |diff| / max |want| "
+          f"{[e[1] for e in errs]} (tol {TOL['float32']})")
+    if calls != (1, 1) or not all(e[2] for e in errs):
+        fail("ops.ssd under grad did not differentiate through the SSD backward kernels")
 
     # -- serve, then consistency, per model ------------------------------------
     counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
                "ssd_scan": ss.ssd_scan, "flash_attention_bwd": fa.flash_attention_bwd,
-               "rmsnorm_bwd": rn.rmsnorm_bwd}
+               "rmsnorm_bwd": rn.rmsnorm_bwd, "ssd_scan_bwd": ss.ssd_scan_bwd}
 
     def attention_counts(model_spec):
         # per layer: flash once in prefill; norm1 and norm2 in prefill and in
         # each decode step, and the final norm; serving launches no backward
         return {"flash_attention": model_spec.n_layers, "ssd_scan": 0,
                 "rmsnorm": (2 * model_spec.n_layers + 1) * (1 + NEW),
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
 
     by_path = {}
     for model_spec, prompt, want in (
@@ -864,7 +971,8 @@ def main() -> None:
             # per layer: norm1 and the mixer's gated norm; no FFN, no attention
             (mspec, M_PROMPT, {"flash_attention": 0, "ssd_scan": mspec.n_layers,
                                "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW),
-                               "flash_attention_bwd": 0, "rmsnorm_bwd": 0}),
+                               "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                               "ssd_scan_bwd": 0}),
             (gspec, G_PROMPT, attention_counts(gspec)),
             (rspec, R_PROMPT, attention_counts(rspec))):
         params, prompts, by_path[model_spec.name] = serve(
@@ -874,12 +982,16 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # -- train ---------------------------------------------------------------------
-    by_path[f"{spec.name} train"] = train(torch, counted, card, spec)
-    torch.cuda.empty_cache()
-    train_consistency(torch, map_with_path, reduced, spec)
+    for train_spec, seq in ((spec, TRAIN_SEQ), (mspec, M_TRAIN_SEQ)):
+        by_path[f"{train_spec.name} train"] = train(torch, counted, card, train_spec, seq)
+        torch.cuda.empty_cache()
+        train_consistency(torch, map_with_path, reduced, train_spec)
+        torch.cuda.empty_cache()
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
+    print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
+          f"without device events, each taken again (up to {TRACE_TRIES} tries)")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
                  "plain_ms", "bound_ms", "bound_by",
                  "bound_3xtf32_ms", "bound_f32_cores_ms", "library_ms")
@@ -897,10 +1009,13 @@ def main() -> None:
                                 f"bwd gemma3 window {gw}", "bwd granite", "bwd phi3 hd96")
         for name in ("float32", "bfloat16")]
     norm_bwd_more = [("bfloat16", "bwd qwen2 train")] + [
-        (name, key) for key in ("bwd 4000x1536", "bwd gemma3 8160x1152")
+        (name, key) for key in ("bwd 4000x1536", "bwd gemma3 8160x1152", "bwd mamba2 train",
+                                "bwd mamba2 train gated")
         for name in ("float32", "bfloat16")]
     norm_more = [("float32", key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
-                                              "granite prefill")]
+                                              "granite prefill", "mamba2 prefill",
+                                              "mamba2 prefill gated", "mamba2 decode")] + [
+        ("bfloat16", key) for key in ("mamba2 prefill", "mamba2 prefill gated")]
     kernels = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
@@ -919,6 +1034,13 @@ def main() -> None:
         dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:23",
              case=named["float32", "bwd qwen2 train"], more=[named[k] for k in norm_bwd_more]),
+        # the SSD scan's gradient: the JAX package differentiates its jnp
+        # ssd_chunked, and has no Pallas backward
+        dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+             replaces="src/repro/kernels/ssd_scan.py:71",
+             case=named["float32", "bwd mamba2 train"],
+             more=[named["bfloat16", "bwd mamba2 train"]] + [
+                 named[dt_name, "bwd ragged grouped"] for dt_name in ("float32", "bfloat16")]),
     ]
     for k in kernels:
         r, more = k.pop("case"), k.pop("more")

@@ -71,9 +71,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "ssd_scan.cuh"
 
-constexpr int L = 64;  // chunk length, the kernel's own choice
+namespace {
 
 struct Params {
   const void* x;
@@ -110,51 +110,10 @@ struct Block {
 
 // Warp 0 only.  Lane k's rows 2k, 2k+1 of head h's dt (0 past S) and the
 // head's a, fetched a head ahead so their latency hides behind a product.
-struct HeadDt {
-  float d0, d1, a;
-};
 __device__ __forceinline__ HeadDt fetch_dt(const Params& p, const Block& blk, int h) {
   const float* dtg = p.dt + blk.bi * p.dts[0] + h * p.dts[2];
   const int s = blk.s0 + 2 * threadIdx.x;
   return {s < p.S ? dtg[s * p.dts[1]] : 0.f, s + 1 < p.S ? dtg[(s + 1) * p.dts[1]] : 0.f, p.a[h]};
-}
-
-// Warp 0 only: the inclusive cumsum of dt * a over the chunk into cum[], dt
-// into dtl[]; returns cum[L-1].
-__device__ __forceinline__ float chunk_cumsum(const HeadDt& d, float* cum, float* dtl) {
-  const int lane = threadIdx.x, l0 = 2 * lane;
-  const float v0 = d.d0 * d.a;
-  float inc = v0 + d.d1 * d.a;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += up;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) excl = 0.f;
-  cum[l0] = excl + v0;
-  cum[l0 + 1] = inc;
-  dtl[l0] = d.d0;
-  dtl[l0 + 1] = d.d1;
-  return __shfl_sync(0xffffffffu, inc, 31);
-}
-
-// 16 bytes of x, B or C as floats
-__device__ __forceinline__ void unpack16(const uint4& u, float* v, float) {
-  v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
-  v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& u, float* v, __nv_bfloat16) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x, v[2 * i + 1] = f.y;
-  }
-}
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* v) {
-  unpack16(*reinterpret_cast<const uint4*>(src), v, T());
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -186,67 +145,6 @@ __device__ __forceinline__ void bulk_wait() {  // the copies are done
 __device__ __forceinline__ void fence_async_smem() {  // smem writes -> the copy engine
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-
-// A register-tiled f32 product on the CUDA cores,
-//   out[r][c] = sum_k A[k * lda + r] * Bm[k * ldb + c],  r < R, c < C,
-// both operands k-major in shared memory.  NT threads form an RT x CT grid;
-// a thread owns TR rows (chunks of RV = min(TR, 4) consecutive rows, RT*RV
-// apart) and 4 consecutive columns, so each k costs it TR/RV + 1 16-byte
-// loads for 4*TR FMAs.  A warp spans WR row groups and WC column groups:
-// its A loads are WR consecutive 16-byte words (conflict-free) broadcast
-// over WC lanes, its B loads WC consecutive words broadcast over WR lanes.
-template <int R, int C, int NT>
-struct Tile {
-  static constexpr int CT = C / 4, RT = NT / CT, TR = R / RT, RV = TR < 4 ? TR : 4;
-  static constexpr int WR = RT < 8 ? RT : 8, WC = 32 / WR;
-  static_assert(C % 4 == 0 && CT * RT == NT && TR * RT == R && TR % RV == 0, "tile");
-  static_assert(RT % WR == 0 && CT % WC == 0, "warp layout");
-  int tr, tc;
-  __device__ explicit Tile(int tid) {
-    const int lane = tid & 31, warp = tid >> 5;
-    tr = (warp / (CT / WC)) * WR + lane / WC;
-    tc = (warp % (CT / WC)) * WC + lane % WC;
-  }
-  __device__ __forceinline__ int row(int i) const { return ((i / RV) * RT + tr) * RV + i % RV; }
-  __device__ __forceinline__ int col0() const { return tc * 4; }
-  __device__ __forceinline__ int row_max() const { return row(TR - 1); }
-
-  // acc[i][j] += sum_{k0 <= k < k1} A[k * lda + row(i)] * Bm[k * ldb + col0() + j]
-  __device__ __forceinline__ void mac(float (&acc)[TR][4], const float* A, int lda,
-                                      const float* Bm, int ldb, int k0, int k1) const {
-#pragma unroll 4
-    for (int k = k0; k < k1; ++k) {
-      float av[TR], bv[4];
-      load16(Bm + k * ldb + col0(), bv);
-#pragma unroll
-      for (int q = 0; q < TR / RV; ++q) {
-        const float* src = A + k * lda + (q * RT + tr) * RV;
-        if constexpr (RV == 4) {
-          load16(src, av + 4 * q);
-        } else if constexpr (RV == 2) {
-          const float2 f = *reinterpret_cast<const float2*>(src);
-          av[2 * q] = f.x, av[2 * q + 1] = f.y;
-        } else {
-          av[q] = *src;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-};
-
-template <int R, int C, int NT>
-__device__ __forceinline__ void zero(float (&acc)[Tile<R, C, NT>::TR][4]) {
-#pragma unroll
-  for (int i = 0; i < Tile<R, C, NT>::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-__host__ __device__ constexpr int nt_state(int N, int P) { return N * P / 4 < 256 ? N * P / 4 : 256; }
 
 // ---- phase 1: S_c = B^T (x * dt * exp(cum_{L-1} - cum)), and exp(cum_{L-1}) --------------
 template <int N, int P>

@@ -1,5 +1,5 @@
 """Mamba2 SSD chunked scan on Hopper: the port of the JAX package's Pallas
-kernel ``kernels/ssd_scan.py`` (``ssd_scan``, :71).
+kernel ``kernels/ssd_scan.py`` (``ssd_scan``, :71), and its gradient.
 
 The kernels are CUDA C++ (``repro_torch/csrc/ssd_scan.cu``, whose header says
 what bounds each phase on the H100 and what the design does about it), built
@@ -28,10 +28,18 @@ copied first.
 device raises.  ``ssd_scan.launches`` counts calls that launched the kernels:
 one per call, whatever the three launches inside it.
 
-The kernels have no backward yet (ROADMAP.md Queue 1: the SSD scan backward
-kernel, with mamba2-130m training).  So that no gradient is ever dropped
-silently, a CUDA call raises ``NotImplementedError`` when grad mode is on and
-an input requires grad.  A CPU call differentiates through the plain version.
+Gradients.  When grad mode is on and an input requires grad, a CUDA call
+goes through ``SSDScanFn``: its forward launches the same kernels and keeps
+their scratch (the state entering each chunk, and each chunk's decay), and
+its backward is ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``: each chunk's
+share of the state gradient, the chain over chunks in reverse, dx/ddt/da and
+dB/dC per chunk, then the group sum of dB/dC in head order and da over the
+chunks, deterministic throughout; ``ssd_scan_bwd.launches`` counts calls).
+Otherwise (serving, ``inference_mode``) the call launches the forward alone,
+as lean as before.  A CPU call differentiates through the plain version,
+which is also the card's reference for the gradient.
+``ssd_scan_bwd_plain`` is the backward's chunk algebra in plain torch: the
+derivation's check on the CPU.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 
@@ -57,10 +66,25 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+    i, pll = ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+    fn.argtypes = [pll, pll, i, i, i, i, i, i, i, ctypes.c_void_p]
+    fn.restype = i
+    return fn
+
+
 def scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
     """f32 scratch of one call: each chunk's (N, P) state and its decay, per
     (batch, head)."""
     return bsz * h * -(-s // CHUNK) * (n * p + 1)
+
+
+def bwd_scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
+    """f32 scratch of one backward call: per (batch, head) and chunk an (N, P)
+    state gradient and a share of da, and each head's dB and dC."""
+    return bsz * h * -(-s // CHUNK) * (n * p + 1) + 2 * bsz * s * h * n
 
 
 def _aligned(t) -> bool:
@@ -85,6 +109,69 @@ def ssd_scan_plain(x, dt, a, b, c):
             hl.reshape(bsz, h, n, p).transpose(2, 3))
 
 
+def ssd_scan_bwd_plain(x, dt, a, b, c, dy, dstate=None):
+    """The backward's chunk algebra in plain torch (``csrc/ssd_scan_bwd.cu``
+    header), chunks of 64 with the ragged last one padded by zero rows:
+    the gradients of ``ssd_scan``'s y and final state given dy (B,S,H,P)
+    and dstate (B,H,P,N) or None (zero).  Returns dx, ddt, da, db, dc: dx,
+    db, dc in the dtypes of x, b, c; ddt and da in f32, which it computes in."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep, ln = h // g, CHUNK
+    nc = -(-s // ln)
+    f = torch.float32
+
+    def chunks(t, heads=False):  # (B,S,...) -> (B,nc,L,...), groups repeated over heads
+        t = F.pad(t.to(f), (0, 0) * (t.ndim - 2) + (0, nc * ln - s))
+        t = t.reshape(bsz, nc, ln, *t.shape[2:])
+        return t.repeat_interleave(rep, dim=3) if heads else t
+
+    xs, dts, dys = chunks(x), chunks(dt), chunks(dy)
+    bs, cs = chunks(b, True), chunks(c, True)
+    af = a.to(f)
+    cum = torch.cumsum(dts * af, dim=2)                                     # (B,nc,L,H)
+    last = cum[:, :, -1]
+    tri = torch.tril(torch.ones((ln, ln), dtype=torch.bool, device=x.device))[..., None]
+    decay = torch.exp(torch.where(tri, cum[:, :, :, None] - cum[:, :, None], -torch.inf))
+    e_in, e_end = torch.exp(cum), torch.exp(last[:, :, None] - cum)
+    # the states entering each chunk, and the gradients of those leaving it
+    s_c = torch.einsum("bcmhn,bcmhp->bchnp", bs * (dts * e_end)[..., None], xs)
+    z_c = torch.einsum("bclhn,bclhp->bchnp", cs * e_in[..., None], dys)
+    h_in, g_out = torch.empty_like(s_c), torch.empty_like(z_c)
+    hc = torch.zeros_like(s_c[:, 0])
+    gc = torch.zeros_like(hc) if dstate is None else dstate.to(f).transpose(-1, -2)
+    for i in range(nc):
+        h_in[:, i] = hc
+        hc = torch.exp(last[:, i])[..., None, None] * hc + s_c[:, i]
+    for i in reversed(range(nc)):
+        g_out[:, i] = gc
+        gc = torch.exp(last[:, i])[..., None, None] * gc + z_c[:, i]
+    r = torch.einsum("bclhn,bcmhn->bclmh", cs, bs)                         # C_l . B_m
+    q = torch.einsum("bclhp,bcmhp->bclmh", dys, xs)                        # dY_l . x_m
+    m = r * decay
+    w = decay * dts[:, :, None] * q
+    t = r * w
+    bg = torch.einsum("bcmhn,bchnp->bcmhp", bs, g_out)
+    dxt = torch.einsum("bclmh,bclhp->bcmhp", m, dys) + e_end[..., None] * bg
+    y_off = e_in[..., None] * torch.einsum("bclhn,bchnp->bclhp", cs, h_in)
+    u = e_end * dts * (xs * bg).sum(-1)
+    dcum = t.sum(3) - t.sum(2) + (dys * y_off).sum(-1) - u
+    dcum[:, :, -1] += u.sum(2) + torch.exp(last) * (g_out * h_in).sum((-2, -1))
+    rc = dcum.flip(2).cumsum(2).flip(2)
+    ddt = (xs * dxt).sum(-1) + af * rc
+    dc = torch.einsum("bclmh,bcmhn->bclhn", w, bs) \
+        + e_in[..., None] * torch.einsum("bclhp,bchnp->bclhn", dys, h_in)
+    db = torch.einsum("bclmh,bclhn->bcmhn", w, cs) \
+        + (dts * e_end)[..., None] * torch.einsum("bcmhp,bchnp->bcmhn", xs, g_out)
+
+    def rows(t, dtype, groups=False):  # (B,nc,L,...) -> (B,S,...), heads summed per group
+        t = t.reshape(bsz, nc * ln, *t.shape[3:])[:, :s]
+        return (t.reshape(bsz, s, g, rep, n).sum(3) if groups else t).to(dtype)
+
+    return (rows(dts[..., None] * dxt, x.dtype), rows(ddt, f), (dts * rc).sum((0, 1, 2)),
+            rows(db, b.dtype, True), rows(dc, c.dtype, True))
+
+
 def _check(x, dt, a, b, c):
     if x.ndim != 4 or dt.ndim != 3 or a.ndim != 1 or b.ndim != 4 or b.shape != c.shape:
         raise ValueError(f"want x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,G,N); got "
@@ -105,33 +192,32 @@ def _check(x, dt, a, b, c):
         raise ValueError("x, dt, a, b and c must share one device")
 
 
-def ssd_scan(x, dt, a, b, c):
-    """x: (B, S, H, P); dt: (B, S, H) f32; a: (H,) f32; b/c: (B, S, G, N).
-    Returns y (B, S, H, P) of x.dtype and the final state (B, H, P, N) f32."""
-    _check(x, dt, a, b, c)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel on the card yet (ROADMAP.md Queue 1: the SSD scan "
-            "backward kernel, with mamba2-130m training); run the forward under torch.no_grad() "
-            "or inference_mode, or differentiate on the CPU")
+def _check_card(x, b):
     bsz, s, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
+    n = b.shape[3]
     if p not in DIMS or n not in DIMS:
         raise ValueError(f"the kernel takes head_dim and state size in {DIMS}, not {p} and {n}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes {sorted(map(str, _DTYPES))}, not {x.dtype}")
-    if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
-        raise ValueError("the last axis of x, b and c, and a, must be contiguous")
     if bsz * s == 0:
         raise ValueError(f"empty scan: x {tuple(x.shape)}")
     if bsz * h > 65535:
         raise ValueError(f"the kernels take at most 65535 batch*heads, not {bsz * h}")
-    x, b, c = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
-               for t in (x, b, c))
+
+
+def _rows_ready(t):
+    """t itself if the kernels can read its rows (last axis contiguous, rows
+    on 16 bytes), else a copy in a fresh contiguous buffer."""
+    if t.stride(-1) == 1 and _aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(x, dt, a, b, c):
+    """One forward call on checked CUDA tensors: y, the final state, and the
+    scratch that holds the state entering each chunk and each chunk's decay."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     scratch = torch.empty(scratch_floats(bsz, s, h, p, n), dtype=torch.float32, device=x.device)
@@ -145,7 +231,98 @@ def ssd_scan(x, dt, a, b, c):
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error {err}")
     ssd_scan.launches += 1
+    return y, state, scratch
+
+
+def ssd_scan_bwd(x, dt, a, b, c, scratch, dy, dstate=None):
+    """The backward kernels on CUDA tensors: the forward's inputs and its
+    ``scratch`` (``_launch``), dy (B,S,H,P) and dstate (B,H,P,N) f32 or None
+    (zero).  Returns dx, ddt, da, db, dc: dx, db, dc in x's dtype, ddt and
+    da in f32."""
+    _check(x, dt, a, b, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd launches kernels on CUDA tensors, not {x.device}: the "
+                         "CPU differentiates through the plain version")
+    _check_card(x, b)
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not fit x {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if dstate is not None and (dstate.shape != (bsz, h, p, n) or dstate.dtype != torch.float32
+                               or dstate.device != x.device):
+        raise ValueError(f"dstate {tuple(dstate.shape)} {dstate.dtype} on {dstate.device}: want "
+                         f"{(bsz, h, p, n)} float32 on {x.device}")
+    if scratch.numel() != scratch_floats(bsz, s, h, p, n) or not scratch.is_contiguous():
+        raise ValueError("scratch is not the forward's")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    x, b, c, dy = (_rows_ready(t) for t in (x, b, c, dy))
+    return _launch_bwd(x, dt, a, b, c, scratch, dy, None if dstate is None else dstate.contiguous())
+
+
+def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
+    """One backward call on checked CUDA tensors whose rows the kernels can
+    read (x, b, c, dy), with dstate contiguous or None."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev, f32 = x.device, torch.float32
+    work = torch.empty(bwd_scratch_floats(bsz, s, h, p, n), dtype=f32, device=dev)
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bsz, s, h), dtype=f32, device=dev)
+    da = torch.empty((h,), dtype=f32, device=dev)
+    db, dc = (torch.empty((bsz, s, g, n), dtype=x.dtype, device=dev) for _ in range(2))
+    ts = (x, dt, a, b, c, dy, dstate, scratch, work, dx, ddt, da, db, dc)
+    ptrs = (ctypes.c_longlong * 14)(*(0 if t is None else t.data_ptr() for t in ts))
+    strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *dt.stride(), *b.stride()[:3],
+                                       *c.stride()[:3], *dy.stride()[:3])
+    with torch.cuda.device(dev):
+        err = _bwd_entry()(ptrs, strides, _DTYPES[x.dtype], bsz, s, h, g, p, n,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed with CUDA error {err}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, db, dc
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The kernels with their gradient, on checked CUDA tensors whose rows
+    the kernels can read: the forward keeps its inputs and the scratch of
+    entering states; the backward is ``ssd_scan_bwd``.  A gradient of None
+    (y or the final state not used) counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.set_materialize_grads(False)
+        y, state, scratch = _launch(x, dt, a, b, c)
+        ctx.save_for_backward(x, dt, a, b, c, scratch)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, scratch = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else _rows_ready(dy)
+        return _launch_bwd(x, dt, a, b, c, scratch, dy,
+                           None if dstate is None else dstate.contiguous())
+
+
+def ssd_scan(x, dt, a, b, c):
+    """x: (B, S, H, P); dt: (B, S, H) f32; a: (H,) f32; b/c: (B, S, G, N).
+    Returns y (B, S, H, P) of x.dtype and the final state (B, H, P, N) f32."""
+    _check(x, dt, a, b, c)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
+    _check_card(x, b)
+    if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
+        raise ValueError("the last axis of x, b and c, and a, must be contiguous")
+    x, b, c = (_rows_ready(t) for t in (x, b, c))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        return SSDScanFn.apply(x, dt, a, b, c)
+    y, state, _ = _launch(x, dt, a, b, c)
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

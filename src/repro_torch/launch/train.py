@@ -1,12 +1,17 @@
 """End-to-end training entry point, on the GPU.
 
 Wires together: the config registry (--arch), the synthetic data pipeline
-with prefetch, the train step (``repro_torch.train``: the flash-attention and
-RMSNorm kernels forward and backward on the card), async atomic
+with prefetch, the train step (``repro_torch.train``: the flash-attention,
+RMSNorm and SSD-scan kernels forward and backward on the card, so every layer
+kind of the registry trains there), async atomic
 checkpointing with auto-resume, heartbeats, straggler monitoring, and
 failure injection for fault-tolerance drills.
 
     PYTHONPATH=src python -m repro_torch.launch.train --batch 4 --seq 1024 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --batch 4 \\
+        --seq 4096 --steps 6 --remat dots
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --reduced \\
+        --device cpu --steps 4 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --steps 4 --batch 8 --seq 32 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\

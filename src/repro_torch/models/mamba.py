@@ -3,10 +3,16 @@
 Counterpart of the JAX package's ``models/mamba.py``.  Forward and prefill
 run the SSD scan through ``ops.ssd``, so the Hopper kernel runs there at
 every prompt length (the JAX module's ``ssd_chunked`` call, :150 and :191,
-becomes the kernel).  ``ssd_chunked`` itself stays a plain torch function,
-held against the JAX one by the tests; nothing on the serving path calls
-it.  The causal conv, the gate and the decode recurrence are plain tensor
-ops, as the JAX package computes them outside any Pallas kernel.
+becomes the kernel).  In training the scan differentiates through the
+kernels' autograd Function (``kernels/ssd_scan.py`` ``SSDScanFn``, whose
+backward is ``csrc/ssd_scan_bwd.cu``), where the JAX trainer differentiates
+its jnp ``ssd_chunked``: every input of the call keeps its gradient, x and
+the B/C views of the causal conv's outputs, dt (f32, through softplus) and
+``a = -exp(a_log)``.  ``ssd_chunked`` itself stays a plain torch function,
+held against the JAX one by the tests; nothing on the serving or training
+path calls it.  The causal conv, the gate and the decode recurrence are
+plain tensor ops, as the JAX package computes them outside any Pallas
+kernel.
 
 The decode cache is a dict ``{"conv": (B, cw-1, C), "ssm": (B, H, P, N)}``;
 ``conv`` holds the last cw-1 rows of the *pre-activation* conv input.

@@ -156,7 +156,8 @@ def test_flash_kernel_rejects_unsupported_head_dim(dev):
 
 
 @pytest.mark.parametrize("rows,d", [(148, 512)] + [
-    (r, d) for r in (1, 3, 4, 4000) for d in (100, 512, 768, 1536, 8960)])
+    (r, d) for r in (1, 3, 4, 4000) for d in (100, 512, 768, 1536, 8960)] + [
+    (16384, 768), (16384, 1536)])  # mamba2-130m prefill and training
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -212,7 +213,7 @@ def _close_rel(got, want, tol):
     assert err <= tol * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("b,s,h,g,p,n", [
+SSD_SHAPES = [
     (4, 4096, 24, 1, 64, 128),   # mamba2-130m prefill
     (4, 1000, 24, 1, 64, 128),   # ragged: no multiple of the kernel's chunk
     (2, 512, 8, 2, 64, 16),      # grouped, jamba's widths
@@ -230,7 +231,10 @@ def _close_rel(got, want, tol):
     (2, 129, 4, 1, 64, 128),
     (1, 8192, 4, 1, 64, 128),
     (2, 300, 4, 2, 128, 16),     # P = 128 with N = 16
-])
+]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", SSD_SHAPES)
 @pytest.mark.parametrize("ranges", ["random", "model"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
@@ -463,6 +467,9 @@ def test_flash_backward_reads_strided_inputs(dev):
 
 @pytest.mark.parametrize("rows,d", [(4000, 1536), (8160, 1152), (3, 100), (37, 8960), (1, 768),
                                     (300, 3072),
+                                    # mamba2-130m training: norm1 and the final norm at
+                                    # d_model, the mixer's gated norm at d_inner
+                                    (16384, 768), (16384, 1536),
                                     # rows held in registers: several rows per block, rows
                                     # no multiple of them; the widest such row
                                     (37, 1152), (4097, 1536), (1001, 2048),
@@ -538,7 +545,7 @@ def test_flash_backward_is_deterministic(dev, h, g, hd, window, dtype):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("rows,d", [(4096, 1536), (37, 8960)])
+@pytest.mark.parametrize("rows,d", [(4096, 1536), (37, 8960), (16384, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_is_deterministic(dev, rows, d, dtype):
     """Two backward calls on the same inputs give the same dx and dw bit for
@@ -552,13 +559,117 @@ def test_rmsnorm_backward_is_deterministic(dev, rows, d, dtype):
         assert torch.equal(a, b)
 
 
-def test_ssd_kernel_raises_when_grad_is_required(dev):
-    x, dt, a, bb, cc = _ssd_inputs(dev, 1, 64, 2, 1, 16, 16, torch.float32, "model")
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x, dt, a, bb, cc)
+def test_ssd_backward_under_grad_launches_the_backward_kernels_once(dev):
+    """ops.ssd on CUDA tensors that require grad goes through SSDScanFn: one
+    forward call, and one backward call whose gradients match autograd
+    through the plain version; under no_grad no backward is recorded."""
+    args = [t.requires_grad_() for t in _ssd_inputs(dev, 2, 130, 4, 2, 16, 32, torch.float32,
+                                                     "model")]
+    before = (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches)
+    y, hl = ops.ssd(*args)
+    grads = torch.autograd.grad(y.square().sum() + hl.sum(), args)
+    assert (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ye, he = ss.ssd_scan_plain(*args)
+    want = torch.autograd.grad(ye.square().sum() + he.sum(), args)
+    for got, w in zip(grads, want):
+        _close_grad(got, w, torch.float32)
     with torch.no_grad():
-        ops.ssd(x, dt, a, bb, cc)  # no graph, no gradient to drop
+        y, _ = ops.ssd(*args)
+    assert y.grad_fn is None and ss.ssd_scan_bwd.launches == before[1] + 1
+
+
+def _ssd_bwd_case(dev, b, s, h, g, p, n, dtype, ranges, seed=9):
+    """Inputs, the forward's scratch, dy and a nonzero dstate."""
+    x, dt, a, bb, cc = _ssd_inputs(dev, b, s, h, g, p, n, dtype, ranges)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dstate = torch.randn((b, h, p, n), generator=gen, device=dev)
+    _, _, scratch = ss._launch(x, dt, a, bb, cc)
+    return (x, dt, a, bb, cc), scratch, dy, dstate
+
+
+def _ssd_bwd_reference(args, dy, dstate):
+    """Autograd through the plain version on the same inputs (dstate None
+    is a zero cotangent)."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, hl = ss.ssd_scan_plain(*leaves)
+    return torch.autograd.grad((y, hl), leaves, (dy, torch.zeros_like(hl) if dstate is None
+                                                 else dstate))
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", SSD_SHAPES)
+@pytest.mark.parametrize("ranges", ["random", "model"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
+    """dx, ddt, da, db, dc of the backward kernels vs autograd through the
+    plain version, at the forward tests' shapes."""
+    args, scratch, dy, dstate = _ssd_bwd_case(dev, b, s, h, g, p, n, dtype, ranges)
+    before = ss.ssd_scan_bwd.launches
+    got = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
+    assert ss.ssd_scan_bwd.launches == before + 1
+    for gv, wv in zip(got, _ssd_bwd_reference(args, dy, dstate)):
+        _close_grad(gv, wv, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_without_a_state_gradient(dev, dtype):
+    args, scratch, dy, _ = _ssd_bwd_case(dev, 2, 300, 4, 2, 64, 32, dtype, "model")
+    got = ss.ssd_scan_bwd(*args, scratch, dy, None)
+    for gv, wv in zip(got, _ssd_bwd_reference(args, dy, None)):
+        _close_grad(gv, wv, dtype)
+
+
+@pytest.mark.parametrize("which", ["y", "state"])
+def test_ssd_backward_with_an_output_unused(dev, which):
+    """Through ops.ssd, an output that takes no part in the loss reaches
+    SSDScanFn's backward as a None gradient, taken as zero."""
+    args = [t.requires_grad_() for t in _ssd_inputs(dev, 2, 200, 4, 2, 32, 16, torch.float32,
+                                                     "model")]
+    y, hl = ops.ssd(*args)
+    loss = y.square().sum() if which == "y" else hl.square().sum()
+    grads = torch.autograd.grad(loss, args)
+    ye, he = ss.ssd_scan_plain(*args)
+    want = torch.autograd.grad(ye.square().sum() if which == "y" else he.square().sum(), args,
+                               allow_unused=True)
+    for got, w, leaf in zip(grads, want, args):
+        _close_grad(got, torch.zeros_like(leaf) if w is None else w, torch.float32)
+
+
+def test_ssd_backward_reads_strided_and_unaligned_inputs(dev):
+    """x, B and C as views into one packed projection whose rows start off
+    16 bytes, dt a column slice and dy a strided view: the wrapper copies
+    what the kernels cannot read, and the gradients keep the inputs' shapes."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, h, p, g, n = 2, 150, 4, 32, 2, 16
+    packed = torch.randn((b, s, 1 + h * p + 2 * g * n), generator=gen, device=dev)
+    x = packed[..., 1 : 1 + h * p].view(b, s, h, p)
+    bb = packed[..., 1 + h * p : 1 + h * p + g * n].unflatten(-1, (g, n))
+    cc = packed[..., 1 + h * p + g * n :].unflatten(-1, (g, n))
+    dt = torch.rand((b, s, 2 * h), generator=gen, device=dev)[..., ::2] * 0.1
+    a = -torch.rand((h,), generator=gen, device=dev) * 4
+    dy = torch.randn((b, s, 2 * h, p), generator=gen, device=dev)[:, :, ::2]
+    dstate = torch.randn((b, h, n, p), generator=gen, device=dev).transpose(2, 3)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
+    y, hl = ops.ssd(*leaves)
+    got = torch.autograd.grad((y, hl), leaves, (dy, dstate))
+    want = _ssd_bwd_reference((x, dt, a, bb, cc), dy, dstate)
+    for leaf, gv, wv in zip(leaves, got, want):
+        assert gv.shape == leaf.shape
+        _close_grad(gv, wv, torch.float32)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", [(4, 4096, 24, 1, 64, 128), (2, 1000, 8, 2, 64, 16),
+                                         (1, 300, 4, 1, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_is_deterministic(dev, b, s, h, g, p, n, dtype):
+    """No atomics: dB and dC summed over a group's heads in head order, da
+    over the chunks in a fixed order; two calls give the same bits."""
+    args, scratch, dy, dstate = _ssd_bwd_case(dev, b, s, h, g, p, n, dtype, "model")
+    first = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
+    again = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
+    torch.cuda.synchronize()
+    for u, v in zip(first, again):
+        assert torch.equal(u, v)
 
 
 def _card_and_cpu_grads(arch, n_layers, remat, dev):
@@ -579,15 +690,24 @@ def _card_and_cpu_grads(arch, n_layers, remat, dev):
     return out
 
 
-@pytest.mark.parametrize("arch,n_layers", [("qwen2-1.5b", 2), ("gemma3-1b", 4)])
+@pytest.mark.parametrize("arch,n_layers", [("qwen2-1.5b", 2), ("gemma3-1b", 4),
+                                           ("mamba2-130m", 2),
+                                           ("jamba-v0.1-52b", 8)])  # 1 attention, 7 Mamba, MoE
 @pytest.mark.parametrize("remat", ["none", "dots", "full", "save_kv"])
 def test_reduced_model_gradients_on_card_match_cpu(dev, arch, n_layers, remat):
     """Every parameter's gradient on the card (the kernels forward and
-    backward, under each remat policy) vs the CPU's plain path."""
-    before = (fa.flash_attention_bwd.launches, rn.rmsnorm_bwd.launches)
+    backward, under each remat policy) vs the CPU's plain path.  One
+    backward call per forward call: flash per attention layer, the SSD scan
+    per Mamba layer, RMSNorm per norm1, norm2 (with an FFN), the Mamba
+    mixer's gated norm, and the final norm."""
+    lds = reduced(ARCHS[arch], n_layers=n_layers).layer_defs()
+    n_mamba = sum(ld.mixer == "mamba" for ld in lds)
+    norms = sum(1 + (ld.ffn != "none") + (ld.mixer == "mamba") for ld in lds) + 1
+    counters = (fa.flash_attention_bwd, ss.ssd_scan_bwd, rn.rmsnorm_bwd)
+    before = [c.launches for c in counters]
     (cpu_loss, cpu_grads), (loss, grads) = _card_and_cpu_grads(arch, n_layers, remat, dev)
-    assert fa.flash_attention_bwd.launches == before[0] + n_layers
-    assert rn.rmsnorm_bwd.launches == before[1] + 2 * n_layers + 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [len(lds) - n_mamba, n_mamba,
+                                                                  norms]
     np.testing.assert_allclose(loss, cpu_loss, rtol=1e-5)
     for got, want in zip(grads, cpu_grads):
         assert bool(got.abs().max() > 0)

@@ -166,7 +166,8 @@ def test_flash_backward_hands_tma_readable_gradients(make, kept):
 
 
 def test_build_compiles_every_kernel_source():
-    assert _build.sources() == ["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan"]
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan",
+                                "ssd_scan_bwd"]
 
 
 def test_build_path_changes_with_a_header(tmp_path, monkeypatch):

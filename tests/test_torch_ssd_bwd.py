@@ -1,0 +1,195 @@
+"""The SSD scan's backward on the CPU: ``ssd_scan_bwd_plain`` (the chunk
+algebra of ``csrc/ssd_scan_bwd.cu`` in plain torch) and ``ops.ssd`` under
+grad against autograd through the plain forward and against ``jax.vjp`` of
+the JAX package's ``models/mamba.py`` ``ssd_chunked`` and ``kernels/ref.py``
+``ssd_ref``.
+
+Inputs come from seeded numpy, and every case but those of an unused output
+has a nonzero cotangent for the final state as well as for y.  Tolerance:
+rtol 1e-5 and atol 1e-5 of each gradient's largest |g|, in f32: the chunked
+backward and autodiff of the forward sum the same products in other orders
+through exp, and an element of dt's or a's gradient sums many terms that
+cancel, so rounding shows against the tensor's scale.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.models.mamba import ssd_chunked as jssd_chunked
+from repro_torch.kernels import ops, ssd_scan as ss
+
+TOL = 1e-5
+NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def _inputs(seed, b, s, h, g, p, n, ranges):
+    """x, dt, a, b, c and the cotangents dy, dstate.  ``random``: dt =
+    softplus(randn), a = -exp(randn), which forget within a few steps;
+    ``model``: dt in [1e-3, 1e-1], a in [-16, -1], whose memory spans many
+    chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    if ranges == "random":
+        dt = np.logaddexp(rng.standard_normal((b, s, h)), 0).astype(np.float32)
+        a = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    else:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, s, h))).astype(np.float32)
+        a = -rng.uniform(1.0, 16.0, h).astype(np.float32)
+    bb = rng.standard_normal((b, s, g, n), dtype=np.float32)
+    cc = rng.standard_normal((b, s, g, n), dtype=np.float32)
+    dy = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    dstate = rng.standard_normal((b, h, p, n), dtype=np.float32)
+    return (x, dt, a, bb, cc), dy, dstate
+
+
+def _assert_grads_close(got, want):
+    for name, gv, wv in zip(NAMES, got, want):
+        gv = gv.float().numpy() if isinstance(gv, torch.Tensor) else np.asarray(gv, np.float32)
+        wv = wv.float().numpy() if isinstance(wv, torch.Tensor) else np.asarray(wv, np.float32)
+        assert gv.shape == wv.shape, name
+        np.testing.assert_allclose(gv, wv, rtol=TOL, atol=TOL * np.abs(wv).max(), err_msg=name)
+
+
+def _autograd_plain(args, dy, dstate):
+    leaves = [torch.from_numpy(t).requires_grad_() for t in args]
+    y, state = ss.ssd_scan_plain(*leaves)
+    return torch.autograd.grad((y, state), leaves, (torch.from_numpy(dy), torch.from_numpy(dstate)))
+
+
+def _jax_chunked_vjp(args, dy, dstate, chunk):
+    _, vjp = jax.vjp(lambda *t: jssd_chunked(*t, chunk=chunk), *map(jnp.asarray, args))
+    return vjp((jnp.asarray(dy), jnp.asarray(dstate)))
+
+
+def _jax_ref_vjp(args, dy, dstate):
+    """jax.vjp of ``ref.ssd_ref`` on the folded layout, groups repeated over
+    heads: the transposes sum them back, and a's over the batch."""
+    b, s, h, _ = args[0].shape
+    rep = h // args[3].shape[2]
+
+    def f(x, dt, a, bb, cc):
+        fold = lambda t: jnp.moveaxis(t, 2, 1).reshape(b * h, s, *t.shape[3:])
+        y, hl = jref.ssd_ref(fold(x), fold(dt), jnp.tile(a, b), fold(jnp.repeat(bb, rep, 2)),
+                             fold(jnp.repeat(cc, rep, 2)))
+        return (jnp.moveaxis(y.reshape(b, h, s, -1), 1, 2),
+                jnp.swapaxes(hl.reshape(b, h, *hl.shape[1:]), 2, 3))
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, args))
+    return vjp((jnp.asarray(dy), jnp.asarray(dstate)))
+
+
+def _plain_bwd(args, dy, dstate):
+    return ss.ssd_scan_bwd_plain(*map(torch.from_numpy, (*args, dy, dstate)))
+
+
+CASES = [
+    (2, 128, 4, 1, 16, 32),   # G = 1
+    (2, 192, 4, 2, 16, 16),   # G = 2 with H = 4
+    (1, 64, 2, 2, 32, 16),    # one chunk: no state carried in
+]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", CASES)
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_plain_backward_matches_autograd_through_the_plain_forward(b, s, h, g, p, n, ranges):
+    args, dy, dstate = _inputs(20, b, s, h, g, p, n, ranges)
+    _assert_grads_close(_plain_bwd(args, dy, dstate), _autograd_plain(args, dy, dstate))
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", CASES)
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_plain_backward_matches_jax_vjp_of_ssd_chunked(b, s, h, g, p, n, ranges):
+    """The JAX trainer's gradient: autodiff of its jnp ``ssd_chunked``, at a
+    chunk that divides S (its own 64, and 32)."""
+    args, dy, dstate = _inputs(21, b, s, h, g, p, n, ranges)
+    want = _jax_chunked_vjp(args, dy, dstate, chunk=64)
+    _assert_grads_close(_plain_bwd(args, dy, dstate), want)
+    _assert_grads_close(_plain_bwd(args, dy, dstate), _jax_chunked_vjp(args, dy, dstate, 32))
+
+
+@pytest.mark.parametrize("h,g", [(4, 1), (4, 2)])
+@pytest.mark.parametrize("ranges", ["random", "model"])
+def test_plain_backward_ragged_length_matches_jax_vjp_of_ssd_ref(h, g, ranges):
+    """S = 200 is no chunk multiple: the last chunk's rows past S are zero
+    padding.  The JAX ``ssd_chunked`` asserts on such S, so the reference is
+    the sequential ``ref.ssd_ref``."""
+    args, dy, dstate = _inputs(22, 2, 200, h, g, 16, 16, ranges)
+    _assert_grads_close(_plain_bwd(args, dy, dstate), _jax_ref_vjp(args, dy, dstate))
+
+
+def test_plain_backward_without_a_state_gradient():
+    """dstate None is a zero cotangent for the final state."""
+    args, dy, dstate = _inputs(23, 1, 130, 4, 2, 16, 16, "model")
+    got = ss.ssd_scan_bwd_plain(*map(torch.from_numpy, (*args, dy)), None)
+    _assert_grads_close(got, _autograd_plain(args, dy, np.zeros_like(dstate)))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_backward_keeps_the_input_dtypes(g):
+    """bf16 x, b, c and dy: computed in f32, dx, db and dc come back in bf16
+    and ddt and da in f32, as the kernels return them.  Against autograd
+    through the plain forward on the same bf16 inputs: ddt and da at the f32
+    tolerance; dx, db and dc at the card's bf16 tolerance, 2e-2 of each
+    gradient's largest |g|, since autograd rounds each head's share to bf16
+    before it sums a group's heads."""
+    args, dy, dstate = _inputs(24, 1, 100, 4, g, 16, 16, "random")
+    bf16 = torch.bfloat16
+    x, dt, a, bb, cc = map(torch.from_numpy, args)
+    x, bb, cc = (t.to(bf16) for t in (x, bb, cc))
+    dy_t, dstate_t = torch.from_numpy(dy).to(bf16), torch.from_numpy(dstate)
+    got = ss.ssd_scan_bwd_plain(x, dt, a, bb, cc, dy_t, dstate_t)
+    assert [t.dtype for t in got] == [bf16, torch.float32, torch.float32, bf16, bf16]
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
+    y, state = ss.ssd_scan_plain(*leaves)
+    want = torch.autograd.grad((y, state), leaves, (dy_t, dstate_t))
+    for name, gv, wv in zip(NAMES, got, want):
+        assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
+        gv, wv = gv.float().numpy(), wv.float().numpy()
+        tol = 2e-2 if name in ("dx", "db", "dc") else TOL
+        np.testing.assert_allclose(gv, wv, rtol=tol, atol=tol * np.abs(wv).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["both", "y", "state"])
+def test_ops_ssd_on_cpu_differentiates_the_plain_version(which):
+    """``ops.ssd`` on CPU tensors under grad: autograd through the plain
+    forward (the kernels' plain version in the PERF.md sense), never
+    ``SSDScanFn``, no kernel launch counted, and an output not used takes
+    no part in the gradient."""
+    args, dy, dstate = _inputs(26, 2, 100, 4, 2, 16, 16, "model")
+    if which == "y":
+        dstate = np.zeros_like(dstate)
+    elif which == "state":
+        dy = np.zeros_like(dy)
+    before = (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches)
+    leaves = [torch.from_numpy(t).requires_grad_() for t in args]
+    y, state = ops.ssd(*leaves)
+    assert "SSDScanFn" not in type(y.grad_fn).__name__
+    outs = {"both": (y, state), "y": (y,), "state": (state,)}[which]
+    cots = {"both": (dy, dstate), "y": (dy,), "state": (dstate,)}[which]
+    got = torch.autograd.grad(outs, leaves, tuple(map(torch.from_numpy, cots)),
+                              allow_unused=True)  # c takes no part in the final state
+    got = [torch.zeros_like(t) if gv is None else gv for t, gv in zip(leaves, got)]
+    assert (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches) == before
+    _assert_grads_close(got, _autograd_plain(args, dy, dstate))
+    _assert_grads_close(got, _plain_bwd(args, dy, dstate))
+
+
+def test_bwd_scratch_holds_state_gradients_and_each_heads_db_dc():
+    assert ss.bwd_scratch_floats(4, 4096, 24, 64, 128) == (
+        4 * 24 * 64 * (128 * 64 + 1) + 2 * 4 * 4096 * 24 * 128)
+    assert ss.bwd_scratch_floats(1, 1, 1, 16, 16) == 16 * 16 + 1 + 2 * 16
+
+
+def test_ssd_backward_wrapper_refuses_cpu_tensors():
+    """The kernels' entry takes CUDA tensors only (the CPU differentiates
+    through the plain versions)."""
+    args, dy, dstate = _inputs(27, 1, 64, 2, 1, 16, 16, "model")
+    x, dt, a, bb, cc = map(torch.from_numpy, args)
+    scratch = torch.zeros(ss.scratch_floats(1, 64, 2, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan_bwd(x, dt, a, bb, cc, scratch, torch.from_numpy(dy), torch.from_numpy(dstate))
