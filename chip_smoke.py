@@ -41,15 +41,16 @@ Phases, one or more lines each:
                (qwen2's; mamba2-130m's at d_model and at the mixer's gated
                norm's d_inner) against autograd through the plain version
                and through F.rms_norm, and its time at the train shape with its grid
-               capped at several block counts; the SSD scan's (six
-               launches, each row's device ms split by kernel:
-               ssd_bwd_chunk_grad, each chunk's share of the state gradient;
-               ssd_bwd_state_pass, the chain over chunks in reverse;
-               ssd_bwd_dx, dx, ddt and da per chunk; ssd_bwd_dbc, each
-               head's dB and dC; ssd_bwd_group_sum and ssd_bwd_da) at
-               mamba2-130m's train shape and at a ragged grouped shape
-               against autograd through the plain version, with a bound of 8 S N P
-               flops per (batch, head); every backward row also run twice on
+               capped at several block counts; the SSD scan's (five
+               launches on the tensor cores, each row's device ms split by
+               kernel: ssd_bwd_chunk_grad, each chunk's share of the state
+               gradient; ssd_bwd_state_pass, the chain over chunks in
+               reverse; ssd_bwd_dxbc, dx, ddt and da per chunk and head and
+               dB and dC per head-block; ssd_bwd_group_sum and ssd_bwd_da)
+               at mamba2-130m's train shape and at a ragged grouped shape
+               against autograd through the plain version, with a bound of
+               8 S N P flops per (batch, head) (f32 as 3xTF32, then on the
+               CUDA cores) and the scratch's bytes; every backward row also run twice on
                the same inputs, which must give the same gradients bit for
                bit; and ops.ssd under grad on the card: one forward and one
                backward call, gradients against the plain version's
@@ -505,7 +506,12 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
     # state gradient's C dY term, dC = h dY, dx = dt dh B and dB = dt dh x
     # (the forward's 4 S N P convention: decays and the recompute of h left out)
     flops = 8.0 * s * n * p * b * h
-    bound_ms, bound_by = bound(nbytes, flops, name)
+    if name == "float32":  # products in 3xTF32; the CUDA cores' bound beside it
+        bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
+        extra = dict(zip(("bound_f32_cores_ms", "bound_f32_cores_by"), bound(nbytes, flops, name)))
+    else:
+        bound_ms, bound_by = bound(nbytes, flops, name)
+        extra = {}
     phases = device_ms_split(kernel, iters, "ssd_bwd")
     row = dict(
         case=f"ssd_scan_bwd {name} model ranges B={b} S={s} H={h} G={g} P={p} N={n}",
@@ -515,10 +521,11 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
         ok=all(e[2] for e in errs) and deterministic,
         ms=cuda_ms(kernel, iters), device_ms=sum(phases.values()) or None,
         device_ms_by_kernel=phases,
-        scratch_bytes=4 * ss.bwd_scratch_floats(b, s, h, p, n),
+        scratch_bytes=4 * ss._bwd_scratch_entry()(b, s, h, g, p, n),
+        heads_per_block=ss.heads_per_block(h // g, b * h * -(-s // ss.CHUNK)),
         plain_ms=plain_ms,
         library_ms=None, library_note="no single PyTorch call computes the SSD scan's gradient",
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {json.dumps(row)}")
     return row
 
@@ -993,8 +1000,7 @@ def main() -> None:
     print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
           f"without device events, each taken again (up to {TRACE_TRIES} tries)")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
-                 "plain_ms", "bound_ms", "bound_by",
-                 "bound_3xtf32_ms", "bound_f32_cores_ms", "library_ms")
+                 "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def numbers(r):
         return {key: r[key] for key in case_keys if key in r}

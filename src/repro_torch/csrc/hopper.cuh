@@ -328,6 +328,15 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// The same split in two operations: hi keeps x's top 10 explicit mantissa
+// bits (truncated), lo = x - hi exactly, and the tensor core reads lo's own
+// top TF32 bits.  A product of split operands is then off by at most about
+// 2^-20 of its size (split_tf32: 2^-22), well inside f32 accuracy at 1e-4.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"

@@ -67,7 +67,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <initializer_list>
 #include <math.h>
 #include <stdint.h>
 
@@ -114,36 +113,6 @@ __device__ __forceinline__ HeadDt fetch_dt(const Params& p, const Block& blk, in
   const float* dtg = p.dt + blk.bi * p.dts[0] + h * p.dts[2];
   const int s = blk.s0 + 2 * threadIdx.x;
   return {s < p.S ? dtg[s * p.dts[1]] : 0.f, s + 1 < p.S ? dtg[(s + 1) * p.dts[1]] : 0.f, p.a[h]};
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes from device to shared memory, in the background; zeros if !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Hopper's bulk copy engine (TMA, 1-D): shared -> global without the threads
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {  // the source may be overwritten
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {  // the copies are done
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {  // smem writes -> the copy engine
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- phase 1: S_c = B^T (x * dt * exp(cum_{L-1} - cum)), and exp(cum_{L-1}) --------------
@@ -414,33 +383,6 @@ __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p)
 // ---- phase 3, bf16: y on the tensor cores ---------------------------------------------------
 constexpr int NT_MMA = 128;  // four warps, each owning 16 rows of the chunk
 
-// four 8 x 8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int N, int P>
 constexpr int smem_output_bf16() {
   return (2 * L * (N + 8) + L * (P + 8) + N * (P + 8)) * 2 + 2 * 2 * L * static_cast<int>(sizeof(float));
@@ -630,14 +572,6 @@ cudaError_t dispatch_n(const Params& p, int B, int P, int N, cudaStream_t stream
     case 128: return dispatch_p<T, 128>(p, B, P, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// Heads of one group per product block: the most, up to 8, that leave at
-// least 512 blocks (four per SM) to fill the card.
-int heads_per_block(int heads_per_group, long long chunk_heads) {
-  for (int kh : {8, 6, 4, 3, 2})
-    if (heads_per_group % kh == 0 && chunk_heads / kh >= 512) return kh;
-  return 1;
 }
 
 }  // namespace

@@ -21,51 +21,80 @@
 // summed over its heads.  `ssd_scan_bwd_plain` in kernels/ssd_scan.py is the
 // same chunk algebra in plain torch.
 //
-// Design: six launches, none with atomics, so two calls give the same bits.
-//   1. ssd_bwd_chunk_grad, a block per (chunk, batch*head): Z_c =
-//      sum_l exp(cum_l) C_l^T dY_l (N x P) into a scratch buffer, phase 1 of
-//      the forward turned over.  Bound by operations, 2 L N P flops.
+// Design: five launches, none with atomics, so two calls give the same bits.
+// The per-chunk launches (1 and 3) take a block per (chunk, batch, kh heads
+// of one group), kh by the forward's rule (`heads_per_block`, ssd_scan.cuh:
+// the most, up to 8, that leave 512 blocks; 8 at mamba2-130m's (4, 4096, 24,
+// 64), N = 128, 768 blocks of each kind).  A block loads B and C once and
+// walks its heads; the next head's operands arrive by cp.async while the
+// current head computes.
+//   1. ssd_bwd_chunk_grad: Z_c = sum_l exp(cum_l) C_l^T dY_l (N x P) per
+//      head into a scratch buffer, phase 1 of the forward turned over; Z
+//      leaves through the bulk copy engine (cp.async.bulk, a row a thread)
+//      while the next head's product runs.  Bound by operations, 2 L N P
+//      flops per chunk and head, and by the 201 MB it writes at mamba2-130m.
 //   2. ssd_bwd_state_pass, a thread per 4 state elements: the chain walked
 //      backwards, g <- exp(cum_{L-1}) g + Z_c, leaving in each chunk's slot
 //      the gradient of the state leaving it.  Bound by bytes (the scratch
 //      read and written once), pipelined as the forward's pass.
-//   3. ssd_bwd_dx, a block per (chunk, batch*head): dx, ddt and the chunk's
-//      share of da.  Products (f32, the forward's register tiles) C B^T,
-//      dY x^T, B g, M^T dY and C h_in: 2 L^2 (N + 2P) + 4 L N P flops; dcum
-//      and its reverse cumsum from row and column sums taken in a fixed
-//      order.  Bound by operations.
-//   4. ssd_bwd_dbc, a block per (chunk, batch*head): each head's dB and dC
-//      (f32, (B, S, H, N)).  Products dY x^T, dY h_in^T, W B, x g^T and
-//      W^T C: 2 L^2 (P + 2N) + 4 L N P flops.  Bound by operations.
-//   5. ssd_bwd_group_sum: each group's heads added in head order, cast to
-//      the dtype.  Bound by bytes.
-//   6. ssd_bwd_da: per head, the chunks' shares of da added in a fixed order.
-// Computing dY x^T in both 3 and 4, instead of passing the L x L scores
-// through device memory, keeps each block's shared memory under the card's
-// 227 KB at every N and P up to 128.
+//   3. ssd_bwd_dxbc: dx, ddt and the chunk's share of da per head, and dB and
+//      dC summed over the block's heads in registers, in head order, written
+//      as one f32 partial per (batch, row, head-block).  Per head:
+//        with g in shared memory:    B g (dx, and u), x g^T (dB);
+//        with h_in replacing g:      dY h_in^T (dC, and dY . C h_in = C . dY h_in^T);
+//        the scores, once per head:  x dY^T -> W^T, and M^T from the block's C B^T
+//                                    (computed once for the kh heads);
+//        through shared memory:      M^T dY (dx), W^T C (dB), W B (dC);
+//      dcum from row and column sums taken in a fixed order, its reverse
+//      cumsum, ddt and da's share.  6 L N P + L^2 (3.25 P + 2.5 N + 2 N / kh)
+//      flops per chunk and head as run (score tiles above the diagonal and
+//      the diagonal's 16 x 16 blocks computed whole): bound by operations.
+//   4. ssd_bwd_group_sum: each group's head-block partials of dB and dC
+//      added in order, cast to the dtype.  Bound by bytes.
+//   5. ssd_bwd_da: per head, the chunks' shares of da added in a fixed order.
 //
-// The states entering each chunk are the forward's own scratch, which
-// holds them after its phase 2: the autograd Function saves it, 201 MB a
-// layer at mamba2-130m's (4, 4096, 24, 64), N = 128 (4.8 GB over 24 layers
-// under remat "none"; one layer's worth under "dots" or "full", whose
-// recompute launches the forward again).  This saves two launches over
-// recomputing them.  The backward's own scratch, (B*H, nc, N, P) for g and
-// (B, S, H, N) twice for each head's dB and dC, 603 MB there, lives for one
-// call.
+// The states entering each chunk are the forward's own scratch, which holds
+// them after its phase 2: the autograd Function saves it, 201 MB a layer at
+// mamba2-130m's train shape, so the forward is not launched again.  The
+// backward's own scratch, (B*H, nc, N, P) for g and (B, S, H/kh, N) twice for
+// the head-blocks' dB and dC (252 MB at that shape), lives for one call.
 //
-// Products.  f32 on the CUDA cores in both dtypes (one TF32 pass would miss
-// 1e-4; bf16 inputs are widened to f32 in shared memory), every operand
-// k-major in shared memory, so each matrix that is contracted over both of
-// its indices is loaded twice, once transposed.  Rows past S load as dt = 0
-// and x = B = C = dY = 0 and are never written.
+// Products.  All on the tensor cores, mma.sync m16n8k8 TF32 with f32
+// accumulators: in f32 as 3xTF32 (hi and lo parts by `split_tf32_trunc`,
+// the three passes of `mma_3xtf32`, hopper.cuh; one TF32 pass misses 1e-4),
+// each A fragment split once per k-step and reused across the warp's
+// n-tiles.  The truncating split takes 2 operations where the rounding one
+// takes 5 (and ptxas drops the hi mask, which mma ignores): the products'
+// integer work, more than the tensor cores, sets their pace.  bf16 inputs
+// are exact in TF32, so a product with one bf16 operand drops its lo term
+// (two passes), and the two products of bf16 inputs alone (C B^T, x dY^T) run
+// on mma.sync m16n8k16 bf16, operands by ldmatrix, as the forward's
+// ssd_scan_output_bf16.  Eight warps: warp w owns rows 16 (w % 4) .. + 15 of
+// the chunk and half w / 4 of the output's columns.  Since a warp holds only
+// half of a row's scores, M^T and W^T pass through shared memory (once per
+// head) as the A operand of the next products.
 //
-// `nvcc -Xptxas -v` (CUDA 12.8, sm_90a) at N = 128, P = 64, f32 and bf16 alike, no
-// spills (none at any N and P):
-//   ssd_bwd_chunk_grad   64 registers,  49,920 B shared, 256 threads: 4 blocks/SM
+// One copy of each operand in shared memory, read in either orientation: f32
+// rows of max(W, 32) floats, the 4-float group of column c in row r at
+// c ^ swz(r) (`STile`: m16n8k8 fragments read conflict-free as rows or as
+// columns); bf16 rows padded by 16 bytes (conflict-free for ldmatrix and for
+// single loads either way).  A lane's fragment rows keep their low three
+// bits, so each lane computes its three swizzles once (`Lane`).  Budget of
+// ssd_bwd_dxbc at N = 128, P = 64 f32:
+// B and C 64 KB, x and dY 2 x 32 KB (this head's and the next's), g then
+// h_in 32 KB, M^T and W^T 32 KB: one block of 8 warps an SM.  g arrives by
+// cp.async while the scores run; h_in by plain loads (prefetched into L2)
+// that also take <g, h_in> as they replace g.  Where the two stages of x and
+// dY do not fit (f32, P = 128) they take one, and where M^T and W^T do not
+// (f32, N = P = 128) they share one buffer.  Rows past S load as dt = 0 and
+// x = B = C = dY = 0 and are never written.
+//
+// `nvcc -Xptxas -v` (CUDA 12.8, sm_90a) at N = 128, P = 64, f32 / bf16, no
+// spills (spills only at N = P = 128, up to 88 bytes):
+//   ssd_bwd_chunk_grad  127 / 91 registers, 103,424 / 73,728 B shared, 256 threads: 2 blocks/SM
 //   ssd_bwd_state_pass   95 registers, no shared, 256 threads
-//   ssd_bwd_dx           58 registers, 158,208 B shared, 256 threads: 1 block/SM
-//   ssd_bwd_dbc          89 registers, 164,352 B shared, 256 threads: 1 block/SM
-//   ssd_bwd_group_sum    48 registers, no shared, 256 threads
+//   ssd_bwd_dxbc        255 / 249 registers, 200,736 / 141,344 B shared, 256 threads: 1 block/SM
+//   ssd_bwd_group_sum    46 / 44 registers, no shared, 256 threads
 //   ssd_bwd_da           33 registers, no shared, 32 threads
 
 #include <cuda_bf16.h>
@@ -77,11 +106,10 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads of the per-chunk product kernels 3 and 4
+constexpr int NT = 256;  // threads of the per-chunk kernels 1 and 3: 8 warps
 constexpr int NT_PASS = 256;
 constexpr int PASS_DEPTH = 8;  // chunks whose loads a thread of the pass keeps in flight
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
 
 struct Params {
   const void* x;
@@ -94,8 +122,8 @@ struct Params {
   const float* h_in;    // (B*H, nc, N, P): the state entering each chunk (the forward's scratch)
   const float* decay;   // (B*H, nc): exp(cum_{L-1}) of each chunk (the forward's scratch)
   float* g;             // (B*H, nc, N, P): Z_c, then the gradient of the state leaving chunk c
-  float* db_h;          // (B, S, H, N): each head's dB
-  float* dc_h;          // (B, S, H, N): each head's dC
+  float* db_part;       // (B, S, H/kh, N): each head-block's dB
+  float* dc_part;       // (B, S, H/kh, N): each head-block's dC
   float* da_part;       // (B*H, nc): each chunk's share of da
   void* dx;             // (B, S, H, P), contiguous
   float* ddt;           // (B, S, H), contiguous
@@ -103,95 +131,36 @@ struct Params {
   void* db;             // (B, S, G, N), contiguous
   void* dc;             // (B, S, G, N), contiguous
   int B, S, H, G, nc;
+  int kh;  // heads per block of kernels 1 and 3, all of one group
   // element strides of (batch, sequence, head or group) for x, dt, b, c, dy;
   // the last dim of x, b, c, dy is contiguous
   long long xs[3], dts[3], bs[3], cs[3], dys[3];
 };
 
-// The (chunk, batch, head) of a per-chunk block, and the head's group
+// The (chunk, batch, kh heads of one group) of a per-chunk block
 struct Blk {
-  int ch, s0, bi, h, g;
-  long long bh;
-  __device__ explicit Blk(const Params& p)
-      : ch(blockIdx.x), s0(blockIdx.x * L), bi(blockIdx.y / p.H), h(blockIdx.y % p.H),
-        g(blockIdx.y % p.H / (p.H / p.G)), bh(blockIdx.y) {}
-  __device__ long long slot(const Params& p) const { return bh * p.nc + ch; }
+  int ch, s0, bi, hb, h0, g;
+  __device__ explicit Blk(const Params& p) : ch(blockIdx.x), s0(blockIdx.x * L) {
+    const int per_b = p.H / p.kh;  // head-blocks per batch row
+    bi = blockIdx.y / per_b;
+    hb = blockIdx.y % per_b;
+    h0 = hb * p.kh;
+    g = h0 / (p.H / p.G);
+  }
+  __device__ long long slot(const Params& p, int h) const {
+    return (static_cast<long long>(bi) * p.H + h) * p.nc + ch;
+  }
   __device__ long long row(const Params& p, int s) const {  // (b, s) of (B, S, ...)
     return static_cast<long long>(bi) * p.S + s;
   }
 };
 
-// Warp 0 only: the head's dt into dtl[] and the cumsum of dt * a into cum[]
-// (the forward's own arithmetic); returns cum[L-1].
-__device__ __forceinline__ float head_cumsum(const Params& p, const Blk& k, float* cum, float* dtl) {
-  const float* dtg = p.dt + k.bi * p.dts[0] + k.h * p.dts[2];
+// Warp 0 only.  Lane k's rows 2k, 2k+1 of head h's dt (0 past S) and the
+// head's a, fetched a head ahead.
+__device__ __forceinline__ HeadDt fetch_dt(const Params& p, const Blk& k, int h) {
+  const float* dtg = p.dt + k.bi * p.dts[0] + h * p.dts[2];
   const int s = k.s0 + 2 * threadIdx.x;
-  const HeadDt d{s < p.S ? dtg[s * p.dts[1]] : 0.f, s + 1 < p.S ? dtg[(s + 1) * p.dts[1]] : 0.f,
-                 p.a[k.h]};
-  return chunk_cumsum(d, cum, dtl);
-}
-
-// 4 consecutive values as floats, and back
-__device__ __forceinline__ void load4(const float* src, float* v) { load16(src, v); }
-__device__ __forceinline__ void load4(const __nv_bfloat16* src, float* v) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-}
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
-// The chunk's L rows of K values (zeros past S) into shared memory as f32,
-// row-major (dst[l * K + k]) or transposed (dst[k * L + l]), each row times
-// w[l] if w is given.  Transposed, neighbouring lanes take neighbouring rows,
-// so the stores hit distinct banks.
-template <int K, bool TRANS, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs, int s0, int S,
-                                          const float* w) {
-  for (int i = threadIdx.x; i < L * K / 4; i += blockDim.x) {
-    const int l = TRANS ? i % L : i / (K / 4), k = TRANS ? (i / L) * 4 : (i % (K / 4)) * 4;
-    const int s = s0 + l;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < S) load4(src + s * rs + k, v);
-    if (w) {
-      const float f = w[l];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] *= f;
-    }
-    if constexpr (TRANS) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dst[(k + j) * L + l] = v[j];
-    } else {
-      store4(dst + l * K + k, v);
-    }
-  }
-}
-
-// A chunk's (N, P) state into shared memory, as it is (dst[n * P + q]) or
-// transposed (dst[q * N + n]).
-template <int N, int P, bool TRANS>
-__device__ __forceinline__ void load_state(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < N * P / 4; i += blockDim.x) {
-    const int n = TRANS ? i % N : i / (P / 4), q = TRANS ? (i / N) * 4 : (i % (P / 4)) * 4;
-    float v[4];
-    load16(src + n * P + q, v);
-    if constexpr (TRANS) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dst[(q + j) * N + n] = v[j];
-    } else {
-      store4(dst + n * P + q, v);
-    }
-  }
+  return {s < p.S ? dtg[s * p.dts[1]] : 0.f, s + 1 < p.S ? dtg[(s + 1) * p.dts[1]] : 0.f, p.a[h]};
 }
 
 template <typename T>
@@ -199,40 +168,267 @@ __device__ __forceinline__ const T* at(const void* base, const long long* st, in
   return static_cast<const T*>(base) + bi * st[0] + h * st[2];
 }
 
-// ---- 1: Z_c = sum_l exp(cum_l) C_l^T dY_l ----------------------------------------------------
-template <int N, int P>
-constexpr int smem_chunk_grad() {
-  return (L * N + L * P + 3 * L) * static_cast<int>(sizeof(float));
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
+  uint2 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  *reinterpret_cast<uint2*>(dst) = u;
 }
 
-template <typename T, int N, int P>
-__global__ void __launch_bounds__(nt_state(N, P)) ssd_bwd_chunk_grad(const Params p) {
-  constexpr int NTS = nt_state(N, P);
-  extern __shared__ float4 smem4[];
-  float* Cs = reinterpret_cast<float*>(smem4);  // L x N: C
-  float* Ys = Cs + L * N;                       // L x P: dY exp(cum)
-  float* cum = Ys + L * P;                      // L
-  float* dtl = cum + L;                         // L
-  float* ew = dtl + L;                          // L: exp(cum)
-  const int tid = threadIdx.x;
-  const Blk k(p);
-  if (tid < 32) {
-    head_cumsum(p, k, cum, dtl);
-    ew[2 * tid] = expf(cum[2 * tid]);
-    ew[2 * tid + 1] = expf(cum[2 * tid + 1]);
+// ---- shared-memory tiles ----------------------------------------------------------------------
+// Rows of W elements of T, addressed by (row, column).  An m16n8k8 fragment
+// reads 8 rows x 4 columns (an operand as stored) or 4 rows x 8 columns (an
+// operand transposed) at once; both must hit 32 distinct banks.  f32 rows
+// take max(W, 32) floats and hold column c at c ^ swz(r): swz keeps the
+// 4-float groups whole, gives rows 0..7 distinct multiples of 4 (bits 2-4)
+// and rows 0..3 and 4..7 distinct multiples of 8 (bits 3-4).  bf16 rows take
+// W + 8 elements, which does both for 2-byte loads and keeps ldmatrix rows
+// on 16 bytes.
+__device__ __forceinline__ int swz(int r) {
+  return ((r >> 1 & 1) << 4) | (((r ^ (r >> 2)) & 1) << 3) | ((r >> 2 & 1) << 2);
+}
+
+template <typename T, int W>
+struct STile;
+
+// Every access below but the loads into the tiles reads rows whose low three
+// bits are fixed for the lane (gq, tq or tq + 4 above a multiple of 8), so
+// it passes the row's swizzle `s`, computed once (`Lane`).
+template <int W>
+struct STile<float, W> {
+  static constexpr int LD = W < 32 ? 32 : W;
+  static constexpr bool EXACT = false;  // needs a lo part in TF32
+  float* p;
+  __device__ __forceinline__ int off(int r, int c, int s) const { return r * LD + (c ^ s); }
+  __device__ __forceinline__ int off(int r, int c) const { return off(r, c, swz(r)); }
+  __device__ __forceinline__ float at(int r, int c, int s) const { return p[off(r, c, s)]; }
+};
+
+template <int W>
+struct STile<__nv_bfloat16, W> {
+  static constexpr int LD = W + 8;
+  static constexpr bool EXACT = true;  // 8 significant bits: exact in TF32
+  __nv_bfloat16* p;
+  __device__ __forceinline__ int off(int r, int c, int = 0) const { return r * LD + c; }
+  __device__ __forceinline__ float at(int r, int c, int = 0) const {
+    return __bfloat162float(p[off(r, c)]);
   }
-  load_rows<N, false>(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S, nullptr);
-  __syncthreads();
-  load_rows<P, false>(Ys, at<T>(p.dy, p.dys, k.bi, k.h), p.dys[1], k.s0, p.S, ew);
-  __syncthreads();
-  using Tl = Tile<N, P, NTS>;
-  const Tl t(tid);
-  float acc[Tl::TR][4];
-  zero<N, P, NTS>(acc);
-  t.mac(acc, Cs, N, Ys, P, 0, L);
-  float* out = p.g + k.slot(p) * N * P;
+};
+
+// A lane's place in the m16n8k8 fragments: gq = lane / 4, tq = lane % 4, and
+// the swizzles of the rows it reads: s1 of gq (and gq + 8), s2[e] of tq + 4e.
+struct Lane {
+  int lane, gq, tq, s1, s2[2];
+  __device__ Lane() : lane(threadIdx.x & 31), gq(lane >> 2), tq(lane & 3), s1(swz(gq)) {
+    s2[0] = swz(tq);
+    s2[1] = swz(tq + 4);
+  }
+};
+
+template <typename T, int W>
+constexpr int tile_bytes(int rows) {
+  return rows * STile<T, W>::LD * static_cast<int>(sizeof(T));
+}
+
+// The chunk's L rows of W values (row stride rs; zeros past S) into t, by cp.async.
+template <typename T, int W>
+__device__ __forceinline__ void async_rows(const STile<T, W>& t, const T* src, long long rs,
+                                           int s0, int S) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+  for (int i = threadIdx.x; i < L * W / V; i += NT) {
+    const int l = i / (W / V), c = (i % (W / V)) * V, s = s0 + l;
+    cp_async16(t.p + t.off(l, c), src + (s < S ? s : 0) * rs + c, s < S);
+  }
+}
+
+// A chunk's (N, P) f32 state into t, by cp.async.
+template <int N, int P>
+__device__ __forceinline__ void async_state(const STile<float, P>& t, const float* src) {
+  for (int i = threadIdx.x; i < N * P / 4; i += NT) {
+    const int n = i / (P / 4), q = (i % (P / 4)) * 4;
+    cp_async16(t.p + t.off(n, q), src + 4 * i, true);
+  }
+}
+
+// ---- warp products on the tensor cores ----------------------------------------------------------
+template <int K, bool EXACT>
+__device__ __forceinline__ void to_tf32(const float* v, uint32_t* hi, uint32_t* lo) {
 #pragma unroll
-  for (int i = 0; i < Tl::TR; ++i) store4(out + t.row(i) * P + t.col0(), acc[i]);
+  for (int i = 0; i < K; ++i) {
+    if constexpr (EXACT) {
+      hi[i] = __float_as_uint(v[i]);
+    } else {
+      split_tf32_trunc(v[i], hi[i], lo[i]);
+    }
+  }
+}
+
+// d += a b in TF32 passes: 3xTF32, without the lo term of an exact operand
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma_x(float* d, const uint32_t* ah, const uint32_t* al,
+                                      const uint32_t* bh, const uint32_t* bl) {
+  if constexpr (!AX && !BX) {
+    mma_3xtf32(d, ah, al, bh, bl);
+  } else {
+    if constexpr (!AX) mma_tf32(d, al, bh);
+    if constexpr (!BX) mma_tf32(d, ah, bl);
+    mma_tf32(d, ah, bh);
+  }
+}
+
+// A warp's 16 x 8NJ tile: acc[j] += sum_{k0 <= k < k1} A(row, k) Bm(k, col)
+// over k-steps of 8 from k0 (a multiple of 8).  The lane's operands come from
+// a(hi, e, kb) = A(gq + 8 hi, kb + tq + 4 e) and b(e, kb, j) = Bm(kb + tq + 4 e,
+// 8 j + gq).  AX, BX: the operand is exact in TF32.  Each A fragment is
+// split once per k-step and serves every n-tile.  Tiles that a mask leaves
+// zero are computed all the same: a branch around mma.sync costs more.
+template <int NJ, bool AX, bool BX, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NJ][4], const FA& a, const FB& b, int k0,
+                                         int k1) {
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    const float av[4] = {a(0, 0, k), a(1, 0, k), a(0, 1, k), a(1, 1, k)};
+    uint32_t ah[4], al[4];
+    to_tf32<4, AX>(av, ah, al);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float bv[2] = {b(0, k, j), b(1, k, j)};
+      uint32_t bh[2], bl[2];
+      to_tf32<2, BX>(bv, bh, bl);
+      mma_x<AX, BX>(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// The same for two bf16 tiles that both hold k along their rows:
+// acc[j] += sum_k A[r0 + row][k] Bt[n0 + 8 j + col][k], k < K, by ldmatrix
+// and mma.sync m16n8k16 bf16 (exact products, f32 sums).
+template <int NJ, int K, int LDA, int LDB>
+__device__ __forceinline__ void warp_mma_bf16(float (&acc)[NJ][4], const __nv_bfloat16* A, int r0,
+                                              const __nv_bfloat16* Bt, int n0) {
+  static_assert(NJ % 2 == 0, "n-tiles go in pairs");
+  const int lane = threadIdx.x & 31;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, A + (r0 + lrow) * LDA + 16 * kk + lcol);
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t b[4];
+      ldmatrix_x4(b, Bt + (n0 + 16 * jp + brow) * LDB + 16 * kk + bcol);
+      mma_bf16(acc[2 * jp], a, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero_acc(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// Lane sums of the rows gq and gq + 8 over the quad's four lanes (fixed order)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+// ... and of a column over the warp's 8 row pairs
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 4);
+  v += __shfl_xor_sync(FULL, v, 8);
+  return v + __shfl_xor_sync(FULL, v, 16);
+}
+
+// ---- 1: Z_c = sum_l exp(cum_l) C_l^T dY_l, kh heads a block ---------------------------------------
+template <typename T, int N, int P>
+struct GradSmem {
+  static constexpr int C_BYTES = tile_bytes<T, N>(L), Y_BYTES = tile_bytes<T, P>(L);
+  // Z staged for the bulk copies, rows padded by 8 floats: a half-warp's
+  // float2 stores of rows gq and columns 2 tq hit 32 banks
+  static constexpr int ZLD = P + 8, Z_BYTES = N * ZLD * static_cast<int>(sizeof(float));
+  static constexpr int BYTES = C_BYTES + 2 * Y_BYTES + Z_BYTES + 4 * L * static_cast<int>(sizeof(float));
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
+  using SM = GradSmem<T, N, P>;
+  constexpr bool EX = STile<T, P>::EXACT;
+  // warps over the output's N / 16 row slabs and column groups of NJ n-tiles
+  constexpr int WR = N / 16 < 8 ? N / 16 : 8, WC = 8 / WR;
+  constexpr int NJ = P / 8 / WC > 0 ? P / 8 / WC : 1;
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
+  const STile<T, N> Cs{reinterpret_cast<T*>(base)};
+  T* y0 = reinterpret_cast<T*>(base + SM::C_BYTES);
+  float* zs = reinterpret_cast<float*>(base + SM::C_BYTES + 2 * SM::Y_BYTES);  // N x ZLD: Z
+  float* ew = zs + N * SM::ZLD;                                                 // 2 x L: exp(cum)
+  float* cum = ew + 2 * L;                                                      // L
+  float* dtl = cum + L;                                                         // L
+  const Lane ln;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = ln.lane, gq = ln.gq, tq = ln.tq;
+  const int n0 = 16 * (warp % WR), c0 = 8 * NJ * (warp / WR);
+  const Blk k(p);
+  const auto ys = [&](int st) { return STile<T, P>{y0 + st * (SM::Y_BYTES / sizeof(T))}; };
+  const auto weights = [&](const HeadDt& d, float* e) {  // warp 0: exp(cum) of a head
+    chunk_cumsum(d, cum, dtl);
+    e[2 * lane] = expf(cum[2 * lane]);
+    e[2 * lane + 1] = expf(cum[2 * lane + 1]);
+  };
+
+  async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
+  async_rows(ys(0), at<T>(p.dy, p.dys, k.bi, k.h0), p.dys[1], k.s0, p.S);
+  if (warp == 0) weights(fetch_dt(p, k, k.h0), ew);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int kq = 0; kq < p.kh; ++kq) {
+    const int h = k.h0 + kq, st = kq & 1;
+    const bool more = kq + 1 < p.kh;
+    HeadDt next{};
+    if (more) {  // the next head's dY arrives while this head's product runs
+      async_rows(ys(st ^ 1), at<T>(p.dy, p.dys, k.bi, h + 1), p.dys[1], k.s0, p.S);
+      if (warp == 0) next = fetch_dt(p, k, h + 1);
+    }
+    if (c0 < P) {
+      const STile<T, P> Y = ys(st);
+      const float* e = ew + st * L;
+      float acc[NJ][4];
+      zero_acc(acc);
+      // A(n, l) = C[l][n] exp(cum_l), B(l, q) = dY[l][q]
+      warp_mma<NJ, false, EX>(
+          acc,
+          [&](int hi, int i, int kb) {
+            const int l = kb + tq + 4 * i;
+            return Cs.at(l, n0 + gq + 8 * hi, ln.s2[i]) * e[l];
+          },
+          [&](int i, int kb, int j) { return Y.at(kb + tq + 4 * i, c0 + 8 * j + gq, ln.s2[i]); },
+          0, L);
+      // every bulk copy of the last head's Z had read zs before the barrier above
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int q = c0 + 8 * j + 2 * tq;
+        store_pair(zs + (n0 + gq) * SM::ZLD + q, acc[j][0], acc[j][1]);
+        store_pair(zs + (n0 + gq + 8) * SM::ZLD + q, acc[j][2], acc[j][3]);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+    // Z leaves a row a thread through the bulk copy engine while the next
+    // head's product runs
+    if (tid < N) bulk_store(p.g + k.slot(p, h) * N * P + tid * P, zs + tid * SM::ZLD, P * 4);
+    // the other weights' last readers passed the barrier before this head
+    if (more && warp == 0) weights(next, ew + (st ^ 1) * L);
+    if (tid < N) bulk_wait_read();
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (tid < N) bulk_wait();
 }
 
 // ---- 2: g <- exp(cum_{L-1}) g + Z_c, chunks in reverse, in place -----------------------------
@@ -279,290 +475,328 @@ __global__ void __launch_bounds__(NT_PASS) ssd_bwd_state_pass(const Params p) {
   }
 }
 
-// ---- 3: dx, ddt and the chunk's share of da ---------------------------------------------------
-constexpr int RED = 32;  // partial sums per row: the most column groups a tile has (P / 4)
-
-template <int N, int P>
-constexpr int smem_dx() {
-  return (2 * N * L + 2 * P * L + L * L + N * P + L * RED + NT + 6 * L) *
-         static_cast<int>(sizeof(float));
-}
+// ---- 3: dx, ddt, da's share per head; dB and dC per head-block -----------------------------------
+template <typename T, int N, int P>
+struct DxbcSmem {
+  static constexpr int B_BYTES = tile_bytes<T, N>(L);      // one of B, C
+  static constexpr int X_BYTES = tile_bytes<T, P>(L);      // one of x, dY
+  static constexpr int G_BYTES = tile_bytes<float, P>(N);  // g, then h_in
+  static constexpr int S_BYTES = tile_bytes<float, L>(L);  // one of M^T, W^T
+  // cum and dt of two heads; column sums by slab; row sums, u, dY . C h_in
+  // and x . dx by column half; <g, h_in> by warp
+  static constexpr int SMALL = (4 + 4 + 8) * L * 4 + 8 * 4;
+  static constexpr int bytes(int xs, int ss) {
+    return 2 * B_BYTES + 2 * xs * X_BYTES + G_BYTES + ss * S_BYTES + SMALL;
+  }
+  static constexpr int XS = bytes(2, 2) <= SMEM_LIMIT ? 2 : 1;   // stages of x and dY
+  static constexpr int SS = bytes(XS, 2) <= SMEM_LIMIT ? 2 : 1;  // M^T and W^T apart or in turn
+  static constexpr int BYTES = bytes(XS, SS);
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
 
 template <typename T, int N, int P>
-__global__ void __launch_bounds__(NT) ssd_bwd_dx(const Params p) {
+__global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
+  using SM = DxbcSmem<T, N, P>;
+  constexpr int XS = SM::XS, SS = SM::SS;
+  constexpr bool EX = STile<T, P>::EXACT;
+  constexpr int NP = P / 16, NN = N / 16;  // n-tiles of a column half of P and of N
   extern __shared__ float4 smem4[];
-  float* Ct = reinterpret_cast<float*>(smem4);  // N x L: C^T
-  float* Bt = Ct + N * L;                       // N x L: B^T
-  float* Ys = Bt + N * L;                       // P x L: dY^T; then L x P: dY
-  float* Xt = Ys + P * L;                       // P x L: x^T
-  float* Ms = Xt + P * L;                       // L x L: M, row-major
-  float* Gs = Ms + L * L;                       // N x P: g; then h_in
-  float* red = Gs + N * P;                      // L x RED: partial sums by row (and column)
-  float* gh = red + L * RED;                    // NT: partial sums of <g, h_in>
-  float* cum = gh + NT;                         // L
-  float* dtl = cum + L;                         // L
-  float* tsum = dtl + L;                        // L: row sum - column sum of M o dt_m (dY . x)
-  float* uvec = tsum + L;                       // L: u
-  float* ddir = uvec + L;                       // L: x . dx / dt
-  float* dcum = ddir + L;                       // L
-  const int tid = threadIdx.x;
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
+  const STile<T, N> Bs{reinterpret_cast<T*>(base)};
+  const STile<T, N> Cs{reinterpret_cast<T*>(base + SM::B_BYTES)};
+  uint8_t* xbase = base + 2 * SM::B_BYTES;  // x of each stage, then dY of each stage
+  const STile<float, P> Gs{reinterpret_cast<float*>(xbase + 2 * XS * SM::X_BYTES)};
+  const STile<float, L> Ms{Gs.p + SM::G_BYTES / 4};                  // M^T
+  const STile<float, L> Ws{Ms.p + (SS - 1) * (SM::S_BYTES / 4)};     // W^T
+  float* cum = Ms.p + SS * (SM::S_BYTES / 4);  // 2 x L
+  float* dtl = cum + 2 * L;                    // 2 x L
+  float* tcol = dtl + 2 * L;                   // 4 x L: column sums of T' by row slab
+  float* trow = tcol + 4 * L;                  // 2 x L: row sums of T' by column half
+  float* upart = trow + 2 * L;                 // 2 x L: x . (B g) by half
+  float* ypart = upart + 2 * L;                // 2 x L: C . (dY h_in^T) by half
+  float* dpart = ypart + 2 * L;                // 2 x L: x . dx / dt by half
+  float* ghp = dpart + 2 * L;                  // 8: <g, h_in> by warp
+  const Lane ln;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = ln.lane, gq = ln.gq, tq = ln.tq;
+  const int s1 = ln.s1;                     // the swizzle of rows ra and rb
+  const int sl = warp & 3, hc = warp >> 2;  // the warp's row slab and column half
+  const int r0 = 16 * sl, ra = r0 + gq, rb = ra + 8;
+  const int cp0 = hc * P / 2, cn0 = hc * N / 2, cl0 = hc * L / 2;
   const Blk k(p);
-  const T* xg = at<T>(p.x, p.xs, k.bi, k.h);
-  const T* yg = at<T>(p.dy, p.dys, k.bi, k.h);
-  const float* gsrc = p.g + k.slot(p) * N * P;
-  const float* hsrc = p.h_in + k.slot(p) * N * P;
-
-  if (tid < 32) head_cumsum(p, k, cum, dtl);
-  load_rows<N, true>(Ct, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S, nullptr);
-  load_rows<N, true>(Bt, at<T>(p.b, p.bs, k.bi, k.g), p.bs[1], k.s0, p.S, nullptr);
-  load_rows<P, true>(Ys, yg, p.dys[1], k.s0, p.S, nullptr);
-  load_rows<P, true>(Xt, xg, p.xs[1], k.s0, p.S, nullptr);
-  {  // g into Gs, and this thread's share of <g, h_in>
-    float dot = 0.f;
-    for (int i = tid; i < N * P / 4; i += NT) {
-      float v[4], w[4];
-      load16(gsrc + 4 * i, v);
-      load16(hsrc + 4 * i, w);
-      store4(Gs + 4 * i, v);
-      dot += v[0] * w[0] + v[1] * w[1] + v[2] * w[2] + v[3] * w[3];
-    }
-    gh[tid] = dot;
-  }
+  const auto xs = [&](int st) { return STile<T, P>{reinterpret_cast<T*>(xbase + st * SM::X_BYTES)}; };
+  const auto ys = [&](int st) {
+    return STile<T, P>{reinterpret_cast<T*>(xbase + (XS + st) * SM::X_BYTES)};
+  };
+  const auto fetch_xy = [&](int st, int h) {
+    async_rows(xs(st), at<T>(p.x, p.xs, k.bi, h), p.xs[1], k.s0, p.S);
+    async_rows(ys(st), at<T>(p.dy, p.dys, k.bi, h), p.dys[1], k.s0, p.S);
+  };
+  async_rows(Bs, at<T>(p.b, p.bs, k.bi, k.g), p.bs[1], k.s0, p.S);
+  async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
+  fetch_xy(0, k.h0);
+  async_state<N, P>(Gs, p.g + k.slot(p, k.h0) * N * P);
+  if (warp == 0) chunk_cumsum(fetch_dt(p, k, k.h0), cum, dtl);
+  cp_async_wait_all();
   __syncthreads();
 
-  {  // scores: M into Ms, and the row and column sums of T = M o dt_m (dY . x)
-    using Tl = Tile<L, L, NT>;  // rows l, columns m
-    static_assert(Tl::CT + Tl::RT <= RED, "partial sums");
-    const Tl t(tid);
-    float r[Tl::TR][4], q[Tl::TR][4];
-    zero<L, L, NT>(r);
-    zero<L, L, NT>(q);
-    if (t.col0() <= t.row_max()) {  // the tile has some l >= m
-      t.mac(r, Ct, L, Bt, L, 0, N);
-      t.mac(q, Ys, L, Xt, L, 0, P);
+  // R^T[m][l] = B_m . C_l for the warp's rows m and half of l, once for the block's heads
+  float rt[4][4];
+  zero_acc(rt);
+  if constexpr (EX) {
+    warp_mma_bf16<4, N, STile<T, N>::LD, STile<T, N>::LD>(rt, Bs.p, r0, Cs.p, cl0);
+  } else {
+    warp_mma<4, false, false>(
+        rt, [&](int hi, int i, int kb) { return Bs.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+        [&](int i, int kb, int j) { return Cs.at(cl0 + 8 * j + gq, kb + tq + 4 * i, s1); }, 0, N);
+  }
+
+  float dbt[NN][4], dct[NN][4];  // dB and dC of the block's heads, rows of the slab, half of N
+  zero_acc(dbt);
+  zero_acc(dct);
+  for (int kq = 0; kq < p.kh; ++kq) {
+    const int h = k.h0 + kq, st = XS == 2 ? (kq & 1) : 0;
+    const bool more = kq + 1 < p.kh;
+    const float* cm = cum + (kq & 1) * L;
+    const float* dm = dtl + (kq & 1) * L;
+    const STile<T, P> X = xs(st), Y = ys(st);
+    if constexpr (XS == 2)
+      if (more) fetch_xy(st ^ 1, h + 1);
+    HeadDt next{};
+    if (warp == 0 && more) next = fetch_dt(p, k, h + 1);
+    const float* hsrc = p.h_in + k.slot(p, h) * N * P;
+    for (int i = tid; i < N * P / 32; i += NT)  // h_in's lines into L2 ahead of their use
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(hsrc + 32 * i));
+    const float ea = expf(cm[L - 1] - cm[ra]), eb = expf(cm[L - 1] - cm[rb]);
+
+    // -- with g: dx = exp(cum_{L-1} - cum_m) (B g) [+ M^T dY below]; u; dB += (dt e x) g^T
+    float dxa[NP][4];
+    zero_acc(dxa);
+    warp_mma<NP, EX, false>(
+        dxa, [&](int hi, int i, int kb) { return Bs.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+        [&](int i, int kb, int j) { return Gs.at(kb + tq + 4 * i, cp0 + 8 * j + gq, ln.s2[i]); },
+        0, N);
+    {
+      float ua = 0.f, ub = 0.f;
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int q = cp0 + 8 * j + 2 * tq;
+        ua += X.at(ra, q, s1) * dxa[j][0] + X.at(ra, q + 1, s1) * dxa[j][1];
+        ub += X.at(rb, q, s1) * dxa[j][2] + X.at(rb, q + 1, s1) * dxa[j][3];
+        dxa[j][0] *= ea, dxa[j][1] *= ea, dxa[j][2] *= eb, dxa[j][3] *= eb;
+      }
+      ua = quad_sum(ua), ub = quad_sum(ub);
+      if (tq == 0) upart[hc * L + ra] = ua, upart[hc * L + rb] = ub;
     }
-    float colp[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      const float fa = dm[ra] * ea, fb = dm[rb] * eb;
+      warp_mma<NN, false, false>(
+          dbt,
+          [&](int hi, int i, int kb) { return X.at(ra + 8 * hi, kb + tq + 4 * i, s1) * (hi ? fb : fa); },
+          [&](int i, int kb, int j) { return Gs.at(cn0 + 8 * j + gq, kb + tq + 4 * i, s1); }, 0, P);
+    }
+    __syncthreads();  // g is read no more
+
+    // -- h_in replaces g, and <g, h_in> on the way
+    {
+      constexpr int V = N * P / 4, BATCH = 8;
+      float dot = 0.f;
+      for (int i0 = tid; i0 < V; i0 += BATCH * NT) {
+        float4 hv[BATCH];
 #pragma unroll
-    for (int i = 0; i < Tl::TR; ++i) {
-      const int l = t.row(i);
-      float rowp = 0.f, mv[4];
+        for (int j = 0; j < BATCH; ++j)
+          if (i0 + j * NT < V) hv[j] = *reinterpret_cast<const float4*>(hsrc + 4 * (i0 + j * NT));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = t.col0() + j;
-        float mm = 0.f, tt = 0.f;
-        if (l >= m) {
-          mm = r[i][j] * expf(cum[l] - cum[m]);
-          tt = mm * dtl[m] * q[i][j];
+        for (int j = 0; j < BATCH; ++j) {
+          const int i = i0 + j * NT;
+          if (i >= V) break;
+          float* gp = Gs.p + Gs.off(i / (P / 4), (i % (P / 4)) * 4);
+          const float4 gv = *reinterpret_cast<const float4*>(gp);
+          dot += gv.x * hv[j].x + gv.y * hv[j].y + gv.z * hv[j].z + gv.w * hv[j].w;
+          *reinterpret_cast<float4*>(gp) = hv[j];
         }
-        mv[j] = mm;
-        rowp += tt;
-        colp[j] += tt;
       }
-      store4(Ms + l * L + t.col0(), mv);
-      red[l * Tl::CT + t.tc] = rowp;
+      dot = column_sum(quad_sum(dot));
+      if (lane == 0) ghp[warp] = dot;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[L * Tl::CT + (t.col0() + j) * Tl::RT + t.tr] = colp[j];
     __syncthreads();
-    if (tid < L) {
-      float rs = 0.f, cs = 0.f;
-      for (int j = 0; j < Tl::CT; ++j) rs += red[tid * Tl::CT + j];
-      for (int j = 0; j < Tl::RT; ++j) cs += red[L * Tl::CT + tid * Tl::RT + j];
-      tsum[tid] = rs - cs;
+
+    // -- with h_in: V = dY h_in^T; dC += exp(cum_l) V; C_l . V_l for dcum
+    {
+      float va[NN][4];
+      zero_acc(va);
+      warp_mma<NN, EX, false>(
+          va, [&](int hi, int i, int kb) { return Y.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+          [&](int i, int kb, int j) { return Gs.at(cn0 + 8 * j + gq, kb + tq + 4 * i, s1); }, 0, P);
+      const float ia = expf(cm[ra]), ib = expf(cm[rb]);
+      float ya = 0.f, yb = 0.f;
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        const int n = cn0 + 8 * j + 2 * tq;
+        ya += Cs.at(ra, n, s1) * va[j][0] + Cs.at(ra, n + 1, s1) * va[j][1];
+        yb += Cs.at(rb, n, s1) * va[j][2] + Cs.at(rb, n + 1, s1) * va[j][3];
+        dct[j][0] += ia * va[j][0], dct[j][1] += ia * va[j][1];
+        dct[j][2] += ib * va[j][2], dct[j][3] += ib * va[j][3];
+      }
+      ya = quad_sum(ya), yb = quad_sum(yb);
+      if (tq == 0) ypart[hc * L + ra] = ya, ypart[hc * L + rb] = yb;
     }
-    __syncthreads();  // red is free again
-  }
+    __syncthreads();  // h_in is read no more: the next head's g arrives while the scores run
+    if (more) async_state<N, P>(Gs, p.g + k.slot(p, h + 1) * N * P);
 
-  using Tp = Tile<L, P, NT>;  // rows m (or l), columns p
-  constexpr int CP = Tp::CT;
-  static_assert(CP <= RED, "partial sums");
-  const Tp t(tid);
-  float dxt[Tp::TR][4];
-  zero<L, P, NT>(dxt);
-  t.mac(dxt, Bt, L, Gs, P, 0, N);  // (B g)[m]: B_m^T g
-#pragma unroll
-  for (int i = 0; i < Tp::TR; ++i) {
-    const int m = t.row(i), s = k.s0 + m;
-    float xv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < p.S) load4(xg + s * p.xs[1] + t.col0(), xv);
-    float up = 0.f;
-    const float e = expf(cum[L - 1] - cum[m]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) up += xv[j] * dxt[i][j], dxt[i][j] *= e;
-    red[m * CP + t.tc] = up;
-  }
-  __syncthreads();  // g and dY^T are read no more
-  if (tid < L) {
-    float u = 0.f;
-    for (int j = 0; j < CP; ++j) u += red[tid * CP + j];
-    uvec[tid] = u * expf(cum[L - 1] - cum[tid]) * dtl[tid];
-  }
-  load_rows<P, false>(Ys, yg, p.dys[1], k.s0, p.S, nullptr);
-  load_state<N, P, false>(Gs, hsrc);
-  __syncthreads();
-
-  t.mac(dxt, Ms, L, Ys, P, t.row(0), L);  // + sum_{l >= m} M[l][m] dY_l
-  T* dxg = static_cast<T*>(p.dx);
-#pragma unroll
-  for (int i = 0; i < Tp::TR; ++i) {
-    const int m = t.row(i), s = k.s0 + m;
-    float xv[4] = {0.f, 0.f, 0.f, 0.f}, out[4];
-    if (s < p.S) load4(xg + s * p.xs[1] + t.col0(), xv);
-    float dp = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dp += xv[j] * dxt[i][j], out[j] = dtl[m] * dxt[i][j];
-    if (s < p.S) store4(dxg + (k.row(p, s) * p.H + k.h) * P + t.col0(), out);
-    red[m * CP + t.tc] = dp;
-  }
-  __syncthreads();
-  if (tid < L) {
-    float d = 0.f;
-    for (int j = 0; j < CP; ++j) d += red[tid * CP + j];
-    ddir[tid] = d;
-  }
-  __syncthreads();
-
-  {  // dY_l . (C h_in)_l, for dcum
-    float yo[Tp::TR][4];
-    zero<L, P, NT>(yo);
-    t.mac(yo, Ct, L, Gs, P, 0, N);
-#pragma unroll
-    for (int i = 0; i < Tp::TR; ++i) {
-      const int l = t.row(i);
-      float yv[4], dp = 0.f;
-      load16(Ys + l * P + t.col0(), yv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp += yv[j] * yo[i][j];
-      red[l * CP + t.tc] = dp;
+    // -- scores: Q^T[m][l] = x_m . dY_l; M^T = R^T o D, W^T = D dt_m Q^T, T' = R^T o W^T
+    float qa[4][4];
+    zero_acc(qa);
+    if constexpr (EX) {
+      warp_mma_bf16<4, P, STile<T, P>::LD, STile<T, P>::LD>(qa, X.p, r0, Y.p, cl0);
+    } else {
+      warp_mma<4, false, false>(
+          qa, [&](int hi, int i, int kb) { return X.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+          [&](int i, int kb, int j) { return Y.at(cl0 + 8 * j + gq, kb + tq + 4 * i, s1); }, 0, P);
     }
-  }
-  __syncthreads();
-  if (tid < L) {
-    float y = 0.f;
-    for (int j = 0; j < CP; ++j) y += red[tid * CP + j];
-    dcum[tid] = tsum[tid] + expf(cum[tid]) * y - uvec[tid];
-  }
-  __syncthreads();
-  if (tid < 32) {
-    // the state's terms land on the chunk's last row
-    float us = uvec[tid] + uvec[tid + 32], hs = 0.f;
-    for (int j = tid; j < NT; j += 32) hs += gh[j];
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      us += __shfl_xor_sync(FULL, us, off);
-      hs += __shfl_xor_sync(FULL, hs, off);
-    }
-    const int l0 = 2 * tid;
-    const float v0 = dcum[l0];
-    float v1 = dcum[l0 + 1];
-    if (tid == 31) v1 += us + expf(cum[L - 1]) * hs;
-    // rc = the reverse inclusive cumsum of dcum
-    float inc = v0 + v1;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float dn = __shfl_down_sync(FULL, inc, off);
-      if (tid + off < 32) inc += dn;
-    }
-    float excl = __shfl_down_sync(FULL, inc, 1);
-    if (tid == 31) excl = 0.f;
-    const float rc1 = excl + v1, rc0 = rc1 + v0;
-    const float a = p.a[k.h];
-    if (k.s0 + l0 < p.S) p.ddt[k.row(p, k.s0 + l0) * p.H + k.h] = ddir[l0] + a * rc0;
-    if (k.s0 + l0 + 1 < p.S) p.ddt[k.row(p, k.s0 + l0 + 1) * p.H + k.h] = ddir[l0 + 1] + a * rc1;
-    float da = dtl[l0] * rc0 + dtl[l0 + 1] * rc1;
-#pragma unroll
-    for (int off = 16; off; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
-    if (tid == 0) p.da_part[k.slot(p)] = da;
-  }
-}
-
-// ---- 4: each head's dB and dC ------------------------------------------------------------------
-template <int N, int P>
-constexpr int smem_dbc() {
-  return (2 * P * L + 2 * L * L + 2 * L * N + P * N + 2 * L) * static_cast<int>(sizeof(float));
-}
-
-template <typename T, int N, int P>
-__global__ void __launch_bounds__(NT) ssd_bwd_dbc(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* Yt = reinterpret_cast<float*>(smem4);  // P x L: dY^T
-  float* Xt = Yt + P * L;                       // P x L: x^T
-  float* Ws = Xt + P * L;                       // L x L: W, row-major
-  float* Wt = Ws + L * L;                       // L x L: W^T
-  float* Bn = Wt + L * L;                       // L x N: B
-  float* Cn = Bn + L * N;                       // L x N: C
-  float* Hs = Cn + L * N;                       // P x N: h_in^T; then g^T
-  float* cum = Hs + P * N;                      // L
-  float* dtl = cum + L;                         // L
-  const int tid = threadIdx.x;
-  const Blk k(p);
-
-  if (tid < 32) head_cumsum(p, k, cum, dtl);
-  load_rows<P, true>(Yt, at<T>(p.dy, p.dys, k.bi, k.h), p.dys[1], k.s0, p.S, nullptr);
-  load_rows<P, true>(Xt, at<T>(p.x, p.xs, k.bi, k.h), p.xs[1], k.s0, p.S, nullptr);
-  load_rows<N, false>(Bn, at<T>(p.b, p.bs, k.bi, k.g), p.bs[1], k.s0, p.S, nullptr);
-  load_rows<N, false>(Cn, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S, nullptr);
-  load_state<N, P, true>(Hs, p.h_in + k.slot(p) * N * P);
-  __syncthreads();
-  {  // W, row-major and transposed
-    using Tl = Tile<L, L, NT>;  // rows l, columns m
-    const Tl t(tid);
-    float q[Tl::TR][4];
-    zero<L, L, NT>(q);
-    if (t.col0() <= t.row_max()) t.mac(q, Yt, L, Xt, L, 0, P);
-#pragma unroll
-    for (int i = 0; i < Tl::TR; ++i) {
-      const int l = t.row(i);
-      float w[4];
+    {
+      float rowa = 0.f, rowb = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int m = t.col0() + j;
-        w[j] = l >= m ? expf(cum[l] - cum[m]) * dtl[m] * q[i][j] : 0.f;
-        Wt[m * L + l] = w[j];
+        const int l0 = cl0 + 8 * j + 2 * tq;
+        float mv[4], col[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = e < 2 ? ra : rb, l = l0 + (e & 1);
+          float mm = 0.f, ww = 0.f;
+          if (l >= m) {
+            const float d = expf(cm[l] - cm[m]);
+            mm = rt[j][e] * d;
+            ww = d * dm[m] * qa[j][e];
+          }
+          const float tt = rt[j][e] * ww;
+          if (e < 2) rowa += tt; else rowb += tt;
+          col[e & 1] += tt;
+          mv[e] = mm;
+          qa[j][e] = ww;
+        }
+        store_pair(Ms.p + Ms.off(ra, l0, s1), mv[0], mv[1]);
+        store_pair(Ms.p + Ms.off(rb, l0, s1), mv[2], mv[3]);
+        if constexpr (SS == 2) {
+          store_pair(Ws.p + Ws.off(ra, l0, s1), qa[j][0], qa[j][1]);
+          store_pair(Ws.p + Ws.off(rb, l0, s1), qa[j][2], qa[j][3]);
+        }
+        col[0] = column_sum(col[0]), col[1] = column_sum(col[1]);
+        if (gq == 0) tcol[sl * L + l0] = col[0], tcol[sl * L + l0 + 1] = col[1];
       }
-      store4(Ws + l * L + t.col0(), w);
+      rowa = quad_sum(rowa), rowb = quad_sum(rowb);
+      if (tq == 0) trow[hc * L + ra] = rowa, trow[hc * L + rb] = rowb;
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  using Tn = Tile<L, N, NT>;  // rows l (dC) or m (dB), columns n
-  const Tn t(tid);
-  float acc[Tn::TR][4];
-  zero<L, N, NT>(acc);
-  t.mac(acc, Yt, L, Hs, N, 0, P);  // (dY h_in^T)[l]
+    // -- dx += M^T dY (l >= m); dx out; x . dx / dt
+    warp_mma<NP, false, EX>(
+        dxa, [&](int hi, int i, int kb) { return Ms.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+        [&](int i, int kb, int j) { return Y.at(kb + tq + 4 * i, cp0 + 8 * j + gq, ln.s2[i]); },
+        r0, L);
+    {
+      T* dxg = static_cast<T*>(p.dx);
+      const float da0 = dm[ra], db0 = dm[rb];
+      const int sa = k.s0 + ra, sb = k.s0 + rb;
+      float pa = 0.f, pb = 0.f;
 #pragma unroll
-  for (int i = 0; i < Tn::TR; ++i) {
-    const float e = expf(cum[t.row(i)]);
+      for (int j = 0; j < NP; ++j) {
+        const int q = cp0 + 8 * j + 2 * tq;
+        pa += X.at(ra, q, s1) * dxa[j][0] + X.at(ra, q + 1, s1) * dxa[j][1];
+        pb += X.at(rb, q, s1) * dxa[j][2] + X.at(rb, q + 1, s1) * dxa[j][3];
+        if (sa < p.S) store_pair(dxg + (k.row(p, sa) * p.H + h) * P + q, da0 * dxa[j][0], da0 * dxa[j][1]);
+        if (sb < p.S) store_pair(dxg + (k.row(p, sb) * p.H + h) * P + q, db0 * dxa[j][2], db0 * dxa[j][3]);
+      }
+      pa = quad_sum(pa), pb = quad_sum(pb);
+      if (tq == 0) dpart[hc * L + ra] = pa, dpart[hc * L + rb] = pb;
+    }
+    if constexpr (SS == 1) {  // W^T takes M^T's place
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] *= e;
+      for (int j = 0; j < 4; ++j) {
+        const int l0 = cl0 + 8 * j + 2 * tq;
+        store_pair(Ws.p + Ws.off(ra, l0, s1), qa[j][0], qa[j][1]);
+        store_pair(Ws.p + Ws.off(rb, l0, s1), qa[j][2], qa[j][3]);
+      }
+      __syncthreads();
+    }
+
+    // -- dB += W^T C (l >= m); dC += W B (m <= l)
+    warp_mma<NN, false, EX>(
+        dbt, [&](int hi, int i, int kb) { return Ws.at(ra + 8 * hi, kb + tq + 4 * i, s1); },
+        [&](int i, int kb, int j) { return Cs.at(kb + tq + 4 * i, cn0 + 8 * j + gq, ln.s2[i]); },
+        r0, L);
+    warp_mma<NN, false, EX>(
+        dct, [&](int hi, int i, int kb) { return Ws.at(kb + tq + 4 * i, ra + 8 * hi, ln.s2[i]); },
+        [&](int i, int kb, int j) { return Bs.at(kb + tq + 4 * i, cn0 + 8 * j + gq, ln.s2[i]); },
+        0, r0 + 16);
+    __syncthreads();  // the partial sums are in; x, dY, M^T and W^T are read no more
+    if constexpr (XS == 1)
+      if (more) fetch_xy(0, h + 1);
+
+    if (warp == 0) {  // dcum, its reverse cumsum, ddt and da's share of head h
+      const int l0 = 2 * lane;
+      float dcum[2], us = 0.f, dd[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int l = l0 + e;
+        const float u = (upart[l] + upart[L + l]) * expf(cm[L - 1] - cm[l]) * dm[l];
+        const float ts = (tcol[l] + tcol[L + l] + tcol[2 * L + l] + tcol[3 * L + l]) -
+                         (trow[l] + trow[L + l]);
+        dcum[e] = ts + expf(cm[l]) * (ypart[l] + ypart[L + l]) - u;
+        dd[e] = dpart[l] + dpart[L + l];
+        us += u;
+      }
+      float hs = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) hs += ghp[w];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) us += __shfl_xor_sync(FULL, us, off);
+      // the state's terms land on the chunk's last row
+      if (lane == 31) dcum[1] += us + expf(cm[L - 1]) * hs;
+      // rc = the reverse inclusive cumsum of dcum
+      float inc = dcum[0] + dcum[1];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float dn = __shfl_down_sync(FULL, inc, off);
+        if (lane + off < 32) inc += dn;
+      }
+      float excl = __shfl_down_sync(FULL, inc, 1);
+      if (lane == 31) excl = 0.f;
+      const float rc1 = excl + dcum[1], rc0 = rc1 + dcum[0];
+      const float a = p.a[h];
+      if (k.s0 + l0 < p.S) p.ddt[k.row(p, k.s0 + l0) * p.H + h] = dd[0] + a * rc0;
+      if (k.s0 + l0 + 1 < p.S) p.ddt[k.row(p, k.s0 + l0 + 1) * p.H + h] = dd[1] + a * rc1;
+      float da = dm[l0] * rc0 + dm[l0 + 1] * rc1;
+#pragma unroll
+      for (int off = 16; off; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
+      if (lane == 0) p.da_part[k.slot(p, h)] = da;
+      // the next head's cumsum: the other buffer's last readers passed the barrier above
+      if (more) chunk_cumsum(next, cum + ((kq + 1) & 1) * L, dtl + ((kq + 1) & 1) * L);
+    }
+    cp_async_wait_all();
+    __syncthreads();
   }
-  t.mac(acc, Wt, L, Bn, N, 0, t.row_max() + 1);  // + sum_{m <= l} W[l][m] B_m
+
+  // the head-block's dB and dC
+  const int hbs = p.H / p.kh;
 #pragma unroll
-  for (int i = 0; i < Tn::TR; ++i) {
-    const int s = k.s0 + t.row(i);
-    if (s < p.S) store4(p.dc_h + (k.row(p, s) * p.H + k.h) * N + t.col0(), acc[i]);
-  }
-  __syncthreads();  // h_in^T is read no more
-  load_state<N, P, true>(Hs, p.g + k.slot(p) * N * P);
-  __syncthreads();
-  zero<L, N, NT>(acc);
-  t.mac(acc, Xt, L, Hs, N, 0, P);  // (x g^T)[m]
-#pragma unroll
-  for (int i = 0; i < Tn::TR; ++i) {
-    const int m = t.row(i);
-    const float f = dtl[m] * expf(cum[L - 1] - cum[m]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] *= f;
-  }
-  t.mac(acc, Ws, L, Cn, N, t.row(0), L);  // + sum_{l >= m} W[l][m] C_l
-#pragma unroll
-  for (int i = 0; i < Tn::TR; ++i) {
-    const int s = k.s0 + t.row(i);
-    if (s < p.S) store4(p.db_h + (k.row(p, s) * p.H + k.h) * N + t.col0(), acc[i]);
+  for (int j = 0; j < NN; ++j) {
+    const int n = cn0 + 8 * j + 2 * tq;
+    const int sa = k.s0 + ra, sb = k.s0 + rb;
+    if (sa < p.S) {
+      const long long o = (k.row(p, sa) * hbs + k.hb) * N + n;
+      store_pair(p.db_part + o, dbt[j][0], dbt[j][1]);
+      store_pair(p.dc_part + o, dct[j][0], dct[j][1]);
+    }
+    if (sb < p.S) {
+      const long long o = (k.row(p, sb) * hbs + k.hb) * N + n;
+      store_pair(p.db_part + o, dbt[j][2], dbt[j][3]);
+      store_pair(p.dc_part + o, dct[j][2], dct[j][3]);
+    }
   }
 }
 
-// ---- 5: dB and dC of each group, its heads added in head order -------------------------------
+// ---- 4: dB and dC of each group, its head-blocks added in order ---------------------------------
 constexpr int NT_SUM = 256;
 
 template <typename T, int N>
@@ -571,15 +805,15 @@ __global__ void __launch_bounds__(NT_SUM) ssd_bwd_group_sum(const Params p) {
   if (i >= static_cast<long long>(p.B) * p.S * p.G * (N / 4)) return;
   const int n = static_cast<int>(i % (N / 4)) * 4, g = static_cast<int>(i / (N / 4) % p.G);
   const long long bs = i / (N / 4) / p.G;  // b * S + s
-  const int rep = p.H / p.G;
+  const int hbs = p.H / p.kh, rep = hbs / p.G;  // head-blocks per row and per group
   float db[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j < rep; ++j) {
-    const long long off = (bs * p.H + g * rep + j) * N + n;
+    const long long off = (bs * hbs + g * rep + j) * N + n;
     float v[4];
-    load16(p.db_h + off, v);
+    load16(p.db_part + off, v);
 #pragma unroll
     for (int e = 0; e < 4; ++e) db[e] += v[e];
-    load16(p.dc_h + off, v);
+    load16(p.dc_part + off, v);
 #pragma unroll
     for (int e = 0; e < 4; ++e) dc[e] += v[e];
   }
@@ -588,7 +822,7 @@ __global__ void __launch_bounds__(NT_SUM) ssd_bwd_group_sum(const Params p) {
   store4(static_cast<T*>(p.dc) + o, dc);
 }
 
-// ---- 6: da per head, over batch rows and chunks in a fixed order ------------------------------
+// ---- 5: da per head, over batch rows and chunks in a fixed order ------------------------------
 __global__ void __launch_bounds__(32) ssd_bwd_da(const Params p) {
   const int h = blockIdx.x, lane = threadIdx.x;
   float s = 0.f;
@@ -614,15 +848,14 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
 
 template <typename T, int N, int P>
 cudaError_t run(const Params& p, cudaStream_t stream) {
-  static_assert(smem_dx<N, P>() <= SMEM_MAX && smem_dbc<N, P>() <= SMEM_MAX, "shared memory");
-  const dim3 chunks(p.nc, p.B * p.H);
-  cudaError_t err = launch(ssd_bwd_chunk_grad<T, N, P>, chunks, nt_state(N, P),
-                           smem_chunk_grad<N, P>(), p, stream);
+  const dim3 blocks(p.nc, p.B * p.H / p.kh);
+  cudaError_t err = launch(ssd_bwd_chunk_grad<T, N, P>, blocks, NT, GradSmem<T, N, P>::BYTES, p,
+                           stream);
   if (err == cudaSuccess)
     err = launch(ssd_bwd_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
                  NT_PASS, 0, p, stream);
-  if (err == cudaSuccess) err = launch(ssd_bwd_dx<T, N, P>, chunks, NT, smem_dx<N, P>(), p, stream);
-  if (err == cudaSuccess) err = launch(ssd_bwd_dbc<T, N, P>, chunks, NT, smem_dbc<N, P>(), p, stream);
+  if (err == cudaSuccess)
+    err = launch(ssd_bwd_dxbc<T, N, P>, blocks, NT, DxbcSmem<T, N, P>::BYTES, p, stream);
   if (err == cudaSuccess) {
     const long long sums = static_cast<long long>(p.B) * p.S * p.G * (N / 4);
     err = launch(ssd_bwd_group_sum<T, N>, dim3(static_cast<unsigned>((sums + NT_SUM - 1) / NT_SUM)),
@@ -656,31 +889,45 @@ cudaError_t dispatch_n(const Params& p, int P, int N, cudaStream_t stream) {
 
 }  // namespace
 
+// The floats of one call's own scratch: B*H*nc*N*P + 2*B*S*(H/kh)*N + B*H*nc,
+// kh = heads_per_block(H/G, B*H*nc).  0 for sizes the entry refuses.
+extern "C" long long ssd_scan_bwd_scratch_floats(int B, int S, int H, int G, int P, int N) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return 0;
+  const long long nc = (S + L - 1) / L;
+  const int kh = heads_per_block(H / G, B * H * nc);
+  return B * H * nc * (static_cast<long long>(N) * P + 1) +
+         2LL * B * S * (H / kh) * N;
+}
+
 // ptrs[14]: x, dt, a, b, c, dy, dstate (0: zero), the forward's scratch (the
 // states entering each chunk, B*H*nc*N*P floats, then each chunk's decay,
-// B*H*nc), this call's scratch (B*H*nc*N*P + 2*B*S*H*N + B*H*nc floats),
-// dx, ddt, da, db, dc.  x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, b/c
-// (B,S,G,N), dy (B,S,H,P) read through strides[15] = (batch, seq,
-// head|group) element strides of x, dt, b, c, dy, with the last dim
-// contiguous and rows 16-byte aligned; dstate (B,H,P,N) f32, dx (B,S,H,P),
-// ddt (B,S,H) f32, db/dc (B,S,G,N) contiguous.  dtype (of x, b, c, dy, dx,
-// db, dc): 0 = float32, 1 = bfloat16.  P and N in {16, 32, 64, 128}.
-// Returns the first launch's cudaGetLastError() that is not 0, else 0.
-extern "C" int ssd_scan_bwd(const long long* ptrs, const long long* strides, int dtype, int B,
-                            int S, int H, int G, int P, int N, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B * H > 65535)
+// B*H*nc), this call's scratch (work_floats floats, at least
+// ssd_scan_bwd_scratch_floats), dx, ddt, da, db, dc.  x (B,S,H,P), dt
+// (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), dy (B,S,H,P) read through
+// strides[15] = (batch, seq, head|group) element strides of x, dt, b, c, dy,
+// with the last dim contiguous and rows 16-byte aligned; dstate (B,H,P,N)
+// f32, dx (B,S,H,P), ddt (B,S,H) f32, db/dc (B,S,G,N) contiguous.  dtype (of
+// x, b, c, dy, dx, db, dc): 0 = float32, 1 = bfloat16.  P and N in {16, 32,
+// 64, 128}.  Returns cudaErrorInvalidValue for a scratch too short, else the
+// first launch's cudaGetLastError() that is not 0, else 0.
+extern "C" int ssd_scan_bwd(const long long* ptrs, const long long* strides,
+                            long long work_floats, int dtype, int B, int S, int H, int G, int P,
+                            int N, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B * H > 65535 ||
+      work_floats < ssd_scan_bwd_scratch_floats(B, S, H, G, P, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + L - 1) / L;
+  const int kh = heads_per_block(H / G, static_cast<long long>(B) * H * nc);
   const long long states = static_cast<long long>(B) * H * nc * N * P;
-  const long long per_head = static_cast<long long>(B) * S * H * N;
+  const long long per_block = static_cast<long long>(B) * S * (H / kh) * N;
   const auto ptr = [&](int i) { return reinterpret_cast<void*>(ptrs[i]); };
   float* fwd = static_cast<float*>(ptr(7));
   float* bwd = static_cast<float*>(ptr(8));
   Params p{ptr(0), static_cast<const float*>(ptr(1)), static_cast<const float*>(ptr(2)), ptr(3),
            ptr(4), ptr(5), static_cast<const float*>(ptr(6)), fwd, fwd + states, bwd,
-           bwd + states, bwd + states + per_head, bwd + states + 2 * per_head, ptr(9),
+           bwd + states, bwd + states + per_block, bwd + states + 2 * per_block, ptr(9),
            static_cast<float*>(ptr(10)), static_cast<float*>(ptr(11)), ptr(12), ptr(13),
-           B, S, H, G, nc, {}, {}, {}, {}, {}};
+           B, S, H, G, nc, kh, {}, {}, {}, {}, {}};
   for (int i = 0; i < 3; ++i) {
     p.xs[i] = strides[i];
     p.dts[i] = strides[3 + i];

@@ -31,10 +31,12 @@ one per call, whatever the three launches inside it.
 Gradients.  When grad mode is on and an input requires grad, a CUDA call
 goes through ``SSDScanFn``: its forward launches the same kernels and keeps
 their scratch (the state entering each chunk, and each chunk's decay), and
-its backward is ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``: each chunk's
-share of the state gradient, the chain over chunks in reverse, dx/ddt/da and
-dB/dC per chunk, then the group sum of dB/dC in head order and da over the
-chunks, deterministic throughout; ``ssd_scan_bwd.launches`` counts calls).
+its backward is ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``, five launches
+on the tensor cores: each chunk's share of the state gradient, the chain over
+chunks in reverse, dx/ddt/da and dB/dC per chunk with ``heads_per_block``
+heads of a group a block, then the group sum of the head-blocks' dB/dC and
+da over the chunks, deterministic throughout; ``ssd_scan_bwd.launches``
+counts calls).
 Otherwise (serving, ``inference_mode``) the call launches the forward alone,
 as lean as before.  A CPU call differentiates through the plain version,
 which is also the card's reference for the gradient.
@@ -70,8 +72,18 @@ def _entry():
 def _bwd_entry():
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
     i, pll = ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-    fn.argtypes = [pll, pll, i, i, i, i, i, i, i, ctypes.c_void_p]
+    fn.argtypes = [pll, pll, ctypes.c_longlong, i, i, i, i, i, i, i, ctypes.c_void_p]
     fn.restype = i
+    return fn
+
+
+@functools.cache
+def _bwd_scratch_entry():
+    """The C library's size of a backward call's scratch (0 for sizes it
+    refuses): what ``bwd_scratch_floats`` mirrors."""
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -81,10 +93,25 @@ def scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
     return bsz * h * -(-s // CHUNK) * (n * p + 1)
 
 
-def bwd_scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
+def heads_per_block(heads_per_group: int, chunk_heads: int) -> int:
+    """Heads of one group that a block of the per-chunk kernels walks, forward
+    and backward: the most, up to 8, that leave at least 512 blocks of
+    ``chunk_heads`` = B*H*nc.  A copy of ``heads_per_block`` in
+    ``csrc/ssd_scan.cuh``, whose backward entry refuses a scratch shorter
+    than its own count (``_bwd_scratch_entry``)."""
+    for kh in (8, 6, 4, 3, 2):
+        if heads_per_group % kh == 0 and chunk_heads // kh >= 512:
+            return kh
+    return 1
+
+
+def bwd_scratch_floats(bsz: int, s: int, h: int, g: int, p: int, n: int) -> int:
     """f32 scratch of one backward call: per (batch, head) and chunk an (N, P)
-    state gradient and a share of da, and each head's dB and dC."""
-    return bsz * h * -(-s // CHUNK) * (n * p + 1) + 2 * bsz * s * h * n
+    state gradient and a share of da, and dB and dC of each head-block (the
+    ``heads_per_block`` heads of a group that one block sums)."""
+    nc = -(-s // CHUNK)
+    blocks = h // heads_per_block(h // g, bsz * h * nc)
+    return bsz * h * nc * (n * p + 1) + 2 * bsz * s * blocks * n
 
 
 def _aligned(t) -> bool:
@@ -267,7 +294,7 @@ def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev, f32 = x.device, torch.float32
-    work = torch.empty(bwd_scratch_floats(bsz, s, h, p, n), dtype=f32, device=dev)
+    work = torch.empty(bwd_scratch_floats(bsz, s, h, g, p, n), dtype=f32, device=dev)
     dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((bsz, s, h), dtype=f32, device=dev)
     da = torch.empty((h,), dtype=f32, device=dev)
@@ -277,7 +304,7 @@ def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
     strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *dt.stride(), *b.stride()[:3],
                                        *c.stride()[:3], *dy.stride()[:3])
     with torch.cuda.device(dev):
-        err = _bwd_entry()(ptrs, strides, _DTYPES[x.dtype], bsz, s, h, g, p, n,
+        err = _bwd_entry()(ptrs, strides, work.numel(), _DTYPES[x.dtype], bsz, s, h, g, p, n,
                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed with CUDA error {err}")

@@ -231,6 +231,14 @@ SSD_SHAPES = [
     (2, 129, 4, 1, 64, 128),
     (1, 8192, 4, 1, 64, 128),
     (2, 300, 4, 2, 128, 16),     # P = 128 with N = 16
+    # several heads of a group a block (ssd_scan.heads_per_block), and a group
+    # over more than one block: kh = 3 and 4, two head-blocks a group
+    (2, 4096, 12, 2, 64, 64),
+    (2, 4096, 16, 2, 32, 32),
+    # a next head at kh = 2 and 4 through the branches that share buffers:
+    # one x/dY stage and M^T, W^T in one buffer (f32, P = N = 128); N = 16
+    (2, 4096, 8, 1, 128, 128),
+    (2, 4096, 16, 2, 64, 16),
 ]
 
 
@@ -602,13 +610,35 @@ def _ssd_bwd_reference(args, dy, dstate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
     """dx, ddt, da, db, dc of the backward kernels vs autograd through the
-    plain version, at the forward tests' shapes."""
+    plain version, at the forward tests' shapes (among them blocks of one
+    head, of several heads of a group, and groups over several blocks)."""
     args, scratch, dy, dstate = _ssd_bwd_case(dev, b, s, h, g, p, n, dtype, ranges)
     before = ss.ssd_scan_bwd.launches
     got = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
     assert ss.ssd_scan_bwd.launches == before + 1
     for gv, wv in zip(got, _ssd_bwd_reference(args, dy, dstate)):
         _close_grad(gv, wv, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", SSD_SHAPES + [(4, 4096, 24, 1, 64, 128),
+                                                      (2, 1000, 8, 2, 64, 16)])
+def test_ssd_backward_scratch_size_is_the_kernels(dev, b, s, h, g, p, n):
+    """The wrapper's scratch size (its copy of heads_per_block) is the C
+    library's own."""
+    assert ss.bwd_scratch_floats(b, s, h, g, p, n) == ss._bwd_scratch_entry()(b, s, h, g, p, n)
+
+
+def test_ssd_backward_refuses_a_short_scratch(dev, monkeypatch):
+    """A scratch one float short of the C library's count is refused before
+    any launch."""
+    args, scratch, dy, dstate = _ssd_bwd_case(dev, 2, 4096, 12, 2, 64, 64, torch.float32,
+                                              "model")
+    short = ss.bwd_scratch_floats
+    monkeypatch.setattr(ss, "bwd_scratch_floats", lambda *shape: short(*shape) - 1)
+    before = ss.ssd_scan_bwd.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ss.ssd_scan_bwd(*args, scratch, dy, dstate)
+    assert ss.ssd_scan_bwd.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -659,11 +689,12 @@ def test_ssd_backward_reads_strided_and_unaligned_inputs(dev):
 
 
 @pytest.mark.parametrize("b,s,h,g,p,n", [(4, 4096, 24, 1, 64, 128), (2, 1000, 8, 2, 64, 16),
-                                         (1, 300, 4, 1, 128, 128)])
+                                         (1, 300, 4, 1, 128, 128), (2, 4096, 12, 2, 64, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_is_deterministic(dev, b, s, h, g, p, n, dtype):
-    """No atomics: dB and dC summed over a group's heads in head order, da
-    over the chunks in a fixed order; two calls give the same bits."""
+    """No atomics: dB and dC summed over a block's heads in head order and
+    over a group's head-blocks in order, da over the chunks in a fixed order;
+    two calls give the same bits."""
     args, scratch, dy, dstate = _ssd_bwd_case(dev, b, s, h, g, p, n, dtype, "model")
     first = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
     again = ss.ssd_scan_bwd(*args, scratch, dy, dstate)

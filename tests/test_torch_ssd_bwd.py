@@ -180,9 +180,25 @@ def test_ops_ssd_on_cpu_differentiates_the_plain_version(which):
 
 
 def test_bwd_scratch_holds_state_gradients_and_each_heads_db_dc():
-    assert ss.bwd_scratch_floats(4, 4096, 24, 64, 128) == (
-        4 * 24 * 64 * (128 * 64 + 1) + 2 * 4 * 4096 * 24 * 128)
-    assert ss.bwd_scratch_floats(1, 1, 1, 16, 16) == 16 * 16 + 1 + 2 * 16
+    """Per (batch, head) and chunk an (N, P) state gradient and a share of da;
+    dB and dC once per head-block, whose heads the kernel sums in registers:
+    at mamba2-130m's train shape 8 heads a block, 3 blocks a row."""
+    assert ss.bwd_scratch_floats(4, 4096, 24, 1, 64, 128) == (
+        4 * 24 * 64 * (128 * 64 + 1) + 2 * 4 * 4096 * 3 * 128)
+    assert ss.bwd_scratch_floats(1, 1, 1, 1, 16, 16) == 16 * 16 + 1 + 2 * 16
+
+
+@pytest.mark.parametrize("b,s,h,g,kh", [
+    (4, 4096, 24, 1, 8),   # mamba2-130m's train shape: 768 blocks, 3 head-blocks a group
+    (2, 4096, 12, 2, 3),   # 2 head-blocks a group of 6
+    (2, 4096, 16, 2, 4),   # 2 head-blocks a group of 8
+    (2, 1000, 8, 2, 1),    # too few chunks for 512 blocks of 2
+    (4, 4096, 24, 24, 1),  # one head a group
+])
+def test_heads_per_block_rule(b, s, h, g, kh):
+    """The wrapper's copy of the kernels' rule (csrc/ssd_scan.cuh): the most
+    heads of one group, up to 8, that leave 512 blocks of B*H*nc."""
+    assert ss.heads_per_block(h // g, b * h * -(-s // ss.CHUNK)) == kh
 
 
 def test_ssd_backward_wrapper_refuses_cpu_tensors():
