@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one or more lines each:
-  build        compile the port's five CUDA sources (flash attention forward
+  build        compile the port's six CUDA sources (flash attention forward
                and backward, RMSNorm forward and backward, the SSD scan
-               forward and backward) from this checkout, one nvcc each, in
-               parallel
+               forward and backward, the DSE's simulation kernels) from this
+               checkout, one nvcc each, in parallel
   kernels      hold each kernel against its plain version on the card, at the
                serving paths' shapes plus windowed, ragged and grouped cases,
                in float32 and bfloat16 (flash attention also at gemma3's
@@ -54,6 +54,24 @@ Phases, one or more lines each:
                the same inputs, which must give the same gradients bit for
                bit; and ops.ssd under grad on the card: one forward and one
                backward call, gradients against the plain version's
+  dse          the design-space explorer's main path: the JAX package's
+               backend benchmark population (benchmarks/fig10_agents.py:
+               49-107, rebuilt here: 32 seeded collective/network design
+               points, qwen2-1.5b on system2 under a pinned request stream of
+               256 requests, a 25,872-op trace) through CosmicEnv.step_batch
+               on the reference backend (one generation, the oracle),
+               torch-unfused and torch (three generations each; pts/s, ms a
+               generation, the last_timings split, each kernel's device ms
+               and the copies' by torch.profiler), every member's reward and
+               latency within 1e-9 of the oracle; the launch counts of the
+               torch generations, every count set to 0 just before them;
+               dse_class_times and dse_sweep at these shapes against their
+               plain twins on the card and numpy's batched duration pass, bit
+               for bit, twice for the same bits, with bytes and float64
+               bounds and the sweep's chain of dependency levels; then 256
+               members on torch, 32 of them held against the oracle; then
+               python -m repro_torch.dse run examples/studies/smoke.json on
+               torch against reference
   serve        each model at full width and depth (random weights from a seed)
                through repro_torch.serve.engine.Engine, fp32, greedy, batch 4,
                32 new tokens: qwen2-1.5b (prompt 1000), mamba2-130m (4096),
@@ -102,10 +120,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet: HBM3 rate; dense peaks of f32 on the CUDA
-# cores and of bf16 and TF32 on the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate; dense peaks of f32 and f64 on the
+# CUDA cores and of bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12,
+                   "float64": 34e12}  # float64 on the CUDA cores
 ARCH, BATCH, PROMPT, NEW, SEED = "qwen2-1.5b", 4, 1000, 32, 0
 MAMBA, M_PROMPT = "mamba2-130m", 4096
 GEMMA, G_PROMPT = "gemma3-1b", 2040
@@ -124,6 +143,15 @@ M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
 REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
 STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
+# the DSE: the backend benchmark's population (benchmarks/fig10_agents.py:
+# 49-107) of DSE_POINTS members over a request stream of DSE_REQUESTS,
+# then DSE_BIG members of which DSE_CHECKED are held against the oracle
+DSE_ARCH, DSE_SYSTEM, DSE_REQUESTS = "qwen2-1.5b", "system2", 256
+DSE_POINTS, DSE_BIG, DSE_CHECKED, DSE_REPEATS = 32, 256, 32, 3
+DSE_RTOL = 1e-9  # the issue-order sweep vs the event loop, as the JAX backend's parity tests
+# the sweep's chain estimate: an fp64 max or add issues FP64_DEP_CYCLES after
+# the one it depends on (an assumed latency), at the H100 SXM's boost clock
+FP64_DEP_CYCLES, SM_CLOCK_HZ = 8, 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -652,7 +680,8 @@ def train_counts(spec, remat: str) -> dict[str, int]:
     norms = sum(1 + (ld.ffn != "none") + (ld.mixer == "mamba") for ld in lds)
     return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
             "rmsnorm": again * norms + 1, "rmsnorm_bwd": norms + 1,
-            "ssd_scan": again * n_mamba, "ssd_scan_bwd": n_mamba}
+            "ssd_scan": again * n_mamba, "ssd_scan_bwd": n_mamba,
+            "dse_class_times": 0, "dse_sweep": 0}
 
 
 def train(torch, counted, card, spec, seq):
@@ -819,6 +848,262 @@ def train_consistency(torch, map_with_path, reduced, spec):
     round_trip(torch, bf16, f"reduced {spec.name} bf16 + f32 master")
 
 
+# -- the design-space explorer ---------------------------------------------------
+
+def dse_population(np, points: int) -> list[dict]:
+    """The agent population of the JAX package's backend benchmark
+    (benchmarks/fig10_agents.py:66-87): design points differing in their
+    collective and network knobs, the trace-shaping knobs pinned so the
+    whole population shares one scheduling plan, drawn from seed SEED."""
+    pinned = dict(dp=8, sp=1, pp=1, weight_sharded=0, topology=("ring", "fc", "ring", "switch"),
+                  npus_per_dim=(4, 8, 4, 8), prefill_frac=0.5, decode_batch=8,
+                  batch_window_ms=50.0, max_inflight=2)
+    rng = np.random.default_rng(SEED)
+    algos = ("ring", "direct", "rhd", "dbt")
+    return [dict(pinned, coll_algo=tuple(rng.choice(algos) for _ in range(4)),
+                 chunks=int(rng.choice((2, 4, 8, 16))),
+                 sched_policy=str(rng.choice(("fifo", "lifo"))),
+                 multidim_coll=str(rng.choice(("baseline", "blueconnect"))),
+                 bw_per_dim=tuple(int(b) for b in rng.choice(range(50, 501, 50), size=4)))
+            for _ in range(points)]
+
+
+def dse_env(backend: str):
+    """The benchmark's CosmicEnv: qwen2-1.5b on system2 under the pinned
+    request stream (DSE_REQUESTS Poisson requests, seq 2048, 64 decode
+    tokens, 32 requests/s, seed 0), goodput objective."""
+    from repro_torch.core.scenario import RequestStreamScenario
+    from repro_torch.core.systems import system_env
+    scenario = RequestStreamScenario(n_requests=DSE_REQUESTS, seq=2048, decode_tokens=64,
+                                     rate_rps=32.0, seed=0)
+    return system_env(DSE_ARCH, DSE_SYSTEM, scenario=scenario, objective="goodput",
+                      backend=backend)
+
+
+def dse_generation(torch, env, cfgs):
+    """One generation through CosmicEnv.step_batch with the env's memo
+    cleared: (evaluations, wall seconds)."""
+    env.clear_memo()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evs = env.step_batch(cfgs)
+    torch.cuda.synchronize()
+    return evs, time.perf_counter() - t0
+
+
+def dse_agree(want, got) -> tuple[float, bool]:
+    """Max relative gap of reward and latency over the members, and whether
+    every member is within DSE_RTOL (and valid exactly where want is)."""
+    worst, ok = 0.0, len(want) == len(got)
+    for w, g in zip(want, got):
+        ok &= w.valid == g.valid
+        for a, b in ((g.reward, w.reward), (g.latency_ms, w.latency_ms)):
+            if w.valid:
+                rel = abs(a - b) / max(abs(b), 1e-300)
+                worst = max(worst, rel)
+                ok &= rel <= DSE_RTOL
+    return worst, bool(ok)
+
+
+def check_dse(torch, np, trace, calls, iters):
+    """dse_class_times and dse_sweep at the main path's shapes against
+    their plain twins on the card (bit for bit) and numpy's batched
+    duration pass (bit for bit), each run twice for the same bits; events
+    ms, device ms, the plain twins' ms and the bounds.  Returns the two
+    rows."""
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.core.simulator import batch_op_durations, plan_duration_tables
+    from repro_torch.kernels import dse_sim
+    be = TorchBackend(device="cuda")
+    plan, tables = plan_duration_tables(trace, calls)
+    st, tab = be._static(trace, plan), be._class_tables(tables)
+    args = [st["kind"], st["size"], st["is_xfer"]] + [tab[k] for k in (
+        "npus", "bw", "lat", "scale", "topo", "algo", "chunks", "blue", "xfer_bw", "xfer_lat")]
+    src, parents = st["sources"], st["parents"]
+    gather = dict(sources=src, peak=tab["peak"], membw=tab["membw"])
+    class_t = dse_sim.dse_class_times(*args)
+    dur, finish = dse_sim.dse_sweep(parents, class_t=class_t, **gather)
+    again = (dse_sim.dse_class_times(*args),) + dse_sim.dse_sweep(parents, class_t=class_t,
+                                                                  **gather)
+    torch.cuda.synchronize()
+    plain_c = dse_sim.class_times_plain(*args)
+    plain_dur = dse_sim.op_durations_plain(src, class_t, tab["peak"], tab["membw"])
+    levels = dse_sim.sweep_levels(parents)
+    plain_fin = dse_sim.sweep_plain(parents, plain_dur, levels)
+    numpy_dur = batch_op_durations(plan, tables, op_major=True)
+    twice = same_bits(torch, (class_t, dur, finish), again)
+    P, C = class_t.shape
+    D = tab["npus"].shape[2]
+    n_ops, W = parents.shape
+    n_comp, n_coll, n_delay = (src.comp_flops.numel(), src.coll_class.numel(),
+                               src.delay_us.numel())
+    active = int((tab["npus"] > 1.0).sum().item())
+    rows = []
+    # the class table: per active dim entry 22 float64 operations (the
+    # phase's 18, the reduction's 4), per padded one 5, per (member, class) 4
+    c_bytes = P * C * D * (4 * 8 + 2 * 4) + C * (4 + 8 + 1) + P * (4 * 8 + 1) + P * C * 8
+    c_ops = 22 * active + 5 * (P * C * D - active) + 4 * P * C
+    # the sweep: per (op, member) W - 1 maxes and one add, plus the roofline's
+    # two divisions, max and product per compute op and one product per comm op
+    s_bytes = (n_ops * W * 4 + n_ops * 4 + n_comp * 16 + n_coll * 12 + n_delay * 8 + P * C * 8
+               + P * 16 + n_ops * P * 8 + (n_ops + 1) * P * 8)
+    s_ops = n_ops * P * W + n_comp * P * 4 + n_coll * P
+    for name, got, want, nbytes, flops, kernel, plain, plain_iters in (
+            ("dse_class_times", class_t, plain_c, c_bytes, c_ops,
+             lambda: dse_sim.dse_class_times(*args),
+             lambda: dse_sim.class_times_plain(*args), iters),
+            ("dse_sweep", finish, plain_fin, s_bytes, s_ops,
+             lambda: dse_sim.dse_sweep(parents, class_t=class_t, **gather),
+             lambda: dse_sim.sweep_plain(parents, dse_sim.op_durations_plain(
+                 src, class_t, tab["peak"], tab["membw"]), levels), 1)):
+        exact = torch.equal(got, want)
+        if name == "dse_sweep":
+            exact &= torch.equal(dur, plain_dur) and np.array_equal(dur.cpu().numpy(), numpy_dur)
+        bound_ms, bound_by = bound(nbytes, flops, "float64")
+        phases = device_ms_split(kernel, iters, "dse_")
+        row = dict(case=f"{name} P={P} C={C} D={D} n_ops={n_ops} W={W}",
+                   max_abs_err=(got - want).abs().max().item(), tol="bit-identical",
+                   ok=bool(exact and twice), deterministic=twice, ms=cuda_ms(kernel, iters),
+                   device_ms=sum(phases.values()) or None, device_ms_by_kernel=phases,
+                   plain_ms=cuda_ms(plain, plain_iters, warmup=1), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None, bytes=nbytes, flops=flops)
+        if name == "dse_sweep":
+            # its true limit: one dependent fp64 max and add per level; and
+            # how far back the parents sit (what a window of recent finish
+            # rows would catch)
+            back = (torch.arange(n_ops, device=parents.device)[:, None] - parents.long())[
+                parents.long() != n_ops]
+            row.update(levels=len(levels), parents_within_2=(back <= 2).double().mean().item(),
+                       max_parent_distance=int(back.max().item()),
+                       chain_estimate_ms=len(levels) * 2 * FP64_DEP_CYCLES / SM_CLOCK_HZ * 1e3,
+                       durations_bit_identical_to_numpy=bool(
+                           np.array_equal(dur.cpu().numpy(), numpy_dur)))
+        print(f"[dse] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def dse(torch, np, counted, card):
+    """The DSE's main path on the card: the backend benchmark's population
+    through CosmicEnv.step_batch on ``reference`` (one generation, the
+    oracle), ``torch-unfused`` and ``torch`` (DSE_REPEATS generations each,
+    every member within DSE_RTOL of the oracle), the launch counts of the
+    ``torch`` generations (set to 0 just before them), each kernel's device
+    ms; the kernels at these shapes against their plain twins; then
+    DSE_BIG members on ``torch`` (DSE_CHECKED of them against the oracle),
+    and the study CLI on ``torch`` against ``reference``.  Returns (kernel
+    rows by name, launches, more rows)."""
+    from repro_torch.core.backends import get_backend
+    cfgs = dse_population(np, DSE_POINTS)
+    envs = {b: dse_env(b) for b in ("reference", "torch-unfused", "torch")}
+    t0 = time.perf_counter()
+    job = envs["reference"].scenario.sim_job(envs["reference"].context(cfgs[0]))
+    trace = job.calls[0].trace
+    want, ref_s = dse_generation(torch, envs["reference"], cfgs)
+    print(f"[dse] {card} | {DSE_ARCH} on {DSE_SYSTEM}, request stream of {DSE_REQUESTS}: "
+          f"{len(trace.ops)} ops on {len(trace._sim_plan.res_names)} resources, "
+          f"{len(job.calls)} simulator call(s) a point; trace built in "
+          f"{time.perf_counter() - t0 - ref_s:.3f} s; reference: {len(cfgs)} points in "
+          f"{ref_s * 1e3:.3f} ms = {len(cfgs) / ref_s:.3f} pts/s; "
+          f"{sum(w.valid for w in want)} valid")
+    launches = None
+    for backend in ("torch-unfused", "torch"):
+        env = envs[backend]
+        env.step_batch(cfgs)  # warm: the plan's tables on the card, the kernels loaded
+        if backend == "torch":
+            for fn in counted.values():
+                fn.launches = 0
+        gens = []
+        for _ in range(DSE_REPEATS):
+            got, s = dse_generation(torch, env, cfgs)
+            gens.append((s, dict(get_backend(backend).last_timings)))
+            worst, ok = dse_agree(want, got)
+            if not ok:
+                fail(f"dse: {backend} disagrees with reference: max relative gap {worst}")
+        if backend == "torch":
+            launches = {name: fn.launches for name, fn in counted.items()}
+        s, timings = min(gens, key=lambda g: g[0])
+        by_name = device_by_kernel(lambda: dse_generation(torch, env, cfgs), 2)
+        kern = {k: v for k, v in by_name.items() if "dse_" in k}
+        copies = sum(v for k, v in by_name.items() if "memcpy" in k.lower())
+        print(f"[dse] {card} | {backend} P={len(cfgs)}: {len(cfgs) / s:.3f} pts/s, "
+              f"{s * 1e3:.3f} ms/gen (best of {DSE_REPEATS}: "
+              f"{[round(g[0] * 1e3, 3) for g in gens]}); last_timings durations "
+              f"{timings['durations_s'] * 1e3:.3f} ms, sweep {timings['sweep_s'] * 1e3:.3f} ms, "
+              f"rest (scenario jobs, busy sums, finalize) "
+              f"{(s - timings['durations_s'] - timings['sweep_s']) * 1e3:.3f} ms; device ms a "
+              f"generation (torch.profiler): kernels "
+              f"{ {k[:60]: round(v, 4) for k, v in kern.items()} }, copies {copies:.4f}, all "
+              f"{sum(by_name.values()):.4f}; members within {DSE_RTOL} of reference (max gap "
+              f"{worst:.3e})")
+    want_counts = {name: 0 for name in counted}
+    want_counts.update(dse_class_times=DSE_REPEATS, dse_sweep=DSE_REPEATS)
+    if launches != want_counts:
+        fail(f"dse: kernel launches in {DSE_REPEATS} torch generations {launches}, "
+             f"expected {want_counts}")
+    print(f"[dse] launches in {DSE_REPEATS} torch generations: {launches}")
+    rows = check_dse(torch, np, trace, [envs["torch"].scenario.sim_job(
+        envs["torch"].context(c)).calls[0] for c in cfgs], 20)
+
+    # a larger population: the members run in parallel on the card
+    big = dse_population(np, DSE_BIG)
+    env = envs["torch"]
+    env.step_batch(big)
+    gens = [dse_generation(torch, env, big) for _ in range(DSE_REPEATS)]
+    s = min(g[1] for g in gens)
+    timings = get_backend("torch").last_timings
+    picked = big[::DSE_BIG // DSE_CHECKED]
+    worst, ok = dse_agree([envs["reference"].evaluate_config(c) for c in picked],
+                          [gens[-1][0][i] for i in range(0, DSE_BIG, DSE_BIG // DSE_CHECKED)])
+    if not ok:
+        fail(f"dse: torch at P={DSE_BIG} disagrees with reference: max relative gap {worst}")
+    by_name = device_by_kernel(lambda: dse_generation(torch, env, big), 2)
+    kern = {k: v for k, v in by_name.items() if "dse_" in k}
+    print(f"[dse] {card} | torch P={DSE_BIG}: {DSE_BIG / s:.3f} pts/s, {s * 1e3:.3f} ms/gen "
+          f"(best of {DSE_REPEATS}); last_timings durations {timings['durations_s'] * 1e3:.3f} "
+          f"ms, sweep {timings['sweep_s'] * 1e3:.3f} ms; device ms a generation: kernels "
+          f"{ {k[:60]: round(v, 4) for k, v in kern.items()} }, all "
+          f"{sum(by_name.values()):.4f}; {len(picked)} members within {DSE_RTOL} of reference "
+          f"(max gap {worst:.3e})")
+    more = check_dse(torch, np, trace, [env.scenario.sim_job(env.context(c)).calls[0]
+                                        for c in big], 10)
+    bad = [r["case"] for r in rows + more if not r["ok"]]
+    if bad:
+        fail(f"dse kernels disagree with their plain twins or numpy: {bad}")
+    dse_cli()
+    return {r["case"].split()[0]: r for r in rows}, launches, more
+
+
+def dse_cli() -> None:
+    """``python -m repro_torch.dse run examples/studies/smoke.json`` on the
+    ``torch`` backend (the card) and on ``reference``: every cell's best
+    reward within DSE_RTOL."""
+    import os
+    import tempfile
+    best = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("reference", "torch"):
+            out = Path(tmp) / f"{backend}.jsonl"
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.dse", "run",
+                 str(ROOT / "examples" / "studies" / "smoke.json"), "--backend", backend,
+                 "--out", str(out), "--quiet"], capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            if r.returncode:
+                fail(f"python -m repro_torch.dse run --backend {backend}: {r.stderr[-2000:]}")
+            cells = [json.loads(line) for line in out.read_text().splitlines()]
+            best[backend] = {c["cell_id"]: c["result"]["best_reward"] for c in cells
+                             if c.get("record") == "cell"}
+            print(f"[dse] python -m repro_torch.dse run examples/studies/smoke.json --backend "
+                  f"{backend}: {time.perf_counter() - t0:.3f} s, best rewards {best[backend]}; "
+                  f"{r.stdout.strip().splitlines()[-1][:160]}")
+    if not best["torch"] or best["torch"].keys() != best["reference"].keys() or any(
+            abs(v - best["reference"][k]) > DSE_RTOL * abs(best["reference"][k])
+            for k, v in best["torch"].items()):
+        fail(f"dse CLI: torch {best['torch']} vs reference {best['reference']}")
+
+
 def nvidia_smi() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -842,7 +1127,7 @@ def main() -> None:
 
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import _build, flash_attention as fa, ops, ref, rmsnorm as rn
-    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import dse_sim, ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.models import moe as moem
     from repro_torch.models.layers import map_with_path, param_count
@@ -960,26 +1245,31 @@ def main() -> None:
     if calls != (1, 1) or not all(e[2] for e in errs):
         fail("ops.ssd under grad did not differentiate through the SSD backward kernels")
 
-    # -- serve, then consistency, per model ------------------------------------
     counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
                "ssd_scan": ss.ssd_scan, "flash_attention_bwd": fa.flash_attention_bwd,
-               "rmsnorm_bwd": rn.rmsnorm_bwd, "ssd_scan_bwd": ss.ssd_scan_bwd}
+               "rmsnorm_bwd": rn.rmsnorm_bwd, "ssd_scan_bwd": ss.ssd_scan_bwd,
+               "dse_class_times": dse_sim.dse_class_times, "dse_sweep": dse_sim.dse_sweep}
+    no_dse = {"dse_class_times": 0, "dse_sweep": 0}  # the model paths launch no DSE kernel
 
+    # -- dse -----------------------------------------------------------------------
+    by_path = {}
+    dse_rows, by_path["dse"], dse_more = dse(torch, np, counted, card)
+
+    # -- serve, then consistency, per model ------------------------------------
     def attention_counts(model_spec):
         # per layer: flash once in prefill; norm1 and norm2 in prefill and in
         # each decode step, and the final norm; serving launches no backward
         return {"flash_attention": model_spec.n_layers, "ssd_scan": 0,
                 "rmsnorm": (2 * model_spec.n_layers + 1) * (1 + NEW),
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0, **no_dse}
 
-    by_path = {}
     for model_spec, prompt, want in (
             (spec, PROMPT, attention_counts(spec)),
             # per layer: norm1 and the mixer's gated norm; no FFN, no attention
             (mspec, M_PROMPT, {"flash_attention": 0, "ssd_scan": mspec.n_layers,
                                "rmsnorm": (2 * mspec.n_layers + 1) * (1 + NEW),
                                "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                               "ssd_scan_bwd": 0}),
+                               "ssd_scan_bwd": 0, **no_dse}),
             (gspec, G_PROMPT, attention_counts(gspec)),
             (rspec, R_PROMPT, attention_counts(rspec))):
         params, prompts, by_path[model_spec.name] = serve(
@@ -1047,6 +1337,14 @@ def main() -> None:
              case=named["float32", "bwd mamba2 train"],
              more=[named["bfloat16", "bwd mamba2 train"]] + [
                  named[dt_name, "bwd ragged grouped"] for dt_name in ("float32", "bfloat16")]),
+        # the DSE's population evaluation: the JAX package runs it as
+        # XLA-jitted jnp (_fused_eval and _sweep_population), not Pallas
+        dict(name="dse_class_times", route="cuda", source="src/repro_torch/csrc/dse_sim.cu",
+             replaces="src/repro/core/backends/jax_backend.py:129",
+             case=dse_rows["dse_class_times"], more=dse_more[:1]),
+        dict(name="dse_sweep", route="cuda", source="src/repro_torch/csrc/dse_sim.cu",
+             replaces="src/repro/core/backends/jax_backend.py:66",
+             case=dse_rows["dse_sweep"], more=dse_more[1:]),
     ]
     for k in kernels:
         r, more = k.pop("case"), k.pop("more")

@@ -7,8 +7,10 @@ kernel written for ``sm_90a`` (``repro_torch.kernels``) with a plain-PyTorch
 twin that CPU tensors take.
 
 Entry points (``init_params``, ``init_caches``, ``Engine``,
-``python -m repro_torch.launch.serve``) run on the card unless the caller
-passes ``device="cpu"``; without CUDA a default-device call raises.
+``python -m repro_torch.launch.serve``, and the DSE's ``torch`` simulation
+backends behind ``python -m repro_torch.dse``) run on the card unless the
+caller passes ``device="cpu"`` (``--device cpu``); without CUDA a
+default-device call raises.
 """
 from __future__ import annotations
 

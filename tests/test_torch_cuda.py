@@ -19,6 +19,8 @@ shows against the tensor's scale.
 """
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -759,3 +761,156 @@ def test_serving_under_inference_mode_keeps_its_launch_counts(dev):
     got = [c.launches - b for c, b in zip(counters, before)]
     assert got == [spec.n_layers, 0, (2 * spec.n_layers + 1) * (1 + 8), 0]
     assert out.shape == (2, 8)
+
+
+# ---------------------------------------------------------------------------
+# the DSE simulation kernels (csrc/dse_sim.cu) and the torch backend on the
+# card: float64 kernels held bit for bit against their plain twins and the
+# JAX package's numpy durations, the backend against the JAX package's
+# reference event loop at RTOL 1e-9 (``repro.core`` is numpy and imports no
+# jax)
+# ---------------------------------------------------------------------------
+
+DSE_RTOL = 1e-9  # the issue-order sweep vs the event loop (tests/test_backends.py:182)
+DSE_BASE = dict(dp=8, sp=1, pp=1, weight_sharded=0, sched_policy="fifo",
+                coll_algo=("ring", "direct", "ring", "rhd"), chunks=2,
+                multidim_coll="baseline", topology=("ring", "fc", "ring", "switch"),
+                npus_per_dim=(4, 8, 4, 8), bw_per_dim=(400, 200, 150, 100))
+
+
+def _dse_env(kind, backend="reference", device=None, pkg="repro_torch"):
+    """An env of ``pkg``: the port, or the JAX package (``repro``, whose
+    ``system_env`` takes no device) for the expected side."""
+    import importlib
+    scenario = importlib.import_module(f"{pkg}.core.scenario")
+    system_env = importlib.import_module(f"{pkg}.core.systems").system_env
+    sc, obj, extra = {
+        "train": (None, "perf_per_bw", {}),
+        "disagg": (scenario.DisaggServeScenario(64, 2048, 16), "perf_per_bw",
+                   dict(prefill_frac=0.5, decode_batch=4)),
+        "request-stream": (scenario.RequestStreamScenario(n_requests=24, seq=1024,
+                                                          decode_tokens=16, rate_rps=16.0,
+                                                          seed=3), "goodput",
+                           dict(prefill_frac=0.5, decode_batch=4, batch_window_ms=50.0,
+                                max_inflight=2)),
+    }[kind]
+    kw = dict(scenario=sc) if sc is not None else dict(batch=64)
+    if pkg == "repro_torch":
+        kw.update(backend=backend, sim_device=device)
+    env = system_env("qwen2-1.5b", "system2", objective=obj, **kw)
+    return env, extra
+
+
+def _dse_population(kind, size):
+    """``size`` seeded design points differing in every knob that prices a
+    duration (algorithms, chunks, mode, bandwidths, policy), sharing one trace."""
+    rng = np.random.default_rng(size)
+    algos = ("ring", "direct", "rhd", "dbt")
+    _, extra = _dse_env(kind)
+    return [dict(DSE_BASE, **extra, coll_algo=tuple(rng.choice(algos) for _ in range(4)),
+                 chunks=int(rng.choice((1, 2, 4, 8, 16))),
+                 sched_policy=str(rng.choice(("fifo", "lifo"))),
+                 multidim_coll=str(rng.choice(("baseline", "blueconnect"))),
+                 bw_per_dim=tuple(int(b) for b in rng.choice(range(50, 501, 50), size=4)))
+            for _ in range(size)]
+
+
+def _dse_calls(kind, size, pkg="repro_torch"):
+    env, _ = _dse_env(kind, pkg=pkg)
+    jobs = [env.scenario.sim_job(env.context(c)) for c in _dse_population(kind, size)]
+    calls = [c for j in jobs for c in j.calls]
+    tr = calls[0].trace
+    return tr, [c for c in calls if c.trace is tr]
+
+
+def _dse_inputs(backend, tr, calls):
+    from repro_torch.core.simulator import plan_duration_tables
+    plan, tables = plan_duration_tables(tr, calls)
+    return plan, tables, backend._static(tr, plan), backend._class_tables(tables)
+
+
+def _dse_kernels(st, tab):
+    from repro_torch.kernels import dse_sim
+    class_t = dse_sim.dse_class_times(
+        st["kind"], st["size"], st["is_xfer"], tab["npus"], tab["bw"], tab["lat"], tab["scale"],
+        tab["topo"], tab["algo"], tab["chunks"], tab["blue"], tab["xfer_bw"], tab["xfer_lat"])
+    dur, finish = dse_sim.dse_sweep(st["parents"], sources=st["sources"], class_t=class_t,
+                                    peak=tab["peak"], membw=tab["membw"])
+    torch.cuda.synchronize()
+    return class_t, dur, finish
+
+
+@pytest.mark.parametrize("size", [1, 7, 32, 256])
+@pytest.mark.parametrize("kind", ["train", "disagg", "request-stream"])
+def test_dse_kernels_match_their_plain_twins_bit_for_bit(dev, kind, size):
+    from repro.core.simulator import plan_durations_batch
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.kernels import dse_sim
+    tr, calls = _dse_calls(kind, size)
+    plan, _, st, tab = _dse_inputs(TorchBackend(device=dev), tr, calls)
+    before = (dse_sim.dse_class_times.launches, dse_sim.dse_sweep.launches)
+    class_t, dur, finish = _dse_kernels(st, tab)
+    assert (dse_sim.dse_class_times.launches - before[0],
+            dse_sim.dse_sweep.launches - before[1]) == (1, 1)
+    assert class_t.shape == (len(calls), len(plan.coll_shapes))
+    assert dur.shape == (plan.n_ops, len(calls)) and finish.shape == (plan.n_ops + 1, len(calls))
+    args = [st["kind"], st["size"], st["is_xfer"]] + [tab[k] for k in (
+        "npus", "bw", "lat", "scale", "topo", "algo", "chunks", "blue", "xfer_bw", "xfer_lat")]
+    assert torch.equal(class_t, dse_sim.class_times_plain(*args))
+    want_dur = dse_sim.op_durations_plain(st["sources"], class_t, tab["peak"], tab["membw"])
+    assert torch.equal(dur, want_dur)
+    assert torch.equal(finish, dse_sim.sweep_plain(st["parents"], dur))
+    # the JAX package's numpy duration pass on the same population, on the host
+    _, want = plan_durations_batch(*_dse_calls(kind, size, pkg="repro"))
+    assert np.array_equal(dur.cpu().numpy(), want.T)
+    # the given-durations mode (the unfused path) sweeps the same bits
+    same, fin2 = dse_sim.dse_sweep(st["parents"], dur=dur.clone())
+    assert torch.equal(fin2, finish) and torch.equal(same, dur)
+
+
+@pytest.mark.parametrize("kind", ["train", "disagg", "request-stream"])
+@pytest.mark.parametrize("backend", ["torch", "torch-unfused"])
+def test_dse_torch_backend_on_the_card_matches_reference(dev, kind, backend):
+    from repro.core import cache as j_cache
+    from repro_torch.core import cache
+    from repro_torch.kernels import dse_sim
+    cache.clear_all_caches()
+    j_cache.clear_all_caches()
+    cfgs = _dse_population(kind, 16)
+    env_ref, _ = _dse_env(kind, pkg="repro")
+    env_t, _ = _dse_env(kind, backend=backend)  # the default device: the card
+    before = (dse_sim.dse_class_times.launches, dse_sim.dse_sweep.launches)
+    got = env_t.step_batch(cfgs)
+    launched = (dse_sim.dse_class_times.launches - before[0],
+                dse_sim.dse_sweep.launches - before[1])
+    assert launched[0] == (launched[1] if backend == "torch" else 0) and launched[1] >= 1
+    want = [env_ref.evaluate_config(c) for c in cfgs]
+    assert sum(w.valid for w in want) >= 8
+    for g, w in zip(got, want):
+        assert g.valid == w.valid
+        if w.valid:
+            assert abs(g.reward - w.reward) <= DSE_RTOL * abs(w.reward)
+            assert abs(g.latency_ms - w.latency_ms) <= DSE_RTOL * abs(w.latency_ms)
+
+
+def test_dse_forward_dependency_raises_on_the_card(dev):
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.compute import SYSTEM_2_DEVICE
+    from repro_torch.core.simulator import SystemConfig
+    from repro_torch.core.topology import system_2
+    from repro_torch.core.workload import Op, Parallelism, Trace
+    ops = [Op(uid=0, name="a", kind="comp", deps=[1], flops=1e9, bytes=1e6),
+           Op(uid=1, name="b", kind="comp", deps=[], flops=1e9, bytes=1e6)]
+    cfg = SystemConfig(network=system_2(), device=SYSTEM_2_DEVICE,
+                       coll_algo=("ring", "direct", "ring", "rhd"))
+    with pytest.raises(ValueError, match="depends on a later op"):
+        get_backend("torch").simulate(Trace(ops=ops), cfg, Parallelism(1024, 64, 4, 1))
+
+
+@pytest.mark.parametrize("kind", ["train", "request-stream"])
+def test_dse_kernels_give_the_same_bits_twice(dev, kind):
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    tr, calls = _dse_calls(kind, 32)
+    _, _, st, tab = _dse_inputs(TorchBackend(device=dev), tr, calls)
+    first, second = _dse_kernels(st, tab), _dse_kernels(st, tab)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -138,7 +138,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.moe", "repro_torch.train.train_step", "repro_torch.train.loss",
             "repro_torch.train.optimizer", "repro_torch.ckpt.checkpoint",
             "repro_torch.data.pipeline", "repro_torch.runtime.fault",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.core.env",
+            "repro_torch.core.backends.torch_backend", "repro_torch.dse",
+            "repro_torch.kernels.dse_sim"} <= set(mods)
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 22
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
