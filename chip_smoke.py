@@ -60,16 +60,24 @@ Phases, one or more lines each:
                points, qwen2-1.5b on system2 under a pinned request stream of
                256 requests, a 25,872-op trace) through CosmicEnv.step_batch
                on the reference backend (one generation, the oracle),
-               torch-unfused and torch (three generations each; pts/s, ms a
-               generation, the last_timings split, each kernel's device ms
-               and the copies' by torch.profiler), every member's reward and
-               latency within 1e-9 of the oracle; the launch counts of the
-               torch generations, every count set to 0 just before them;
+               torch-unfused and torch (five generations each; pts/s, ms a
+               generation, the last_timings split and the host's rest as
+               medians with their ranges, each kernel's device ms and the
+               copies' by torch.profiler), every member's reward and latency
+               within 1e-9 of the oracle; the launch counts of the torch
+               generations, every count set to 0 just before them; an fp64
+               latency probe (a one-thread chain of dependent fmax and add
+               timed by clock64, and the SM clock it implies);
                dse_class_times and dse_sweep at these shapes against their
                plain twins on the card and numpy's batched duration pass, bit
                for bit, twice for the same bits, with bytes and float64
-               bounds and the sweep's chain of dependency levels; then 256
-               members on torch, 32 of them held against the oracle; then
+               bounds, the sweep's chain of dependency levels at the probe's
+               latency, its cycles per op and where its parent reads are
+               served (registers, the ring in shared memory, the finish
+               table); then 256 members on torch, 32 of them held against
+               the oracle; the sweep at the first 32, 64, 128 and 256 of
+               them; the sweep on synthetic parent tables reaching 5,000 ops
+               back, against its plain twin and a numpy max-plus; then
                python -m repro_torch.dse run examples/studies/smoke.json on
                torch against reference
   serve        each model at full width and depth (random weights from a seed)
@@ -147,11 +155,13 @@ STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
 # 49-107) of DSE_POINTS members over a request stream of DSE_REQUESTS,
 # then DSE_BIG members of which DSE_CHECKED are held against the oracle
 DSE_ARCH, DSE_SYSTEM, DSE_REQUESTS = "qwen2-1.5b", "system2", 256
-DSE_POINTS, DSE_BIG, DSE_CHECKED, DSE_REPEATS = 32, 256, 32, 3
+DSE_POINTS, DSE_BIG, DSE_CHECKED, DSE_REPEATS = 32, 256, 32, 5
 DSE_RTOL = 1e-9  # the issue-order sweep vs the event loop, as the JAX backend's parity tests
-# the sweep's chain estimate: an fp64 max or add issues FP64_DEP_CYCLES after
-# the one it depends on (an assumed latency), at the H100 SXM's boost clock
-FP64_DEP_CYCLES, SM_CLOCK_HZ = 8, 1.98e9
+DSE_SCAN = (32, 64, 128, 256)  # the sweep at the first P members of the DSE_BIG population
+# the sweep on synthetic parent tables (dse_sim.synthetic_sweep_case: parents
+# up to 5,000 ops back, past the ring): (n_ops, W, P)
+DSE_WINDOW_CASES = ((20011, 8, 257), (20011, 3, 33))
+PROBE_LINKS = 1 << 22  # dependent (fmax, add) pairs the fp64 latency probe times
 
 
 def fail(msg: str) -> None:
@@ -905,12 +915,45 @@ def dse_agree(want, got) -> tuple[float, bool]:
     return worst, bool(ok)
 
 
-def check_dse(torch, np, trace, calls, iters):
+def fp64_probe(torch, dse_sim) -> dict:
+    """The sweep's chain link on this card: PROBE_LINKS dependent (fmax,
+    add) pairs in float64 on one thread, in clock cycles (clock64) and in
+    events ms; their ratio is the SM clock the run saw."""
+    dse_sim.fp64_chain_probe(1 << 10)  # load and warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    cycles = dse_sim.fp64_chain_probe(PROBE_LINKS)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    out = dict(fmax_add_cycles=cycles / PROBE_LINKS, sm_clock_hz=cycles / (ms / 1e3),
+               probe_ms=ms, links=PROBE_LINKS)
+    print(f"[dse] fp64 latency probe: {json.dumps(out)}")
+    return out
+
+
+def served_shares(dse_sim, parents) -> dict:
+    """Where the sweep kernel takes the table's real parent reads, as
+    counts and shares."""
+    counts = dse_sim.sweep_served_from(parents)
+    total = sum(counts.values())
+    return dict(counts, **{f"{k}_share": v / total for k, v in counts.items()},
+                ring_depth=dse_sim.RING)
+
+
+def sweep_device_ms(phases: dict) -> float | None:
+    """The sweep launch's device ms among a dse_sweep call's kernels."""
+    return next((ms for name, ms in phases.items() if name.startswith("dse_sweep")), None)
+
+
+def check_dse(torch, np, trace, calls, iters, probe):
     """dse_class_times and dse_sweep at the main path's shapes against
     their plain twins on the card (bit for bit) and numpy's batched
     duration pass (bit for bit), each run twice for the same bits; events
-    ms, device ms, the plain twins' ms and the bounds.  Returns the two
-    rows."""
+    ms, device ms, the plain twins' ms and the bounds; for the sweep also
+    its cycles per op at the probe's clock, the chain estimate at the
+    probe's latency and where its parent reads are served.  Returns the
+    two rows."""
     from repro_torch.core.backends.torch_backend import TorchBackend
     from repro_torch.core.simulator import batch_op_durations, plan_duration_tables
     from repro_torch.kernels import dse_sim
@@ -968,14 +1011,19 @@ def check_dse(torch, np, trace, calls, iters):
                    plain_ms=cuda_ms(plain, plain_iters, warmup=1), bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None, bytes=nbytes, flops=flops)
         if name == "dse_sweep":
-            # its true limit: one dependent fp64 max and add per level; and
-            # how far back the parents sit (what a window of recent finish
-            # rows would catch)
+            # its true limit: one dependent fp64 max and add per level, at
+            # the probe's latency; how far back the parents sit, and where
+            # the kernel serves them from
             back = (torch.arange(n_ops, device=parents.device)[:, None] - parents.long())[
                 parents.long() != n_ops]
+            sweep_ms = sweep_device_ms(phases)
             row.update(levels=len(levels), parents_within_2=(back <= 2).double().mean().item(),
                        max_parent_distance=int(back.max().item()),
-                       chain_estimate_ms=len(levels) * 2 * FP64_DEP_CYCLES / SM_CLOCK_HZ * 1e3,
+                       chain_estimate_ms=len(levels) * probe["fmax_add_cycles"]
+                       / probe["sm_clock_hz"] * 1e3,
+                       cycles_per_op=(sweep_ms * 1e-3 * probe["sm_clock_hz"] / n_ops
+                                      if sweep_ms else None),
+                       served_from=served_shares(dse_sim, parents),
                        durations_bit_identical_to_numpy=bool(
                            np.array_equal(dur.cpu().numpy(), numpy_dur)))
         print(f"[dse] {json.dumps(row)}")
@@ -983,17 +1031,106 @@ def check_dse(torch, np, trace, calls, iters):
     return rows
 
 
+def sweep_p_scan(torch, env, trace, population, probe) -> list[dict]:
+    """dse_sweep (gather and sweep) at the first P members of the
+    population for each P in DSE_SCAN: events ms, device ms by launch and
+    the sweep's cycles per op."""
+    from repro_torch.core.backends.torch_backend import TorchBackend
+    from repro_torch.core.simulator import plan_duration_tables
+    from repro_torch.kernels import dse_sim
+    be = TorchBackend(device="cuda")
+    out = []
+    for P in DSE_SCAN:
+        plan, tables = plan_duration_tables(
+            trace, [env.scenario.sim_job(env.context(c)).calls[0] for c in population[:P]])
+        st, tab = be._static(trace, plan), be._class_tables(tables)
+        class_t = dse_sim.dse_class_times(st["kind"], st["size"], st["is_xfer"], *[tab[k] for k in (
+            "npus", "bw", "lat", "scale", "topo", "algo", "chunks", "blue", "xfer_bw", "xfer_lat")])
+
+        def run():
+            return dse_sim.dse_sweep(st["parents"], sources=st["sources"], class_t=class_t,
+                                     peak=tab["peak"], membw=tab["membw"])
+        phases = device_ms_split(run, 10, "dse_")
+        sweep_ms = sweep_device_ms(phases)
+        out.append(dict(P=P, ms=cuda_ms(run, 10), device_ms=sum(phases.values()) or None,
+                        device_ms_by_kernel=phases,
+                        cycles_per_op=(sweep_ms * 1e-3 * probe["sm_clock_hz"] / plan.n_ops
+                                       if sweep_ms else None)))
+    print(f"[dse] dse_sweep P scan (the first P of {len(population)} members): {json.dumps(out)}")
+    return out
+
+
+def numpy_max_plus(np, parents, dur):
+    """finish[i] = dur[i] + max(finish[parents[i]]) in uid order, numpy."""
+    n_ops, P = dur.shape
+    fin = np.zeros((n_ops + 1, P))
+    for i in range(n_ops):
+        fin[i] = dur[i] + fin[parents[i]].max(axis=0)
+    return fin
+
+
+def check_sweep_window(torch, np, probe) -> list[dict]:
+    """dse_sweep over given durations on synthetic parent tables that reach
+    past the ring (DSE_WINDOW_CASES): the finish times against the plain
+    twin and a numpy max-plus, bit for bit; times and bounds as the main
+    path's rows."""
+    from repro_torch.kernels import dse_sim
+    rows = []
+    for n_ops, W, P in DSE_WINDOW_CASES:
+        parents_np, dur_np = dse_sim.synthetic_sweep_case(SEED, n_ops, W, P)
+        parents, dur = torch.from_numpy(parents_np).cuda(), torch.from_numpy(dur_np).cuda()
+        _, finish = dse_sim.dse_sweep(parents, dur=dur)
+        torch.cuda.synchronize()
+        levels = dse_sim.sweep_levels(parents)
+        want = dse_sim.sweep_plain(parents, dur, levels)
+        exact = torch.equal(finish, want) and np.array_equal(
+            finish.cpu().numpy(), numpy_max_plus(np, parents_np, dur_np))
+        nbytes = n_ops * W * 4 + n_ops * P * 8 + (n_ops + 1) * P * 8
+        bound_ms, bound_by = bound(nbytes, n_ops * P * W, "float64")
+        phases = device_ms_split(lambda: dse_sim.dse_sweep(parents, dur=dur), 5, "dse_")
+        sweep_ms = sweep_device_ms(phases)
+        row = dict(case=f"dse_sweep synthetic n_ops={n_ops} W={W} P={P}, parents up to 5000 back",
+                   max_abs_err=(finish - want).abs().max().item(), tol="bit-identical",
+                   ok=bool(exact), ms=cuda_ms(lambda: dse_sim.dse_sweep(parents, dur=dur), 5),
+                   device_ms=sum(phases.values()) or None, device_ms_by_kernel=phases,
+                   plain_ms=cuda_ms(lambda: dse_sim.sweep_plain(parents, dur, levels), 1, warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, levels=len(levels),
+                   cycles_per_op=(sweep_ms * 1e-3 * probe["sm_clock_hz"] / n_ops
+                                  if sweep_ms else None),
+                   served_from=served_shares(dse_sim, parents))
+        print(f"[dse] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def gen_summary(gens, points: int) -> dict:
+    """Medians of DSE generations (wall seconds, last_timings) with their
+    ranges: pts/s, ms a generation, the host's table packing, the device
+    evaluation with its copies, and the rest (scenario jobs, busy sums,
+    finalize)."""
+    def med_range(xs):
+        xs = sorted(xs)
+        return [round(xs[len(xs) // 2], 3), round(xs[0], 3), round(xs[-1], 3)]
+    return {"pts_per_s": med_range([points / g for g, _ in gens]),
+            "ms_per_gen": med_range([g * 1e3 for g, _ in gens]),
+            "durations_ms": med_range([t["durations_s"] * 1e3 for _, t in gens]),
+            "sweep_ms": med_range([t["sweep_s"] * 1e3 for _, t in gens]),
+            "rest_ms": med_range([(g - t["durations_s"] - t["sweep_s"]) * 1e3 for g, t in gens])}
+
+
 def dse(torch, np, counted, card):
     """The DSE's main path on the card: the backend benchmark's population
     through CosmicEnv.step_batch on ``reference`` (one generation, the
     oracle), ``torch-unfused`` and ``torch`` (DSE_REPEATS generations each,
-    every member within DSE_RTOL of the oracle), the launch counts of the
-    ``torch`` generations (set to 0 just before them), each kernel's device
-    ms; the kernels at these shapes against their plain twins; then
-    DSE_BIG members on ``torch`` (DSE_CHECKED of them against the oracle),
-    and the study CLI on ``torch`` against ``reference``.  Returns (kernel
-    rows by name, launches, more rows)."""
+    every member within DSE_RTOL of the oracle; medians and ranges), the
+    launch counts of the ``torch`` generations (set to 0 just before them),
+    each kernel's device ms; the fp64 latency probe; the kernels at these
+    shapes against their plain twins; then DSE_BIG members on ``torch``
+    (DSE_CHECKED of them against the oracle), the sweep's P scan and its
+    synthetic far-parent cases, and the study CLI on ``torch`` against
+    ``reference``.  Returns (kernel rows by name, launches, more rows)."""
     from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import dse_sim
     cfgs = dse_population(np, DSE_POINTS)
     envs = {b: dse_env(b) for b in ("reference", "torch-unfused", "torch")}
     t0 = time.perf_counter()
@@ -1022,16 +1159,11 @@ def dse(torch, np, counted, card):
                 fail(f"dse: {backend} disagrees with reference: max relative gap {worst}")
         if backend == "torch":
             launches = {name: fn.launches for name, fn in counted.items()}
-        s, timings = min(gens, key=lambda g: g[0])
         by_name = device_by_kernel(lambda: dse_generation(torch, env, cfgs), 2)
         kern = {k: v for k, v in by_name.items() if "dse_" in k}
         copies = sum(v for k, v in by_name.items() if "memcpy" in k.lower())
-        print(f"[dse] {card} | {backend} P={len(cfgs)}: {len(cfgs) / s:.3f} pts/s, "
-              f"{s * 1e3:.3f} ms/gen (best of {DSE_REPEATS}: "
-              f"{[round(g[0] * 1e3, 3) for g in gens]}); last_timings durations "
-              f"{timings['durations_s'] * 1e3:.3f} ms, sweep {timings['sweep_s'] * 1e3:.3f} ms, "
-              f"rest (scenario jobs, busy sums, finalize) "
-              f"{(s - timings['durations_s'] - timings['sweep_s']) * 1e3:.3f} ms; device ms a "
+        print(f"[dse] {card} | {backend} P={len(cfgs)}, median [min, max] of {DSE_REPEATS} "
+              f"generations: {json.dumps(gen_summary(gens, len(cfgs)))}; device ms a "
               f"generation (torch.profiler): kernels "
               f"{ {k[:60]: round(v, 4) for k, v in kern.items()} }, copies {copies:.4f}, all "
               f"{sum(by_name.values()):.4f}; members within {DSE_RTOL} of reference (max gap "
@@ -1042,31 +1174,35 @@ def dse(torch, np, counted, card):
         fail(f"dse: kernel launches in {DSE_REPEATS} torch generations {launches}, "
              f"expected {want_counts}")
     print(f"[dse] launches in {DSE_REPEATS} torch generations: {launches}")
+    probe = fp64_probe(torch, dse_sim)
     rows = check_dse(torch, np, trace, [envs["torch"].scenario.sim_job(
-        envs["torch"].context(c)).calls[0] for c in cfgs], 20)
+        envs["torch"].context(c)).calls[0] for c in cfgs], 20, probe)
 
     # a larger population: the members run in parallel on the card
     big = dse_population(np, DSE_BIG)
     env = envs["torch"]
     env.step_batch(big)
-    gens = [dse_generation(torch, env, big) for _ in range(DSE_REPEATS)]
-    s = min(g[1] for g in gens)
-    timings = get_backend("torch").last_timings
+    gens = []
+    for _ in range(DSE_REPEATS):
+        got, s = dse_generation(torch, env, big)
+        gens.append((s, dict(get_backend("torch").last_timings)))
     picked = big[::DSE_BIG // DSE_CHECKED]
     worst, ok = dse_agree([envs["reference"].evaluate_config(c) for c in picked],
-                          [gens[-1][0][i] for i in range(0, DSE_BIG, DSE_BIG // DSE_CHECKED)])
+                          [got[i] for i in range(0, DSE_BIG, DSE_BIG // DSE_CHECKED)])
     if not ok:
         fail(f"dse: torch at P={DSE_BIG} disagrees with reference: max relative gap {worst}")
     by_name = device_by_kernel(lambda: dse_generation(torch, env, big), 2)
     kern = {k: v for k, v in by_name.items() if "dse_" in k}
-    print(f"[dse] {card} | torch P={DSE_BIG}: {DSE_BIG / s:.3f} pts/s, {s * 1e3:.3f} ms/gen "
-          f"(best of {DSE_REPEATS}); last_timings durations {timings['durations_s'] * 1e3:.3f} "
-          f"ms, sweep {timings['sweep_s'] * 1e3:.3f} ms; device ms a generation: kernels "
+    print(f"[dse] {card} | torch P={DSE_BIG}, median [min, max] of {DSE_REPEATS} generations: "
+          f"{json.dumps(gen_summary(gens, DSE_BIG))}; device ms a generation: kernels "
           f"{ {k[:60]: round(v, 4) for k, v in kern.items()} }, all "
           f"{sum(by_name.values()):.4f}; {len(picked)} members within {DSE_RTOL} of reference "
           f"(max gap {worst:.3e})")
     more = check_dse(torch, np, trace, [env.scenario.sim_job(env.context(c)).calls[0]
-                                        for c in big], 10)
+                                        for c in big], 10, probe)
+    rows[1]["p_scan"] = sweep_p_scan(torch, env, trace, big, probe)
+    rows[1]["fp64_probe"] = probe
+    more += check_sweep_window(torch, np, probe)
     bad = [r["case"] for r in rows + more if not r["ok"]]
     if bad:
         fail(f"dse kernels disagree with their plain twins or numpy: {bad}")
@@ -1290,7 +1426,9 @@ def main() -> None:
     print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
           f"without device events, each taken again (up to {TRACE_TRIES} tries)")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
-                 "plain_ms", "bound_ms", "bound_by", "library_ms")
+                 "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 # the DSE sweep's: its chain, and where its parent reads are served
+                 "cycles_per_op", "chain_estimate_ms", "served_from", "p_scan", "fp64_probe")
 
     def numbers(r):
         return {key: r[key] for key in case_keys if key in r}

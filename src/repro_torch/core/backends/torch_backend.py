@@ -26,7 +26,8 @@ flavours:
     collective dim tables + roofline coefficients host-side (memoized per
     design-point key); ``dse_class_times`` prices every duration class x
     population member on the card and ``dse_sweep`` gathers the per-op
-    durations and runs the sweep — two launches, no host round-trip between
+    durations and runs the sweep, each member's recent finish times in
+    registers and shared memory — two launches, no host round-trip between
     pricing and scheduling.
   * UNFUSED (``TorchBackend(fused=False)``, registered as ``torch-unfused``):
     the scalar per-call duration pass (``simulator.plan_durations``) feeding

@@ -30,13 +30,55 @@
 // skips this launch.
 //
 // `dse_sweep_kernel`: the sweep.  It is persistent: one thread per member,
-// blocks of one warp, each thread walking all the ops in uid order.  The
-// finish table is op-major, (n_ops + 1, P), so a warp's reads and writes of
-// one op's row coalesce; row n_ops is the padded parent slot, pinned to 0.
-// The durations come from their own launch rather than being gathered in
-// the walk: the gather's dependent loads would sit on the sweep's chain (on
-// an H100 at P = 32, gathering inside the walk took 14.4 device ms where the
-// sweep over given durations took 9.6).
+// blocks of one warp (32 members; P = 256 spreads over 8 SMs), each thread
+// walking all the ops in uid order.  The finish table is op-major,
+// (n_ops + 1, P), so a warp's writes of one op's row coalesce; row n_ops is
+// the padded parent slot, pinned to 0.  The durations come from their own
+// launch rather than being gathered in the walk: the gather's dependent
+// loads would sit on the sweep's chain (on an H100 at P = 32, gathering
+// inside the walk took 14.4 device ms where the sweep over given durations
+// took 9.6).
+//
+// The walk keeps its chain on the SM.  On the request-stream trace 98.3% of
+// parent reads are one or two ops back and the farthest is 233 back, so
+// each thread holds the finish times of the last two ops in registers and
+// the last kRing = 256 (K) in a ring in shared memory, slot (j mod K), one
+// column per lane, beside a row of zeros for the padded slot.  Parent j of
+// op i is taken from the registers when i - j <= 2, from the ring when
+// i - j <= K, and otherwise from the finish table in device memory, which
+// the same thread stored earlier (a thread reads its own stores in order).
+// The padded slot n_ops, and any index outside [0, i), is 0.  The parents
+// table is the same for every lane, so every choice is uniform over the
+// warp.
+//
+// The walk's inputs do not depend on the chain, so they are staged ahead:
+// tiles of T ops (kTile = 256, halved while a wide parents table does not
+// fit) go by cp.async into a double buffer in shared memory while the warp
+// walks the tile before.  A duration row is 8 bytes a lane (a 32-member
+// row is 16-byte aligned only when P is even); the parents tile is 16-byte
+// chunks (T a multiple of 4; the table's base 16-byte aligned, the last
+// chunk cut to the table's end).  Finish rows are written with predicated
+// streaming stores (st.global.cs): only far parents read them back.
+//
+// Each landed tile takes one of two walks, the same for the whole warp:
+//   * walk_near, when every row has at most kRegCols = 4 parents and every
+//     parent is within K ops (every tile of the request-stream trace).  The
+//     lanes first turn the tile's parent indices, in place, into codes (the
+//     parent's ring row offset, with its distance when it is 1 or 2); then
+//     each op's ring values and duration are read two ops ahead and its
+//     codes three ahead, and the op itself is predicated selects, the fmax
+//     and the add: one basic block, no branch but the loop's.  (A walk that
+//     branches on the distances, or keeps a never-taken predicated load of
+//     the finish table, makes the one warp wait on them every op.)
+//   * walk_general, any other tile: a branch per parent on its distance,
+//     the finish table read only for a parent more than K ops back.
+//
+// Shared memory a block: the ring (K + 1) x 32 x 8 = 64.3 KB, the
+// durations 2 x (T + 4) x 32 x 8 = 130 KB and the parents 2 x (T + 4) x W
+// x 4 (6.1 KB at W = 3; the 4 spare rows take reads past a tile's end):
+// 200.3 KB on the request-stream trace, one block an SM.  The launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize, and a table too wide to fit
+// even at T = 4 (W above 2,540 on an H100) is refused.
 //
 // Exactness.  nvcc contracts a * b + c into one fused multiply-add by
 // default, and the build flags are shared by every source, so every product,
@@ -53,15 +95,11 @@
 //   * The sweep: by bytes, each duration read or written once, each parent
 //     index read once and each finish time written once: about 13.6 MB at
 //     P = 32 on the 25,872-op request-stream trace, 4 us at 3.35 TB/s.  Its
-//     true limit is the dependency chain: 12,995 levels, each a dependent
-//     load of a parent's finish time (written by the same thread just
-//     before, so from L1 or L2), an fp64 max and an add.  The design does
-//     nothing about that latency yet; a shared-memory window of recent
-//     finish rows, so that most parent reads skip L2, is later work.
-//   * The members run in parallel, one per thread and one warp a block, yet
-//     the device time still grows with P: on an H100 80GB HBM3 at 700 W
-//     chip_smoke.py reads 10.8 to 11.3 ms at P = 32 and 16.9 to 17.1 ms at
-//     P = 256 (eight blocks).  Why is not measured yet.
+//     true limit is the dependency chain: 12,995 levels, each an fp64 max
+//     and an add that wait on the op before (34 cycles a dependent fmax and
+//     add on an H100, measured by dse_fp64_probe).  One warp issues every
+//     op of walk_near, the chain in it a select, one or two fmax and the
+//     add; chip_smoke.py reads its cycles an op.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -169,21 +207,55 @@ __global__ void dse_class_times_kernel(ClassArgs a) {
 }
 
 struct SweepArgs {
-  const int32_t* parents;     // (n_ops, W) augmented parents, padded with n_ops
-  const int32_t* src_of_op;   // (n_ops,) slot in [zero | comp | coll | delay]
-  const double* comp_flops;   // (n_comp,)
-  const double* comp_bytes;   // (n_comp,)
-  const double* peak;         // (P,) FLOP/s
-  const double* membw;        // (P,) bytes/s
-  const double* class_t;      // (P, C)
-  const int32_t* coll_class;  // (n_coll,)
-  const double* coll_repeat;  // (n_coll,)
-  const double* delay_us;     // (n_delay,)
-  const double* dur_in;       // (n_ops, P) the durations the sweep reads
-  double* dur_out;            // (n_ops, P) gathered durations
-  double* finish;             // (n_ops + 1, P)
+  const int32_t* __restrict__ parents;     // (n_ops, W) augmented parents, padded with n_ops
+  const int32_t* __restrict__ src_of_op;   // (n_ops,) slot in [zero | comp | coll | delay]
+  const double* __restrict__ comp_flops;   // (n_comp,)
+  const double* __restrict__ comp_bytes;   // (n_comp,)
+  const double* __restrict__ peak;         // (P,) FLOP/s
+  const double* __restrict__ membw;        // (P,) bytes/s
+  const double* __restrict__ class_t;      // (P, C)
+  const int32_t* __restrict__ coll_class;  // (n_coll,)
+  const double* __restrict__ coll_repeat;  // (n_coll,)
+  const double* __restrict__ delay_us;     // (n_delay,)
+  const double* __restrict__ dur_in;       // (n_ops, P) the durations the sweep reads
+  double* __restrict__ dur_out;            // (n_ops, P) gathered durations
+  double* __restrict__ finish;             // (n_ops + 1, P)
   int n_ops, P, W, n_comp, n_coll, C;
 };
+
+constexpr int kLanes = 32;   // members a block: one warp
+constexpr int kRing = 256;   // K: the finish times of a member's last K ops in shared memory
+constexpr int kTile = 256;   // T: ops a staged tile (halved for a wide parents table)
+constexpr int kRegCols = 4;  // the widest parent rows the branch-free walk takes
+constexpr int kSlack = 4;    // rows a tile buffer holds past T (a multiple of 4: 16-byte buffers)
+
+// Dynamic shared memory of a sweep block: the ring and its zero row, then
+// two tiles of durations and two of parents.
+constexpr long long sweep_smem(long long tile, long long W) {
+  return (kRing + 1) * kLanes * 8LL + 2 * (tile + kSlack) * (kLanes * 8 + W * 4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// 16 bytes into shared memory, of which the first `src_bytes` are read and
+// the rest are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest has landed (this lane's copies)
+__device__ __forceinline__ void cp_async_wait_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 __global__ void dse_op_durations_kernel(SweepArgs a) {
   const long long at = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -206,18 +278,230 @@ __global__ void dse_op_durations_kernel(SweepArgs a) {
   a.dur_out[at] = d;
 }
 
-__global__ void dse_sweep_kernel(SweepArgs a) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.P) return;
-  const long long P = a.P;
-  a.finish[a.n_ops * P + p] = 0.0;
-  for (int i = 0; i < a.n_ops; ++i) {
-    const int32_t* par = a.parents + static_cast<long long>(i) * a.W;
-    double m = a.finish[par[0] * P + p];
-    for (int k = 1; k < a.W; ++k) m = fmax(m, a.finish[par[k] * P + p]);
-    const long long at = i * P + p;
-    a.finish[at] = dadd(m, a.dur_in[at]);
+// Tile t (ops [t*T, t*T + rows)) into buffer t & 1: the lane's duration of
+// each op, and the tile's parent rows in 16-byte chunks spread over the lanes.
+// A buffer holds T + kSlack rows: walk_near reads up to three rows past its
+// tile's last op (values it then drops) without a bound check.
+__device__ __forceinline__ void stage_tile(const SweepArgs& a, double* dtile, int32_t* ptile,
+                                           int T, int t, int lane, int p, bool live) {
+  const int i0 = t * T, rows = min(T, a.n_ops - i0), b = t & 1;
+  if (live) {
+    const double* src = a.dur_in + static_cast<long long>(i0) * a.P + p;
+    double* dst = dtile + b * (T + kSlack) * kLanes + lane;
+    for (int r = 0; r < rows; ++r) cp_async8(dst + r * kLanes, src + static_cast<long long>(r) * a.P);
   }
+  const int n_int = rows * a.W;
+  const int32_t* src = a.parents + static_cast<long long>(i0) * a.W;
+  int32_t* dst = ptile + b * (T + kSlack) * a.W;
+  for (int c = 4 * lane; c < n_int; c += 4 * kLanes)
+    cp_async16(dst + c, src + c, 4 * min(4, n_int - c));
+}
+
+// How far back parent j of op i sits: i - j, or 0 for the padded slot n_ops
+// (and any j outside [0, i)).
+__device__ __forceinline__ int distance(int j, int i) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(i) ? i - j : 0;
+}
+__device__ __forceinline__ double& ring_at(double* ring, int slot, int lane) {
+  return ring[slot * kLanes + lane];
+}
+
+// Whether tile rows [0, rows) of ops from i0 can take walk_near: W <=
+// kRegCols and every parent within kRing ops.  Uniform over the warp.
+__device__ __forceinline__ bool tile_is_near(const int32_t* pt, int rows, int W, int i0, int lane) {
+  if (W > kRegCols) return false;
+  bool far = false;
+  for (int e = lane; e < rows * W; e += kLanes) far |= distance(pt[e], i0 + e / W) > kRing;
+  return !__any_sync(0xffffffffu, far);
+}
+
+// A streaming store of f to *dst on the lanes that hold a member, predicated
+// rather than branched around.
+__device__ __forceinline__ void store_finish(double* dst, double f, bool live) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %2, 0;\n @p st.global.cs.f64 [%0], %1;\n}\n" ::"l"(dst),
+      "d"(f), "r"(static_cast<unsigned>(live))
+      : "memory");
+}
+
+// d == c ? a : b as one predicated select.  nvcc compiles a nested
+// conditional expression on doubles into branches, which would split the
+// walk's loop body and stall each op on them.
+__device__ __forceinline__ double select_if(int d, int c, double a, double b) {
+  double r;
+  asm("{\n .reg .pred q;\n setp.eq.s32 q, %3, %4;\n selp.f64 %0, %1, %2, q;\n}\n"
+      : "=d"(r)
+      : "d"(a), "d"(b), "r"(d), "r"(c));
+  return r;
+}
+
+// Writes op i's finish time f: into the ring, and into the finish table at
+// *dst, then steps dst to the next op's row.
+__device__ __forceinline__ void put(double f, int i, double* ring, double*& dst, long long P,
+                                   int lane, bool live, double& r1, double& r2) {
+  ring_at(ring, i & (kRing - 1), lane) = f;
+  store_finish(dst, f, live);
+  dst += P;
+  r2 = r1;
+  r1 = f;
+}
+
+// The ring value a code names, for the lane whose ring column starts at
+// ring_lane.
+__device__ __forceinline__ double ring_value(const char* ring_lane, int code) {
+  return *reinterpret_cast<const double*>(ring_lane + (code & ~3));
+}
+
+// The walk of a tile whose ops have kW parents each, all within kRing ops:
+// no branch but the loop's.
+//
+// First the lanes turn the tile's parent indices, in place, into codes:
+// the byte offset of the parent's ring row (the zero row kRing for the
+// padded slot) with its distance in the low two bits when it is 1 or 2 (the
+// parents the chain takes from registers), else 0.  Then, while op i is on
+// the chain, the walk reads op i + 2's ring values and duration and op
+// i + 3's codes, so no read is used before a whole op has passed.  The
+// ring rows op i + 2 reads for its parents 3 or more back are those of op
+// i - 1 and before, already stored.  Past the tile's end the reads land in
+// the buffer's slack rows and are dropped.
+template <int kW>
+__device__ __forceinline__ void walk_near(int32_t* pt, const double* dt, int i0, int rows, int T,
+                                          double* ring, double*& dst, long long P, int lane,
+                                          bool live, double& r1, double& r2) {
+  for (int e = lane; e < (T + kSlack) * kW; e += kLanes) {
+    const int i = i0 + e / kW, j = pt[e];
+    const bool real = static_cast<unsigned>(j) < static_cast<unsigned>(i);
+    const int near = real && i - j <= 2 ? i - j : 0;
+    pt[e] = (real ? j & (kRing - 1) : kRing) * kLanes * 8 | near;
+  }
+  __syncwarp();
+  const char* ring_lane = reinterpret_cast<const char*>(ring + lane);
+  int c0[kW], c1[kW], c2[kW];  // codes of ops i, i + 1, i + 2
+  double v0[kW], v1[kW];       // ring values of ops i, i + 1
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    c0[k] = pt[k];
+    c1[k] = pt[kW + k];
+    c2[k] = pt[2 * kW + k];
+    v0[k] = ring_value(ring_lane, c0[k]);
+    v1[k] = ring_value(ring_lane, c1[k]);
+  }
+  double du0 = dt[0], du1 = dt[kLanes];
+  // unrolled by 4: on an H100 chip_sweep_variants.py reads 115 cycles an op
+  // at W = 3, 154 unrolled by 2 and 169 not unrolled; unrolled by 3, nvcc
+  // 12.9 loses the chain's registers between tiles (not bit-identical),
+  // which the card tests' several-tile cases catch
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    int c3[kW];
+    double v2[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      v2[k] = ring_value(ring_lane, c2[k]);
+      c3[k] = pt[(r + 3) * kW + k];
+    }
+    const double du2 = dt[(r + 2) * kLanes];
+    // op i: fmax over the parents in column order, then one rounded add
+    double m = 0.0;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const int near = c0[k] & 3;
+      const double x = select_if(near, 1, r1, select_if(near, 2, r2, v0[k]));
+      m = k == 0 ? x : fmax(m, x);
+    }
+    put(dadd(m, du0), i0 + r, ring, dst, P, lane, live, r1, r2);
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      c0[k] = c1[k];
+      c1[k] = c2[k];
+      c2[k] = c3[k];
+      v0[k] = v1[k];
+      v1[k] = v2[k];
+    }
+    du0 = du1;
+    du1 = du2;
+  }
+}
+
+// Parent j of op i in the general walk: from registers, the ring or the
+// finish table (the thread's own store, made at least kRing ops before).
+__device__ __forceinline__ double parent_finish(int j, int i, double r1, double r2,
+                                                const double* ring, const double* finish,
+                                                long long P, int lane, int p, bool live) {
+  const int d = distance(j, i);
+  if (d == 0) return 0.0;
+  if (d == 1) return r1;
+  if (d == 2) return r2;
+  if (d <= kRing) return ring[(j & (kRing - 1)) * kLanes + lane];
+  return live ? finish[static_cast<long long>(j) * P + p] : 0.0;
+}
+
+// The walk of any other tile: wider parent rows, or a parent further back
+// than the ring.
+__device__ __forceinline__ void walk_general(const int32_t* pt, const double* dt, int i0,
+                                             int rows, int W, double* ring, const double* finish,
+                                             double*& dst, long long P, int lane, int p,
+                                             bool live, double& r1, double& r2) {
+  for (int r = 0; r < rows; ++r) {
+    const int i = i0 + r;
+    double m = parent_finish(pt[r * W], i, r1, r2, ring, finish, P, lane, p, live);
+    for (int k = 1; k < W; ++k)
+      m = fmax(m, parent_finish(pt[r * W + k], i, r1, r2, ring, finish, P, lane, p, live));
+    put(dadd(m, dt[r * kLanes]), i, ring, dst, P, lane, live, r1, r2);
+  }
+}
+
+__global__ void __launch_bounds__(kLanes) dse_sweep_kernel(SweepArgs a, int T) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ring = reinterpret_cast<double*>(smem);  // (kRing + 1, 32), row kRing all 0
+  double* dtile = ring + (kRing + 1) * kLanes;     // (2, T + kSlack, 32)
+  int32_t* ptile = reinterpret_cast<int32_t*>(dtile + 2 * (T + kSlack) * kLanes);  // (2, T + kSlack, W)
+  const int lane = threadIdx.x, p = blockIdx.x * kLanes + lane, W = a.W;
+  const bool live = p < a.P;  // the last block's spare lanes walk along and store nothing
+  const long long P = a.P;
+  const double* finish = a.finish;
+  double* dst = a.finish + p;  // op i's finish time goes to dst = finish + i * P + p
+  if (live) a.finish[a.n_ops * P + p] = 0.0;
+  ring_at(ring, kRing, lane) = 0.0;
+  const int n_tiles = (a.n_ops + T - 1) / T;
+  stage_tile(a, dtile, ptile, T, 0, lane, p, live);
+  cp_async_commit();
+  double r1 = 0.0, r2 = 0.0;  // the finish times of the last two ops
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) stage_tile(a, dtile, ptile, T, t + 1, lane, p, live);
+    cp_async_commit();  // an empty group after the last tile keeps the wait below uniform
+    cp_async_wait_but_newest();
+    __syncwarp();  // tile t has landed, every lane's part of it
+    const int i0 = t * T, rows = min(T, a.n_ops - i0);
+    int32_t* pt = ptile + (t & 1) * (T + kSlack) * W;
+    const double* dt = dtile + (t & 1) * (T + kSlack) * kLanes + lane;
+    if (!tile_is_near(pt, rows, W, i0, lane)) {
+      walk_general(pt, dt, i0, rows, W, ring, finish, dst, P, lane, p, live, r1, r2);
+    } else if (W == 1) {
+      walk_near<1>(pt, dt, i0, rows, T, ring, dst, P, lane, live, r1, r2);
+    } else if (W == 2) {
+      walk_near<2>(pt, dt, i0, rows, T, ring, dst, P, lane, live, r1, r2);
+    } else if (W == 3) {
+      walk_near<3>(pt, dt, i0, rows, T, ring, dst, P, lane, live, r1, r2);
+    } else {
+      walk_near<4>(pt, dt, i0, rows, T, ring, dst, P, lane, live, r1, r2);
+    }
+    __syncwarp();  // every lane is done with buffer t & 1 before tile t + 2 lands in it
+  }
+}
+
+// The latency of the sweep's chain link on this card: one thread runs n
+// dependent (fmax, __dadd_rn) pairs between two clock64() reads.  On no
+// main path; chip_smoke.py prices the chain with it.
+__global__ void dse_fp64_probe_kernel(double* buf, long long* cycles, int n) {
+  double x = buf[0];
+  const double y = buf[1], z = buf[2];
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int k = 0; k < n; ++k) x = dadd(fmax(x, y), z);
+  const long long t1 = clock64();
+  buf[3] = x;
+  cycles[0] = t1 - t0;
 }
 
 }  // namespace
@@ -261,7 +545,9 @@ extern "C" int dse_class_times(const long long* args) {
 // the sweep reads its durations and the gather's pointers (src_of_op to
 // delay_us, dur_out) are not touched: one launch.  With dur_in null the
 // durations are gathered into dur_out first and the sweep reads them: two
-// launches.  Returns the first failed launch's CUDA error (0 on success).
+// launches.  The parents table's base must be 16-byte aligned.  Returns the
+// first failed launch's CUDA error (0 on success), cudaErrorInvalidValue
+// for arguments the kernels do not take.
 extern "C" int dse_sweep(const long long* args) {
   SweepArgs a;
   a.parents = reinterpret_cast<const int32_t*>(args[0]);
@@ -283,9 +569,22 @@ extern "C" int dse_sweep(const long long* args) {
   const long long lim = 0x7fffffffLL;
   if (n_ops <= 0 || P <= 0 || W <= 0 || n_ops >= lim || P > lim || W > lim || n_comp < 0 ||
       n_coll < 0 || n_delay < 0 || C < 0 || 1 + n_comp + n_coll + n_delay > lim ||
-      (n_ops + 1) * P > (1LL << 48) || a.finish == nullptr ||
+      (n_ops + 1) * P > (1LL << 48) || n_ops * W > lim || a.finish == nullptr ||
+      (reinterpret_cast<uintptr_t>(a.parents) & 15) != 0 ||
       (a.dur_in == nullptr && (a.dur_out == nullptr || a.src_of_op == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int tile = kTile;
+  while (tile > 4 && sweep_smem(tile, W) > smem_max) tile /= 2;
+  const long long smem = sweep_smem(tile, W);
+  if (smem > smem_max) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(dse_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   a.n_ops = static_cast<int>(n_ops);
   a.P = static_cast<int>(P);
   a.W = static_cast<int>(W);
@@ -297,11 +596,24 @@ extern "C" int dse_sweep(const long long* args) {
     const long long blocks = (n_ops * P + gather_threads - 1) / gather_threads;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     dse_op_durations_kernel<<<static_cast<unsigned>(blocks), gather_threads, 0, st>>>(a);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     a.dur_in = a.dur_out;
   }
-  constexpr int threads = 32;  // one warp a block: the members spread over the SMs
-  dse_sweep_kernel<<<static_cast<unsigned>((P + threads - 1) / threads), threads, 0, st>>>(a);
+  // one warp a block: the members spread over the SMs
+  dse_sweep_kernel<<<static_cast<unsigned>((P + kLanes - 1) / kLanes), kLanes,
+                     static_cast<size_t>(smem), st>>>(a, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// args[4] = {buf, cycles, n, stream}: buf a float64 device buffer of 4 (x,
+// y, z in; the chain's end out), cycles an int64 device buffer of 1.  One
+// thread; returns the launch's CUDA error.
+extern "C" int dse_fp64_probe(const long long* args) {
+  const long long n = args[2];
+  if (n <= 0 || n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  dse_fp64_probe_kernel<<<1, 1, 0, reinterpret_cast<cudaStream_t>(args[3])>>>(
+      reinterpret_cast<double*>(args[0]), reinterpret_cast<long long*>(args[1]),
+      static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }

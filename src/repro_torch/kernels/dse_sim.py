@@ -17,9 +17,17 @@ throughout, built for ``sm_90a`` and called through ``ctypes``:
     ``simulator.batch_op_durations`` gathers them in a launch of their own
     (one thread per op and member; given instead on the unfused path), then
     the max-plus sweep ``finish[i, p] = dur[i, p] + max(finish[parents[i, :],
-    p])`` with one thread per member walking the ops in uid order.
-    Durations and finish times come back op-major, ``(n_ops, P)`` and
-    ``(n_ops + 1, P)``, the last finish row the padded parent slot (0).
+    p])`` with one thread per member walking the ops in uid order, blocks of
+    one warp.  Each thread keeps the last two finish times in registers and
+    the last ``RING`` in a ring in shared memory; only a parent further back
+    is read from the finish table in device memory (``sweep_served_from``
+    counts where a table's parent reads are served).  Parent indices and
+    durations are staged ahead of the walk by ``cp.async`` in tiles of 256
+    ops.  A tile whose rows hold at most four parents, all within the ring,
+    takes a walk without branches; any other tile one that branches on each
+    parent's distance.  Durations and finish times come back op-major,
+    ``(n_ops, P)`` and ``(n_ops + 1, P)``, the last finish row the padded
+    parent slot (0).
 
 Each wrapper takes its kernel for CUDA tensors and its plain-PyTorch twin
 (``class_times_plain``, ``op_durations_plain`` + ``sweep_plain``) for CPU
@@ -29,6 +37,11 @@ the CPU they are bit-identical to ``plan_durations_batch`` and to a numpy
 max-plus, and the kernels are bit-identical to them.  ``<wrapper>.launches``
 counts the calls that launched kernels: one per call, whatever its launches
 (``dse_sweep`` two when it gathers the durations).
+
+``fp64_chain_probe`` is on no main path: it times a chain of dependent fp64
+max and add on one thread of the card, the latency the sweep's chain is
+made of.  ``synthetic_sweep_case`` makes parent tables that reach every
+source of the sweep's parent reads, for the checks.
 """
 from __future__ import annotations
 
@@ -36,11 +49,13 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 F64, I32 = torch.float64, torch.int32
+RING = 256  # the sweep's ring of recent finish times a member, kRing in csrc/dse_sim.cu
 
 # collectives.py's coefficient tables (the kernel's copies are in dse_sim.cu):
 # per-NPU links [topo kind (ring, switch, fc)][algo (ring, direct, rhd, dbt)]
@@ -240,11 +255,14 @@ def dse_sweep(parents, *, dur=None, sources: Sources | None = None, class_t=None
     ``(n_ops, P)`` and ``(n_ops + 1, P)`` float64.
 
     parents (n_ops, W) int32, each op's augmented parents (its deps and the
-    previous op on its resource) padded with n_ops.  Either ``dur`` (n_ops,
-    P) float64, the durations (returned as they are), or ``sources`` with
-    ``class_t`` (P, C) from ``dse_class_times`` and ``peak``, ``membw`` (P,)
-    float64, from which the durations are gathered.  ``levels`` (CPU only)
-    is ``sweep_levels(parents)``, if the caller keeps it."""
+    previous op on its resource, each before the op) padded with n_ops; on
+    the card its base must be 16-byte aligned (the kernel stages it in
+    16-byte chunks), and W at most 2,540 on an H100 (a tile of its rows
+    must fit in shared memory beside the ring).  Either ``dur`` (n_ops, P) float64,
+    the durations (returned as they are), or ``sources`` with ``class_t``
+    (P, C) from ``dse_class_times`` and ``peak``, ``membw`` (P,) float64,
+    from which the durations are gathered.  ``levels`` (CPU only) is
+    ``sweep_levels(parents)``, if the caller keeps it."""
     if (dur is None) == (sources is None):
         raise ValueError("dse_sweep takes either dur or sources, class_t, peak and membw")
     if not parents.is_cuda:
@@ -276,6 +294,9 @@ def dse_sweep(parents, *, dur=None, sources: Sources | None = None, class_t=None
                 ("membw", membw, F64, (P,))):
             _want(name, t, dtype, shape, dev)
     _want("parents", parents, I32, (n_ops, W), dev)
+    if parents.data_ptr() % 16:
+        raise ValueError("parents: the sweep kernel stages the table in 16-byte chunks; its "
+                         "base must be 16-byte aligned")
     finish = torch.empty((n_ops + 1, P), dtype=F64, device=dev)
     if not n_ops or not P:
         if finish.numel():
@@ -300,3 +321,65 @@ def dse_sweep(parents, *, dur=None, sources: Sources | None = None, class_t=None
 
 
 dse_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# What the checks of the sweep use
+# ---------------------------------------------------------------------------
+
+def sweep_served_from(parents: torch.Tensor) -> dict[str, int]:
+    """Where the sweep kernel takes a table's real parent reads (those of
+    an index in [0, i) for op i): ``registers`` (one or two ops back),
+    ``ring`` (up to ``RING`` back) and ``table`` (further back, from the
+    finish table in device memory)."""
+    par = parents.long()
+    i = torch.arange(par.shape[0], device=par.device)[:, None]
+    back = i - par
+    real = (par >= 0) & (back > 0)
+    return {"registers": int((real & (back <= 2)).sum()),
+            "ring": int((real & (back > 2) & (back <= RING)).sum()),
+            "table": int((real & (back > RING)).sum())}
+
+
+def synthetic_sweep_case(seed: int, n_ops: int, W: int, P: int,
+                         max_back: int = 5000) -> tuple[np.ndarray, np.ndarray]:
+    """A parents table (n_ops, W) int32 and durations (n_ops, P) float64
+    from a seeded numpy generator, reaching every source of the sweep's
+    parent reads: each slot one or two ops back, 3 to ``RING`` back,
+    ``RING + 1`` to ``max_back`` back, or the padded slot n_ops (as is any
+    slot that would reach before op 0).  About 5% of the ops have only
+    padded parents, and about 10% name their first parent twice.  Durations
+    are non-negative over six decades, about 5% of them 0."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_ops)[:, None]
+    kind = rng.choice(4, size=(n_ops, W), p=(0.4, 0.2, 0.2, 0.2))
+    back = np.select([kind == 0, kind == 1, kind == 2],
+                     [rng.integers(1, 3, (n_ops, W)), rng.integers(3, RING + 1, (n_ops, W)),
+                      rng.integers(RING + 1, max(max_back, RING + 1) + 1, (n_ops, W))], 0)
+    parents = np.where((kind < 3) & (back <= i), i - back, n_ops)
+    parents[rng.random(n_ops) < 0.05] = n_ops
+    if W > 1:
+        twice = rng.random(n_ops) < 0.1
+        parents[twice, 1] = parents[twice, 0]
+    dur = rng.exponential(1.0, (n_ops, P)) * 10.0 ** rng.integers(-3, 4, (n_ops, 1))
+    dur[rng.random((n_ops, P)) < 0.05] = 0.0
+    return parents.astype(np.int32), dur
+
+
+def fp64_chain_probe(n: int, device: torch.device | str = "cuda") -> int:
+    """Clock cycles of ``n`` dependent (fmax, add) pairs in float64 on one
+    thread of the card (``clock64()``), the link of the sweep's chain.
+    Synchronises.  A measurement of the card: there is no plain twin, and a
+    CPU device raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"fp64_chain_probe measures a CUDA device, not {device}")
+    buf = torch.tensor([0.0, -1.0, 1e-300, 0.0], dtype=F64, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    args = (ctypes.c_longlong * 4)(buf.data_ptr(), cycles.data_ptr(), n,
+                                   torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = _entry("dse_fp64_probe")(args)
+    if err:
+        raise RuntimeError(f"dse_fp64_probe kernel launch failed with CUDA error {err}")
+    return int(cycles.item())

@@ -914,3 +914,103 @@ def test_dse_kernels_give_the_same_bits_twice(dev, kind):
     _, _, st, tab = _dse_inputs(TorchBackend(device=dev), tr, calls)
     first, second = _dse_kernels(st, tab), _dse_kernels(st, tab)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# the sweep kernel's window: synthetic parent tables (dse_sim.synthetic_sweep_case)
+# whose parents sit in registers (1 or 2 ops back), in the ring (up to
+# dse_sim.RING back) and in the finish table (up to 5,000 back), with ops
+# whose parents are all padded and ops naming a parent twice; op counts no
+# multiple of the kernel's 256-op tile, and lanes left over in the last block
+
+def _numpy_max_plus(parents, dur):
+    """finish[i] = dur[i] + max(finish[parents[i]]) in uid order, numpy."""
+    n_ops, P = dur.shape
+    fin = np.zeros((n_ops + 1, P))
+    for i in range(n_ops):
+        fin[i] = dur[i] + fin[parents[i]].max(axis=0)
+    return fin
+
+
+def _synthetic_sources(seed, n_ops, P, dev):
+    """Duration sources of every kind (zero, compute, collective, delay) and a
+    class table for P members, from a seeded numpy generator."""
+    from repro_torch.kernels import dse_sim
+    rng = np.random.default_rng(seed)
+    n_comp, n_coll, n_delay, C = 5, 4, 3, 3
+
+    def put(a, dtype=torch.float64):
+        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+    src = dse_sim.Sources(
+        put(rng.integers(0, 1 + n_comp + n_coll + n_delay, n_ops), torch.int32),
+        put(rng.uniform(1e9, 1e13, n_comp)), put(rng.uniform(1e6, 1e10, n_comp)),
+        put(rng.integers(0, C, n_coll), torch.int32), put(rng.integers(1, 5, n_coll)),
+        put(rng.uniform(0.0, 50.0, n_delay)))
+    return (src, put(rng.uniform(1.0, 500.0, (P, C))), put(rng.uniform(1e14, 1e15, P)),
+            put(rng.uniform(1e12, 3e12, P)))
+
+
+def _check_window(dev, parents_np, dur, finish):
+    from repro_torch.kernels import dse_sim
+    torch.cuda.synchronize()
+    parents = torch.from_numpy(parents_np).to(dev)
+    assert finish.shape == (parents.shape[0] + 1, dur.shape[1])
+    assert torch.equal(finish, dse_sim.sweep_plain(parents, dur))
+    assert np.array_equal(finish.cpu().numpy(), _numpy_max_plus(parents_np, dur.cpu().numpy()))
+
+
+@pytest.mark.parametrize("mode", ["dur", "sources"])
+@pytest.mark.parametrize("n_ops,W", [(6001, 8), (2003, 4), (1037, 3)])
+@pytest.mark.parametrize("P", [1, 31, 33, 257])
+def test_dse_sweep_window_matches_plain_bit_for_bit(dev, mode, n_ops, W, P):
+    from repro_torch.kernels import dse_sim
+    parents_np, dur_np = dse_sim.synthetic_sweep_case(n_ops + P, n_ops, W, P)
+    parents = torch.from_numpy(parents_np).to(dev)
+    served = dse_sim.sweep_served_from(parents)
+    assert min(served.values()) > 0, served
+    before = dse_sim.dse_sweep.launches
+    if mode == "dur":
+        dur = torch.from_numpy(dur_np).to(dev)
+        same, finish = dse_sim.dse_sweep(parents, dur=dur)
+        assert same is dur
+    else:
+        src, class_t, peak, membw = _synthetic_sources(P, n_ops, P, dev)
+        dur, finish = dse_sim.dse_sweep(parents, sources=src, class_t=class_t, peak=peak,
+                                        membw=membw)
+        assert torch.equal(dur, dse_sim.op_durations_plain(src, class_t, peak, membw))
+    assert dse_sim.dse_sweep.launches == before + 1
+    _check_window(dev, parents_np, dur, finish)
+
+
+@pytest.mark.parametrize("n_ops,W,P", [(1, 1, 33), (5, 2, 1), (256, 4, 2), (257, 5, 32),
+                                       (65, 9, 40), (700, 300, 33), (530, 1, 3), (771, 2, 5),
+                                       (1025, 3, 2), (600, 4, 3)])
+def test_dse_sweep_window_edges(dev, n_ops, W, P):
+    """One op; a tile cut short; exactly one tile; wider rows than the
+    branch-free walk takes; a table so wide that the kernel halves its tile;
+    the branch-free walk at each W over several tiles, the last one cut to
+    each remainder of its unrolled loop."""
+    from repro_torch.kernels import dse_sim
+    parents_np, dur_np = dse_sim.synthetic_sweep_case(W, n_ops, W, P)
+    dur = torch.from_numpy(dur_np).to(dev)
+    _, finish = dse_sim.dse_sweep(torch.from_numpy(parents_np).to(dev), dur=dur)
+    _check_window(dev, parents_np, dur, finish)
+
+
+def test_dse_sweep_refuses_a_table_too_wide_for_shared_memory(dev):
+    from repro_torch.kernels import dse_sim
+    parents = torch.full((8, 6000), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="dse_sweep kernel launch failed"):
+        dse_sim.dse_sweep(parents, dur=torch.zeros((8, 4), dtype=torch.float64, device=dev))
+
+
+def test_dse_sweep_refuses_an_unaligned_parents_table(dev):
+    from repro_torch.kernels import dse_sim
+    parents = torch.full((8 * 3 + 1,), 8, dtype=torch.int32, device=dev)[1:].view(8, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dse_sim.dse_sweep(parents, dur=torch.zeros((8, 4), dtype=torch.float64, device=dev))
+
+
+def test_fp64_chain_probe_counts_the_chain(dev):
+    from repro_torch.kernels import dse_sim
+    short, long_ = dse_sim.fp64_chain_probe(1 << 10, dev), dse_sim.fp64_chain_probe(1 << 14, dev)
+    assert 2 * (1 << 10) <= short < long_ and long_ >= 2 * (1 << 14)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -449,6 +450,57 @@ def test_plain_sweep_is_bit_identical_to_a_numpy_max_plus(calls_of):
     d = torch.from_numpy(dur)
     same, fin2 = dse_sim.dse_sweep(torch.from_numpy(parents), dur=d)
     assert same is d and np.array_equal(fin2.numpy(), finish)
+
+
+# synthetic parent tables (seed, n_ops, W, P): parents up to 5,000 ops back
+# (past the sweep kernel's ring), wide and narrow rows, op counts that are
+# no multiple of the kernel's 256-op tile; tests/test_torch_cuda.py holds the
+# kernel to the same cases
+SYNTHETIC_SWEEPS = [(0, 6001, 8, 3), (1, 1037, 3, 33), (2, 700, 300, 2), (3, 5, 2, 1),
+                    (4, 1, 1, 4)]
+
+
+@pytest.mark.parametrize("seed,n_ops,W,P", SYNTHETIC_SWEEPS)
+def test_plain_sweep_on_synthetic_far_parents_is_bit_identical_to_a_numpy_max_plus(
+        seed, n_ops, W, P):
+    parents, dur = dse_sim.synthetic_sweep_case(seed, n_ops, W, P)
+    assert parents.shape == (n_ops, W) and dur.shape == (n_ops, P)
+    d = torch.from_numpy(dur)
+    same, finish = dse_sim.dse_sweep(torch.from_numpy(parents), dur=d)
+    assert same is d
+    assert np.array_equal(finish.numpy(), _numpy_max_plus(parents, dur))
+
+
+def test_synthetic_sweep_case_reaches_every_source_of_parent_reads():
+    parents, dur = dse_sim.synthetic_sweep_case(0, 6001, 8, 3)
+    again = dse_sim.synthetic_sweep_case(0, 6001, 8, 3)
+    assert np.array_equal(parents, again[0]) and np.array_equal(dur, again[1])
+    served = dse_sim.sweep_served_from(torch.from_numpy(parents))
+    assert min(served.values()) > 1000, served
+    i = np.arange(6001)[:, None]
+    real = parents < 6001
+    assert ((i - parents)[real] >= 1).all() and (i - parents)[real].max() > 4000
+    assert (~real).all(axis=1).sum() > 100            # ops with only padded parents
+    assert ((parents[:, 0] == parents[:, 1]) & real[:, 0]).sum() > 100  # a parent twice
+    assert (dur >= 0).all() and (dur == 0).mean() > 0.02
+
+
+def test_sweep_served_from_counts_by_distance():
+    n = 300
+    parents = torch.full((n, 6), n, dtype=torch.int32)
+    parents[299] = torch.tensor([298, 297, 296, 299 - dse_sim.RING, 298 - dse_sim.RING, n])
+    parents[10, :2] = torch.tensor([-1, 11])  # outside [0, i): read as the padded slot
+    assert dse_sim.sweep_served_from(parents) == {"registers": 2, "ring": 2, "table": 1}
+
+
+def test_ring_depth_is_the_kernels():
+    src = (Path(dse_sim.__file__).parent.parent / "csrc" / "dse_sim.cu").read_text()
+    assert int(re.search(r"constexpr int kRing = (\d+);", src).group(1)) == dse_sim.RING
+
+
+def test_fp64_chain_probe_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA device"):
+        dse_sim.fp64_chain_probe(16, "cpu")
 
 
 def test_unfused_backend_equals_fused_and_single():
