@@ -67,7 +67,8 @@
 //     parent's ring row offset, with its distance when it is 1 or 2); then
 //     each op's ring values and duration are read two ops ahead and its
 //     codes three ahead, and the op itself is predicated selects, the fmax
-//     and the add: one basic block, no branch but the loop's.  (A walk that
+//     and the add: no branch but the loops' (four ops a trip, written out,
+//     then the tile's last rows % 4 one a trip).  (A walk that
 //     branches on the distances, or keeps a never-taken predicated load of
 //     the finish table, makes the one warp wait on them every op.)
 //   * walk_general, any other tile: a branch per parent on its distance,
@@ -219,7 +220,7 @@ struct SweepArgs {
   const double* __restrict__ delay_us;     // (n_delay,)
   const double* __restrict__ dur_in;       // (n_ops, P) the durations the sweep reads
   double* __restrict__ dur_out;            // (n_ops, P) gathered durations
-  double* __restrict__ finish;             // (n_ops + 1, P)
+  double* finish;  // (n_ops + 1, P): written and, for far parents, read back
   int n_ops, P, W, n_comp, n_coll, C;
 };
 
@@ -353,7 +354,7 @@ __device__ __forceinline__ double ring_value(const char* ring_lane, int code) {
 }
 
 // The walk of a tile whose ops have kW parents each, all within kRing ops:
-// no branch but the loop's.
+// no branch but the loops'.
 //
 // First the lanes turn the tile's parent indices, in place, into codes:
 // the byte offset of the parent's ring row (the zero row kRing for the
@@ -387,12 +388,10 @@ __device__ __forceinline__ void walk_near(int32_t* pt, const double* dt, int i0,
     v1[k] = ring_value(ring_lane, c1[k]);
   }
   double du0 = dt[0], du1 = dt[kLanes];
-  // unrolled by 4: on an H100 chip_sweep_variants.py reads 115 cycles an op
-  // at W = 3, 154 unrolled by 2 and 169 not unrolled; unrolled by 3, nvcc
-  // 12.9 loses the chain's registers between tiles (not bit-identical),
-  // which the card tests' several-tile cases catch
-#pragma unroll 4
-  for (int r = 0; r < rows; ++r) {
+  // op i0 + r: its parents' fmax in column order, then one rounded add;
+  // meanwhile op r + 2's ring values and duration and op r + 3's codes are
+  // read, and the window moves up one op
+  auto step = [&](int r) {
     int c3[kW];
     double v2[kW];
 #pragma unroll
@@ -401,7 +400,6 @@ __device__ __forceinline__ void walk_near(int32_t* pt, const double* dt, int i0,
       c3[k] = pt[(r + 3) * kW + k];
     }
     const double du2 = dt[(r + 2) * kLanes];
-    // op i: fmax over the parents in column order, then one rounded add
     double m = 0.0;
 #pragma unroll
     for (int k = 0; k < kW; ++k) {
@@ -420,7 +418,22 @@ __device__ __forceinline__ void walk_near(int32_t* pt, const double* dt, int i0,
     }
     du0 = du1;
     du1 = du2;
+  };
+  // Four ops a trip, written out so that the registers rotate by renaming
+  // (on an H100 faster than two ops a trip or one: PERF.md section 6), then
+  // the tile's last rows % 4 ops one a trip.  Both trip counts are explicit:
+  // what runs does not hang on how the compiler unrolls a loop.  (Counting
+  // the trips down ran faster than testing r + 4 <= rows each trip.)
+  int r = 0;
+#pragma unroll 1
+  for (int trips = rows >> 2; trips > 0; --trips, r += 4) {
+    step(r);
+    step(r + 1);
+    step(r + 2);
+    step(r + 3);
   }
+#pragma unroll 1
+  for (; r < rows; ++r) step(r);
 }
 
 // Parent j of op i in the general walk: from registers, the ring or the

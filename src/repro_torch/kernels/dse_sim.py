@@ -56,6 +56,7 @@ from repro_torch.kernels import _build
 
 F64, I32 = torch.float64, torch.int32
 RING = 256  # the sweep's ring of recent finish times a member, kRing in csrc/dse_sim.cu
+TILE = 256  # ops a staged tile of the sweep (halved only for wide tables), kTile there
 
 # collectives.py's coefficient tables (the kernel's copies are in dse_sim.cu):
 # per-NPU links [topo kind (ring, switch, fc)][algo (ring, direct, rhd, dbt)]

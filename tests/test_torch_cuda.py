@@ -996,6 +996,37 @@ def test_dse_sweep_window_edges(dev, n_ops, W, P):
     _check_window(dev, parents_np, dur, finish)
 
 
+def _near_walk_case(W, last_rows):
+    """Five tiles of ops with W parents each: every parent within the ring
+    but in the third tile, which holds one parent further back; the last
+    tile cut to ``last_rows`` ops."""
+    from repro_torch.kernels import dse_sim
+    T = dse_sim.TILE
+    n_ops = 4 * T + last_rows
+    parents, dur = dse_sim.synthetic_sweep_case(10 * W + last_rows, n_ops, W, 33)
+    i = np.arange(n_ops)[:, None]
+    parents[(parents < n_ops) & (i - parents > dse_sim.RING)] = n_ops
+    far = 2 * T + 7
+    parents[far, 0] = far - dse_sim.RING - 50
+    back = np.where(parents < n_ops, i - parents, 0)
+    near = [int(back[t:t + T].max()) <= dse_sim.RING for t in range(0, n_ops, T)]
+    assert near == [True, True, False, True, True]
+    return parents, dur
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("last_rows", [1, 2, 3, 4, 253, 254, 255, 256])
+def test_dse_sweep_near_walk_every_remainder(dev, W, last_rows):
+    """The branch-free walk at every W it takes, over four tiles of all-near
+    parents and one tile of the general walk between them, the last tile
+    cut to every remainder 0 to 3 of the walk's four ops a trip."""
+    from repro_torch.kernels import dse_sim
+    parents_np, dur_np = _near_walk_case(W, last_rows)
+    dur = torch.from_numpy(dur_np).to(dev)
+    _, finish = dse_sim.dse_sweep(torch.from_numpy(parents_np).to(dev), dur=dur)
+    _check_window(dev, parents_np, dur, finish)
+
+
 def test_dse_sweep_refuses_a_table_too_wide_for_shared_memory(dev):
     from repro_torch.kernels import dse_sim
     parents = torch.full((8, 6000), 8, dtype=torch.int32, device=dev)

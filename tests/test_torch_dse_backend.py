@@ -498,6 +498,11 @@ def test_ring_depth_is_the_kernels():
     assert int(re.search(r"constexpr int kRing = (\d+);", src).group(1)) == dse_sim.RING
 
 
+def test_tile_is_the_kernels():
+    src = (Path(dse_sim.__file__).parent.parent / "csrc" / "dse_sim.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == dse_sim.TILE
+
+
 def test_fp64_chain_probe_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA device"):
         dse_sim.fp64_chain_probe(16, "cpu")
