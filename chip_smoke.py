@@ -112,6 +112,24 @@ Phases, one or more lines each:
                bf16 state's round trip (bf16 params with their f32 master);
                then all of that again for mamba2-130m at B=4, S=4096 (the
                SSD scan forward and backward; launch counts by layer kind)
+  mesh         the multi-device runtime on a mesh of one card (a world-1 NCCL
+               group): qwen2-1.5b at full width and depth, f32, B=4, S=1024,
+               remat "dots", 6 steps unsharded and 6 under plan_for_mesh of a
+               (1, 1) ("data", "model") mesh from the same seed and batches,
+               every parameter and optimizer leaf a DTensor and the kernels
+               reached through local_map; losses and every parameter bit for
+               bit (else within 1e-6 relative, the leaves that differ
+               printed), launches per step equal to the train phase's, step
+               ms (the median of steps 2 to 6: the first warms DTensor's
+               sharding cache), peak memory and device busy share of both;
+               mamba2-130m the
+               same at 4 of its 24 layers, B=4, S=4096 (the SSD kernels
+               through local_map), its losses held and its parameters'
+               difference printed; one make_dp_train_step step with int8
+               compression on a world-1 data mesh (qwen2 at 2 layers), whose
+               loss equals the unsharded step's, compressed_psum on card
+               tensors against its formula, and pipeline_forward with one
+               stage against the sequential stage
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -149,6 +167,9 @@ PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
 REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
+MESH_STEPS = 6  # train steps of the mesh phase, unsharded and under a (1, 1) plan
+MESH_RTOL = 1e-6  # the (1, 1) plan vs unsharded, where some op breaks bit equality
+MESH_MAMBA_LAYERS = 4  # mamba2-130m's depth in the mesh phase (of 24)
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
 STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
 # the DSE: the backend benchmark's population (benchmarks/fig10_agents.py:
@@ -712,7 +733,7 @@ def train(torch, counted, card, spec, seq):
     print(f"[train] {spec.name} full width f32 state (params, m, v) and {TRAIN_STEPS + 1} "
           f"SyntheticLM batches of B={TRAIN_BATCH} S={seq} on the card in "
           f"{time.perf_counter() - t0:.3f} s")
-    step_fn = make_train_step(spec, cfg)
+    step_fn = make_train_step(spec, cfg=cfg)
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
@@ -762,7 +783,7 @@ def train(torch, counted, card, spec, seq):
     leaves = opt.leaves(params)
     got = {}
     for remat in ("dots", "none", "full"):
-        loss, _ = make_loss_fn(spec, cfg.with_(remat=remat))(params, batch)
+        loss, _ = make_loss_fn(spec, cfg=cfg.with_(remat=remat))(params, batch)
         grads = torch.autograd.grad(loss, leaves)
         bad = [i for i, g in enumerate(grads)
                if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
@@ -834,10 +855,10 @@ def train_consistency(torch, map_with_path, reduced, spec):
     for dev, st in states.items():
         for t in opt.leaves(st["params"]):
             t.requires_grad_(True)
-        loss, _ = make_loss_fn(small, cfg)(st["params"], {k: torch.as_tensor(v, device=dev)
+        loss, _ = make_loss_fn(small, cfg=cfg)(st["params"], {k: torch.as_tensor(v, device=dev)
                                                            for k, v in batch.items()})
         grads = torch.autograd.grad(loss, opt.leaves(st["params"]))
-        _, metrics = make_train_step(small, cfg)(st, batch)
+        _, metrics = make_train_step(small, cfg=cfg)(st, batch)
         out[dev] = (loss.item(), [g.cpu() for g in grads], metrics["loss"].item())
     (lc, gc, mc), (lg, gg, mg) = out["cpu"], out["cuda"]
     worst = max(((a - b).abs() - STEP_TOL["grad_rtol"] * b.abs()).max().item()
@@ -854,8 +875,191 @@ def train_consistency(torch, map_with_path, reduced, spec):
         fail(f"{spec.name}: the card's reduced train step disagrees with the CPU's")
     # a bf16 train state (bf16 params, their f32 master) through a checkpoint
     bf16 = init_train_state(small, BF16_RUN, seed=SEED, device="cuda")
-    make_train_step(small, BF16_RUN.with_(remat="dots"))(bf16, batch)
+    make_train_step(small, cfg=BF16_RUN.with_(remat="dots"))(bf16, batch)
     round_trip(torch, bf16, f"reduced {spec.name} bf16 + f32 master")
+
+
+# -- the multi-device runtime on a mesh of one card ------------------------------
+
+def mesh_train(torch, counted, card, spec, seq, steps):
+    """``steps`` train steps of ``spec`` (B=TRAIN_BATCH, ``seq``) f32 under remat
+    "dots", unsharded and then under plan_for_mesh of a (1, 1) ("data",
+    "model") mesh, from one seed and the same batches: every parameter and
+    optimizer leaf a DTensor, the kernels reached through local_map.  Losses
+    and the final parameters held bit for bit or, failing that, within
+    MESH_RTOL, with the leaves that differ printed; the
+    sharded steps' launches, counts set to 0 just before them, equal to the
+    train phase's per step.  Returns those launches."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import NULL_PLAN, plan_for_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (RunConfig, init_train_state, make_train_step,
+                                              to_device)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    plan = plan_for_mesh(mesh)
+    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, seq, seed=SEED))
+    batches = [to_device(data.batch_at(i), "cuda") for i in range(steps + 1)]
+    runs = {}
+    for name in ("unsharded", "mesh (1, 1)"):
+        sharded = name != "unsharded"
+        state = init_train_state(spec, cfg, seed=SEED, device="cuda",
+                                 plan=plan if sharded else None, mesh=mesh if sharded else None)
+        if sharded:
+            flat = opt.leaves(state)
+            if not all(isinstance(t, DTensor) for t in flat):
+                fail(f"mesh: {sum(not isinstance(t, DTensor) for t in flat)} of {len(flat)} "
+                     f"state leaves are not DTensors")
+        step_fn = make_train_step(spec, plan if sharded else NULL_PLAN, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        losses, step_ms = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches[i])
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"mesh {spec.name} {name}: losses {losses}")
+        params = [(t.to_local() if sharded else t).detach().cpu()
+                  for t in opt.leaves(state["params"])]
+        by_name = device_by_kernel(lambda: step_fn(state, batches[steps]), 1)
+        runs[name] = dict(losses=losses, step_ms=step_ms, launches=launches, peak=peak,
+                          params=params, device_ms=sum(by_name.values()) or None)
+        del state, step_fn, by_name
+        torch.cuda.empty_cache()
+    base, got = runs["unsharded"], runs["mesh (1, 1)"]
+    want = {k: steps * v for k, v in train_counts(spec, cfg.remat).items()}
+    if got["launches"] != want or base["launches"] != want:
+        fail(f"mesh {spec.name}: launches in {steps} steps {got['launches']} (unsharded "
+             f"{base['launches']}), expected {want}")
+    same = got["losses"] == base["losses"] and all(
+        torch.equal(a, b) for a, b in zip(got["params"], base["params"]))
+    worst, differ = 0.0, []
+    for i, (a, b) in enumerate(zip(got["params"], base["params"])):
+        if not torch.equal(a, b):
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            differ.append(i)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], base["losses"]))
+    for name, r in runs.items():
+        ms = sorted(r["step_ms"][1:])
+        med = r["median"] = ms[len(ms) // 2]
+        busy = (f"{r['device_ms']:.3f} device ms = {r['device_ms'] / med:.3f} of the step"
+                if r["device_ms"] else "not measured")
+        print(f"[mesh] {card} | {spec.name} ({spec.n_layers} layers) B={TRAIN_BATCH} S={seq} f32 "
+              f"remat=dots {name}: "
+              f"losses {r['losses']}; step ms {[round(x, 3) for x in r['step_ms']]} (median "
+              f"of steps 2-{steps} {med:.3f}); peak memory {r['peak'] / 2**30:.3f} GiB; device "
+              f"busy (torch.profiler, one step) {busy}")
+    print(f"[mesh] {spec.name} launches per step under the plan "
+          f"{ {k: v // steps for k, v in got['launches'].items()} } (the train phase's "
+          f"{train_counts(spec, cfg.remat)}); step {got['median']:.3f} ms against "
+          f"{base['median']:.3f} unsharded ({got['median'] / base['median'] - 1:+.2%}); "
+          f"losses and all {len(got['params'])} parameters "
+          f"bit for bit: {same}" + ("" if same else
+                                   f"; largest relative difference: loss {loss_rel:.3e}, "
+                                   f"parameters {worst:.3e} in leaves {differ[:16]}"))
+    if not same and (loss_rel > MESH_RTOL or worst > MESH_RTOL):
+        fail(f"mesh {spec.name}: the (1, 1) plan's steps differ from the unsharded ones by "
+             f"more than {MESH_RTOL} relative")
+    return got["launches"]
+
+
+def mesh_dp_pipeline(torch, card):
+    """One make_dp_train_step step with int8 compression on a world-1 "data"
+    mesh of the card (reduced depth, full width), held bit for bit (else
+    within MESH_RTOL) against a plain reference of the same step: the
+    unsharded loss and gradients, each gradient quantized to
+    round(g / scale) * scale, AdamW on those, and the residual
+    g - round(g / scale) * scale as the new grad_error; compressed_psum on
+    card tensors against its formula; pipeline_forward with one stage
+    against the sequential stage."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.compression import compressed_psum, wire_bytes
+    from repro_torch.parallel.dp_explicit import make_dp_train_step
+    from repro_torch.parallel.pipeline import pipeline_forward
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
+                                              to_device)
+    spec = dataclasses.replace(get_arch(ARCH), n_layers=2)
+    cfg = RunConfig(remat="none", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    batch = SyntheticLM(spec, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED)).batch_at(0)
+    mesh = make_mesh((1,), ("data",), device="cuda")
+    step, init_extra = make_dp_train_step(spec, mesh, cfg, compress_bits=8)
+    state = init_extra(init_train_state(spec, cfg, seed=SEED, device="cuda"))
+    _, m8 = step(state, batch)
+    err = opt.leaves(state["grad_error"])
+    # the plain reference: the same step written out without the mesh
+    ref = init_train_state(spec, cfg, seed=SEED, device="cuda")
+    ps = opt.leaves(ref["params"])
+    for p in ps:
+        p.requires_grad_(True)
+    loss0, _ = make_loss_fn(spec, cfg=cfg)(ref["params"], to_device(batch, "cuda"))
+    q_grads, ref_err = [], []
+    for g in torch.autograd.grad(loss0, ps):
+        scale = torch.clamp_min(g.abs().max() / 127.0, 1e-30)
+        q = torch.clamp(torch.round(g / scale), -127.0, 127.0)
+        q_grads.append(q * scale)
+        ref_err.append(g - q * scale)
+    with torch.no_grad():
+        opt.apply_updates(ref, q_grads, cfg.opt)
+    pairs = ([("loss", m8["loss"], loss0.detach())]
+             + [(f"param {i}", a, b) for i, (a, b) in
+                enumerate(zip(opt.leaves(state["params"]), ps))]
+             + [(f"grad_error {i}", a, b) for i, (a, b) in enumerate(zip(err, ref_err))])
+    same = all(torch.equal(a, b) for _, a, b in pairs)
+    worst = max(((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30)).item() for _, a, b in pairs)
+    comp, full = wire_bytes(state["params"])
+    print(f"[mesh] make_dp_train_step int8 on a world-1 data mesh, {spec.name} at 2 layers, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}: loss {m8['loss'].item()} (plain step "
+          f"{loss0.item()}); residuals on the card {err[0].device}, largest "
+          f"{max(e.abs().max().item() for e in err):.3e}; wire bytes {comp} vs {full} f32; "
+          f"loss, all {len(ps)} parameters and all {len(err)} residuals against the plain "
+          f"quantize-then-AdamW step bit for bit: {same}"
+          + ("" if same else f" (largest relative difference {worst:.3e})"))
+    if err[0].device.type != "cuda" or (not same and worst > MESH_RTOL):
+        fail("mesh: the int8 data-parallel step differs from its plain reference")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = {"w": torch.randn(4096, 1536, device="cuda", generator=gen),
+         "b": torch.randn(1536, device="cuda", generator=gen) * 1e-3}
+    red, res = compressed_psum(g, mesh.get_group("data"), {k: torch.zeros_like(v)
+                                                           for k, v in g.items()})
+    ok = True
+    for k, v in g.items():
+        scale = torch.clamp_min(v.abs().max() / 127.0, 1e-30)
+        q = torch.clamp(torch.round(v / scale), -127.0, 127.0)
+        ok &= torch.equal(red[k], q * scale / 1) and torch.equal(res[k], v - q * scale)
+    print(f"[mesh] compressed_psum on card tensors (int8 payload, world 1) equals "
+          f"round(g / scale) * scale and its residual bit for bit: {ok}")
+    if not ok:
+        fail("mesh: compressed_psum on the card disagrees with its formula")
+    pipe = make_mesh((1,), ("pipe",), device="cuda")
+    w = torch.randn(1, 1536, 1536, device="cuda", generator=gen) * 0.02
+    b = torch.zeros(1, 1536, device="cuda")
+    mbs = torch.randn(8, 4, 1536, device="cuda", generator=gen)
+    out = pipeline_forward(lambda p, x: torch.tanh(x @ p["w"] + p["b"]), pipe, "pipe")(
+        {"w": w, "b": b}, mbs)
+    ref = torch.tanh(mbs @ w[0] + b[0])
+    err_p = (out - ref).abs().max().item()
+    print(f"[mesh] pipeline_forward, one stage, 8 microbatches of (4, 1536) on the card: "
+          f"max |out - sequential| {err_p:.3e}")
+    if err_p > 1e-5:
+        fail("mesh: pipeline_forward disagrees with the sequential stage")
 
 
 # -- the design-space explorer ---------------------------------------------------
@@ -1420,6 +1624,24 @@ def main() -> None:
         torch.cuda.empty_cache()
         train_consistency(torch, map_with_path, reduced, train_spec)
         torch.cuda.empty_cache()
+
+    # -- mesh: the sharded train path on a mesh of one card ------------------------
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed("cuda")  # a world of one, NCCL
+    by_path[f"mesh {spec.name} train"] = mesh_train(torch, counted, card, spec, TRAIN_SEQ,
+                                                    MESH_STEPS)
+    torch.cuda.empty_cache()
+    m_small = dataclasses.replace(mspec, n_layers=MESH_MAMBA_LAYERS)
+    by_path[f"mesh {mspec.name} train"] = mesh_train(torch, counted, card, m_small, M_TRAIN_SEQ,
+                                                     MESH_STEPS)
+    torch.cuda.empty_cache()
+    mesh_dp_pipeline(torch, card)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")

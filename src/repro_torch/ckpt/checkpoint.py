@@ -10,7 +10,12 @@ array per leaf, keyed by the leaf's path written as ``keystr`` writes it,
 * async   — ``AsyncCheckpointer`` snapshots to host memory synchronously and
             persists on a background thread, overlapping the next steps.
 * restore — into the structure of a given tree, with shape checks, onto the
-            device the caller names.
+            device the caller names, or onto a device mesh (the elastic
+            path: a checkpoint written from any mesh is placed by the new
+            plan).
+* sharded — a ``DTensor`` leaf is gathered whole before it is written
+            (every rank takes part), and only rank 0 writes, behind a
+            barrier.
 
 The keys are the port's own tree paths (one subtree per layer), not the JAX
 package's stacked ones: a state crosses between the packages through
@@ -34,18 +39,27 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.parallel.sharding import ShardingPlan, placements, plan_for_mesh
 
 
 def _key(path) -> str:
     return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]" for p in path)
 
 
-def flatten(tree, path=()) -> dict[str, Any]:
-    """{keystr path: leaf} over nested dicts and lists."""
+def flatten(tree, path=(), is_leaf=lambda _: False) -> dict[str, Any]:
+    """{keystr path: leaf} over nested dicts and lists (and tuples, unless
+    ``is_leaf`` takes them)."""
+    if is_leaf(tree):
+        return {_key(path): tree}
     if isinstance(tree, dict):
-        return {k: v for key, sub in tree.items() for k, v in flatten(sub, path + (key,)).items()}
+        return {k: v for key, sub in tree.items()
+                for k, v in flatten(sub, path + (key,), is_leaf).items()}
     if isinstance(tree, (list, tuple)):
-        return {k: v for i, sub in enumerate(tree) for k, v in flatten(sub, path + (i,)).items()}
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in flatten(sub, path + (i,), is_leaf).items()}
     return {_key(path): tree}
 
 
@@ -82,8 +96,23 @@ def _unflatten_like(like, values: dict[str, Any], path=()):
     return values[_key(path)]
 
 
+def _ranks() -> tuple[int, int]:
+    """(this rank, world size) of the default process group, (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    if _ranks()[1] > 1:
+        dist.barrier()
+
+
 def to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array: a tensor copied to the host (bf16 as f32)."""
+    """A leaf as a numpy array: a tensor copied to the host (bf16 as f32); a
+    ``DTensor`` gathered whole first (a collective: every rank calls it)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
@@ -103,8 +132,14 @@ def to_tensor(arr: np.ndarray, dtype=None, device=None) -> torch.Tensor:
 
 
 def save(ckpt_dir: str | Path, tree, step: int, meta: dict | None = None) -> Path:
-    """Atomic checkpoint write.  Returns the final directory."""
-    return _write(ckpt_dir, {k: to_host(v) for k, v in flatten(tree).items()}, step, meta)
+    """Atomic checkpoint write by rank 0; every rank returns once it is
+    written.  Returns the final directory."""
+    arrays = {k: to_host(v) for k, v in flatten(tree).items()}
+    final = Path(ckpt_dir) / f"step_{step:08d}"
+    if _ranks()[0] == 0:
+        _write(ckpt_dir, arrays, step, meta)
+    _barrier()
+    return final
 
 
 def _write(ckpt_dir, arrays: dict[str, np.ndarray], step: int, meta: dict | None) -> Path:
@@ -143,10 +178,19 @@ def load_arrays(ckpt_dir: str | Path, step: int | None = None) -> tuple[dict[str
         return {k.replace("\x1f", "/"): z[k] for k in z.files}, step
 
 
-def restore(ckpt_dir: str | Path, like_tree, *, step: int | None = None, device=None):
+def restore(ckpt_dir: str | Path, like_tree, *, step: int | None = None, device=None,
+            mesh=None, axes=None, plan: ShardingPlan | None = None):
     """Restore into the structure, dtypes and (unless ``device``) devices of
-    ``like_tree``; raises on a missing key or a shape that differs."""
+    ``like_tree``; raises on a missing key or a shape that differs.
+
+    The elastic path (JAX ``restore(shardings=)``, :60-90): with ``mesh``
+    and ``axes`` (a tree of logical axes mirroring ``like_tree``), every
+    leaf comes back a ``DTensor`` placed on ``mesh`` by ``plan``
+    (``plan_for_mesh(mesh)`` if none), whatever mesh wrote it.  Each rank
+    keeps its own shards of the full arrays it reads."""
     arrays, step = load_arrays(ckpt_dir, step)
+    plan = plan_for_mesh(mesh) if mesh is not None and plan is None else plan
+    ax = flatten(axes, is_leaf=lambda x: isinstance(x, tuple)) if mesh is not None else {}
     out = {}
     for key, like in flatten(like_tree).items():
         if key not in arrays:
@@ -154,10 +198,14 @@ def restore(ckpt_dir: str | Path, like_tree, *, step: int | None = None, device=
         arr = arrays[key]
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(like.shape)}")
-        if isinstance(like, torch.Tensor):
-            out[key] = to_tensor(arr, like.dtype, device or like.device)
-        else:
+        if not isinstance(like, torch.Tensor):
             out[key] = arr.astype(np.asarray(like).dtype)
+            continue
+        t = to_tensor(arr, like.dtype, device or like.device)
+        if mesh is not None:
+            t = distribute_tensor(t, mesh, placements(plan.spec(ax[key], t.shape), mesh),
+                                  src_data_rank=None)
+        out[key] = t
     return _unflatten_like(like_tree, out), step
 
 
@@ -171,8 +219,15 @@ class AsyncCheckpointer:
         self.last_error: Exception | None = None
 
     def save(self, tree, step: int, meta: dict | None = None, block: bool = False):
+        """Snapshot ``tree`` (every rank: sharded leaves are gathered) and
+        write it on rank 0 in the background; ``block`` waits for the write
+        and for every rank."""
         self.wait()
         host_tree = {k: to_host(v) for k, v in flatten(tree).items()}  # sync snapshot
+        if _ranks()[0] != 0:
+            if block:
+                _barrier()
+            return
 
         def _persist():
             try:
@@ -185,6 +240,7 @@ class AsyncCheckpointer:
         self._thread.start()
         if block:
             self.wait()
+            _barrier()
 
     def wait(self):
         if self._thread is not None:

@@ -5,12 +5,45 @@ Counterparts of ``kernels/ops.py``: ``mha_flash`` (:24), ``ssd`` (:43) and
 call raises), a CPU tensor to the kernel's plain version.  The models call
 these at every length and every row count: there is no separate dense or
 pure-torch model path.
+
+Under a sharding plan the inputs are ``DTensor``s.  The kernels are
+``ctypes`` calls on raw pointers, so a ``DTensor`` never reaches them: each
+wrapper runs on local shards through ``parallel.local_shards``, keeping
+whole the dims each kernel needs whole:
+  * flash attention: batch and heads may be split (k/v's groups split as
+    q's heads are); the sequence is gathered, since the kernel anchors its
+    causal mask at index 0 (``ref.py:22-26``, ``csrc/flash_attention.cu``);
+  * the SSD scan: batch and heads may be split (b/c's groups with them, or
+    whole when there is one group); the scan's sequence stays whole;
+  * RMSNorm: rows may be split; the normalised last dim stays whole.
 """
 from __future__ import annotations
+
+import functools
+
+import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.parallel.local_shards import on_local_shards
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a local gradient goes
+    back into ``DTensor`` ops (views) that need dense strides."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_ssd(x, dt, a, b, c):
+    return ssd_scan(*(_ContiguousGrad.apply(t) for t in (x, dt, a, b, c)))
 
 
 def mha_flash(q, k, v, *, causal: bool = True, window: int = 0,
@@ -21,7 +54,8 @@ def mha_flash(q, k, v, *, causal: bool = True, window: int = 0,
     kernel, the kernel here masks the ragged edge of its tiles itself and
     masks keys by the true T.
     """
-    return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    fn = functools.partial(flash_attention, causal=causal, window=window, scale=scale)
+    return on_local_shards(fn, (q, k, v), (0, 2))
 
 
 def ssd(x, dt, a, b, c):
@@ -32,10 +66,18 @@ def ssd(x, dt, a, b, c):
     masks the ragged last one.  Unlike the JAX wrapper, nothing is repeated
     over groups or transposed: the kernel reads the model layout.
     """
-    return ssd_scan(x, dt, a, b, c)
+    whole_groups = {0: 0} if b.shape[2] == 1 else None  # one group: every head reads it
+    return on_local_shards(_local_ssd, (x, dt, a, b, c), (0, 2),
+                           follow=(None, None, {2: 0}, whole_groups, whole_groups),
+                           out=(None, {0: 0, 2: 1}))
+
+
+def _rmsnorm_rows(x, w, eps):
+    shape = x.shape
+    return rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps).reshape(shape)
 
 
 def fused_rmsnorm(x, w, *, eps: float = 1e-5):
     """x: (..., d) any leading shape."""
-    shape = x.shape
-    return rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps).reshape(shape)
+    fn = functools.partial(_rmsnorm_rows, eps=eps)
+    return on_local_shards(fn, (x, w), range(x.ndim - 1), follow=(None, {}))

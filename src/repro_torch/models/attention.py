@@ -25,20 +25,21 @@ from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
 def attn_defs(spec: ArchSpec) -> dict[str, ParamDef]:
     d, h, g, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim
     defs = {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, g, hd)),
-        "wv": ParamDef((d, g, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed", "q_heads", "head_dim")),
+        "wk": ParamDef((d, g, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, g, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, hd, d), ("q_heads", "head_dim", "embed")),
     }
     if spec.qkv_bias:
-        defs["bq"] = ParamDef((h, hd), "zeros")
-        defs["bk"] = ParamDef((g, hd), "zeros")
-        defs["bv"] = ParamDef((g, hd), "zeros")
+        defs["bq"] = ParamDef((h, hd), ("q_heads", "head_dim"), "zeros")
+        defs["bk"] = ParamDef((g, hd), ("kv_heads", "head_dim"), "zeros")
+        defs["bv"] = ParamDef((g, hd), ("kv_heads", "head_dim"), "zeros")
     return defs
 
 
@@ -60,26 +61,50 @@ def _out_proj(p, o):
     return o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d).to(o.dtype)
 
 
-def _attend(p, x, positions, spec: ArchSpec, window: int):
+def _repeat_kv(k, n_heads: int):
+    """(B, T, G, hd) -> (B, T, H, hd) by repeating each group (JAX :52-58)."""
+    b, t, g, hd = k.shape
+    return k[:, :, :, None, :].expand(b, t, g, n_heads // g, hd).reshape(b, t, n_heads, hd)
+
+
+def _attend(p, x, positions, spec: ArchSpec, window: int, plan: ShardingPlan = NULL_PLAN):
     """Self-attention over the sequence; also returns the roped k and v.
 
     The kernel masks by index, so ``positions`` (used for RoPE) must be
-    ``arange(S)``, as every caller passes.
+    ``arange(S)``, as every caller passes.  Under a plan, the JAX layout
+    policy (:139-151): heads split over 'model' when they divide it
+    (Megatron head-sharded attention; k/v's groups split with them, or are
+    repeated to the heads first when they do not divide it), else q keeps
+    the residual stream's sequence split, which ``ops.mha_flash`` gathers.
     """
+    h, g = spec.n_heads, spec.n_kv_heads
     q, k, v = _project_qkv(p, x, spec)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
+    k = plan.constrain(k, ("batch", None, None, None))
+    v = plan.constrain(v, ("batch", None, None, None))
     # what the 'save_kv' remat policy keeps for the backward (JAX :141-142)
     k = checkpoint_name(k, "attn_kv")
     v = checkpoint_name(v, "attn_kv")
+    if plan.can_shard("q_heads", h):
+        kv_axes = ("batch", None, "kv_heads", None)
+        if not plan.can_shard("kv_heads", g):
+            kv_axes = ("batch", None, "q_heads", None)
+            k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+        q = plan.constrain(q, ("batch", None, "q_heads", None))
+        k = plan.constrain(k, kv_axes)
+        v = plan.constrain(v, kv_axes)
+    else:
+        q = plan.constrain(q, ("batch", "seq", None, None))
     o = ops.mha_flash(q, k, v, causal=True, window=window,
                       scale=1.0 / math.sqrt(spec.resolved_head_dim))
     return _out_proj(p, o), k, v
 
 
-def attention_fwd(p, x, positions, spec: ArchSpec, *, window: int = 0) -> torch.Tensor:
+def attention_fwd(p, x, positions, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, *,
+                  window: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) self-attention over a full sequence."""
-    return _attend(p, x, positions, spec, window)[0]
+    return _attend(p, x, positions, spec, window, plan)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +116,11 @@ def attn_cache_defs(spec: ArchSpec, batch: int, seq: int, *,
     """``kpos`` (ring caches only) is int32: ``model.init_caches`` makes it so."""
     g, hd = spec.n_kv_heads, spec.resolved_head_dim
     t = min(window, seq) if window else seq
-    defs = {"k": ParamDef((batch, t, g, hd), "zeros"),
-            "v": ParamDef((batch, t, g, hd), "zeros")}
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    defs = {"k": ParamDef((batch, t, g, hd), axes, "zeros"),
+            "v": ParamDef((batch, t, g, hd), axes, "zeros")}
     if window:
-        defs["kpos"] = ParamDef((t,), "zeros")  # pos + 1 of each slot, 0 = empty
+        defs["kpos"] = ParamDef((t,), (None,), "zeros")  # pos + 1 of each slot, 0 = empty
     return defs
 
 

@@ -47,6 +47,8 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models.layers import REMAT_NAMES, ParamDef, rmsnorm
+from repro_torch.parallel.local_shards import lift
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 REMAT_POLICIES = ("none", "full", "dots", "save_kv")
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -72,10 +74,10 @@ def _window(spec: ArchSpec, ld: LayerDef) -> int:
 
 def layer_param_defs(spec: ArchSpec, ld: LayerDef) -> dict[str, Any]:
     d = spec.d_model
-    defs: dict[str, Any] = {"norm1": ParamDef((d,), "zeros")}
+    defs: dict[str, Any] = {"norm1": ParamDef((d,), ("embed",), "zeros")}
     defs["mixer"] = mb.mamba_defs(spec) if ld.mixer == "mamba" else attn.attn_defs(spec)
     if ld.ffn != "none":
-        defs["norm2"] = ParamDef((d,), "zeros")
+        defs["norm2"] = ParamDef((d,), ("embed",), "zeros")
         defs["ffn"] = moem.moe_defs(spec) if ld.ffn == "moe" else mlpm.mlp_defs(spec)
     return defs
 
@@ -86,25 +88,27 @@ def layer_cache_defs(spec: ArchSpec, ld: LayerDef, batch: int, seq: int) -> dict
     return attn.attn_cache_defs(spec, batch, seq, window=_window(spec, ld))
 
 
-def _ffn(p, x, ld: LayerDef, spec: ArchSpec):
+def _ffn(p, x, ld: LayerDef, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """x + FFN(norm2(x)) and the layer's load-balance loss (None without MoE).
     x: (B, S, D), or (B, D) in decode, which the MoE routes as S = 1."""
     if ld.ffn == "none":
         return x, None
     h = rmsnorm(x, p["norm2"], spec.norm_eps)
     if ld.ffn == "mlp":
-        return x + mlpm.mlp_apply(p["ffn"], h, spec), None
-    y, aux = moem.moe_apply(p["ffn"], h if h.ndim == 3 else h[:, None, :], spec)
+        return x + mlpm.mlp_apply(p["ffn"], h, spec, plan), None
+    y, aux = moem.moe_apply(p["ffn"], h if h.ndim == 3 else h[:, None, :], spec, plan)
     return x + y.view_as(x), aux["lb_loss"]
 
 
-def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec):
+def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec,
+                   plan: ShardingPlan = NULL_PLAN):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
     if ld.mixer == "mamba":
-        y = mb.mamba_fwd(p["mixer"], h, spec)
+        y = mb.mamba_fwd(p["mixer"], h, spec, plan)
     else:
-        y = attn.attention_fwd(p["mixer"], h, positions, spec, window=_window(spec, ld))
-    return _ffn(p, x + y, ld, spec)
+        y = attn.attention_fwd(p["mixer"], h, positions, spec, plan, window=_window(spec, ld))
+    x, aux = _ffn(p, x + y, ld, spec, plan)
+    return plan.constrain(x, ("batch", "seq", "embed")), aux
 
 
 def _apply_prefill(p, x, positions, ld: LayerDef, spec: ArchSpec, cache):
@@ -138,42 +142,46 @@ def stack_cache_defs(spec: ArchSpec, batch: int, seq: int) -> list[dict[str, Any
     return [layer_cache_defs(spec, ld, batch, seq) for ld in spec.layer_defs()]
 
 
-def _apply_saving(names, p, x, positions, ld: LayerDef, spec: ArchSpec):
+def _apply_saving(names, p, x, positions, ld: LayerDef, spec: ArchSpec, plan: ShardingPlan):
     """``_apply_forward`` with ``checkpoint_name`` copying ``names``: the
     checkpointed function itself sets them, so its recompute in the backward
     makes the same ops as its forward."""
     saving = getattr(REMAT_NAMES, "saving", ())
     REMAT_NAMES.saving = names
     try:
-        return _apply_forward(p, x, positions, ld, spec)
+        return _apply_forward(p, x, positions, ld, spec, plan)
     finally:
         REMAT_NAMES.saving = saving
 
 
-def _remat_forward(p, x, positions, ld: LayerDef, spec: ArchSpec, remat: str):
+def _remat_forward(p, x, positions, ld: LayerDef, spec: ArchSpec, remat: str,
+                   plan: ShardingPlan):
     if remat == "full":
-        return checkpoint(_apply_forward, p, x, positions, ld, spec, use_reentrant=False,
+        return checkpoint(_apply_forward, p, x, positions, ld, spec, plan, use_reentrant=False,
                           preserve_rng_state=False)
     names = ("attn_kv",) if remat == "save_kv" else ()
-    return checkpoint(_apply_saving, names, p, x, positions, ld, spec, use_reentrant=False,
-                      preserve_rng_state=False, context_fn=_CONTEXTS[remat])
+    return checkpoint(_apply_saving, names, p, x, positions, ld, spec, plan,
+                      use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_CONTEXTS[remat])
 
 
-def stack_forward(params, x, positions, spec: ArchSpec, remat: str = "none"):
+def stack_forward(params, x, positions, spec: ArchSpec, remat: str = "none",
+                  plan: ShardingPlan = NULL_PLAN):
     """The JAX ``stack_train`` forward, each layer under the ``remat`` policy
-    (``REMAT_POLICIES``).  Returns (x, aux): aux sums ``lb_loss`` over the
-    MoE layers (f32 0 without any), as the JAX ``_apply_train`` (:66-72)
-    does."""
+    (``REMAT_POLICIES``) and its output constrained as the JAX one is
+    (:146).  Returns (x, aux): aux sums ``lb_loss`` over the MoE layers (f32
+    0 without any, replicated on x's mesh when x is a ``DTensor``), as the
+    JAX ``_apply_train`` (:66-72) does."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be one of {REMAT_POLICIES}, not {remat!r}")
     if not torch.is_grad_enabled():
         remat = "none"  # nothing is saved for a backward, so nothing to recompute
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = lift(torch.zeros((), dtype=torch.float32, device=x.device), x)
     for p, ld in zip(params, spec.layer_defs()):
         if remat == "none":
-            x, lb = _apply_forward(p, x, positions, ld, spec)
+            x, lb = _apply_forward(p, x, positions, ld, spec, plan)
         else:
-            x, lb = _remat_forward(p, x, positions, ld, spec, remat)
+            x, lb = _remat_forward(p, x, positions, ld, spec, remat, plan)
         if lb is not None:
             aux = aux + lb
     return x, aux

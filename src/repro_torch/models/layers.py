@@ -1,11 +1,12 @@
 """Parameter descriptors + primitive layers (PyTorch, nested-dict params).
 
 Counterpart of the JAX package's ``models/layers.py``.  Every parameter is
-declared as a ``ParamDef(shape, init, scale)`` with the same leaf names,
-shapes and init kinds as the JAX ``ParamDef`` (:20-45); the logical sharding
-axes are left out, since the port shards nothing.  ``<module>_defs(spec)``
-returns a nested dict (a list for the layer stack) of ParamDefs,
-``init_tree`` materialises it from a ``torch.Generator``, and the ``apply``
+declared as a ``ParamDef(shape, axes, init, scale)`` with the same leaf
+names, shapes, logical sharding axes and init kinds as the JAX ``ParamDef``
+(:20-45); ``repro_torch.parallel.sharding`` maps the axes onto a device
+mesh.  ``<module>_defs(spec)`` returns a nested dict (a list for the layer
+stack) of ParamDefs, ``init_tree`` materialises it from a
+``torch.Generator``, ``axes_tree`` takes its axes, and the ``apply``
 functions consume the resulting tree of tensors.
 """
 from __future__ import annotations
@@ -17,10 +18,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.local_shards import lift, on_local_shards
 
 
 class ParamDef(NamedTuple):
     shape: tuple[int, ...]
+    axes: tuple  # logical axis name (or None) per dim
     init: str = "normal"  # normal | zeros | ones | ssm_a_log | ssm_dt_bias
     scale: float = 1.0
 
@@ -57,6 +60,10 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
 def init_tree(defs, generator: torch.Generator, *, device, dtype=torch.float32):
     """Materialise a tree of ParamDefs, drawing leaves in tree order."""
     return map_with_path(lambda _, d: _init_leaf(d, generator, device, dtype), defs)
+
+
+def axes_tree(defs):
+    return map_with_path(lambda _, d: d.axes, defs)
 
 
 def param_count(defs) -> int:
@@ -103,7 +110,11 @@ def linear(x, w, b=None):
 
 
 def take_embedding(table, tokens):
-    return table[tokens]
+    """The rows of ``table`` at ``tokens``.  A sharded table is gathered whole
+    and looked up on each rank's tokens (``on_local_shards``); its gradient is the
+    sum of every rank's share."""
+    return on_local_shards(lambda t, i: t[i], (table, tokens), range(tokens.ndim), lead=1,
+                           follow=({}, None))
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +133,7 @@ def apply_rope(x, positions, theta: float):
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
+    cos, sin = lift(cos, x), lift(sin, x)  # the angles are the same on every rank
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

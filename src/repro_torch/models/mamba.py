@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, rmsnorm
+from repro_torch.parallel.local_shards import on_local_shards
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 DEFAULT_CHUNK = 256
 
@@ -34,24 +36,31 @@ def mamba_defs(spec: ArchSpec) -> dict[str, ParamDef]:
     d, din = spec.d_model, spec.d_inner
     g, ds, nh, cw = spec.ssm_groups, spec.ssm_state, spec.ssm_heads, spec.ssm_conv
     return {
-        "w_z": ParamDef((d, din)),
-        "w_x": ParamDef((d, din)),
-        "w_b": ParamDef((d, g * ds)),
-        "w_c": ParamDef((d, g * ds)),
-        "w_dt": ParamDef((d, nh)),
-        "conv_x": ParamDef((cw, din)),
-        "conv_b": ParamDef((cw, g * ds)),
-        "conv_c": ParamDef((cw, g * ds)),
-        "a_log": ParamDef((nh,), "ssm_a_log"),
-        "dt_bias": ParamDef((nh,), "ssm_dt_bias"),
-        "d_skip": ParamDef((nh,), "ones"),
-        "norm": ParamDef((din,), "zeros"),
-        "w_out": ParamDef((din, d)),
+        "w_z": ParamDef((d, din), ("embed", "d_inner")),
+        "w_x": ParamDef((d, din), ("embed", "d_inner")),
+        "w_b": ParamDef((d, g * ds), ("embed", None)),
+        "w_c": ParamDef((d, g * ds), ("embed", None)),
+        "w_dt": ParamDef((d, nh), ("embed", None)),
+        "conv_x": ParamDef((cw, din), (None, "d_inner")),
+        "conv_b": ParamDef((cw, g * ds), (None, None)),
+        "conv_c": ParamDef((cw, g * ds), (None, None)),
+        "a_log": ParamDef((nh,), (None,), "ssm_a_log"),
+        "dt_bias": ParamDef((nh,), (None,), "ssm_dt_bias"),
+        "d_skip": ParamDef((nh,), (None,), "ones"),
+        "norm": ParamDef((din,), ("d_inner",), "zeros"),
+        "w_out": ParamDef((din, d), ("d_inner", "embed")),
     }
 
 
 def _causal_conv(x, w):
-    """Depthwise causal conv along time.  x: (B,S,C); w: (cw, C)."""
+    """Depthwise causal conv along time.  x: (B,S,C); w: (cw, C).  A sharded
+    x is convolved on each rank's rows (``on_local_shards``) with the sequence
+    whole (a split one would need its neighbour's last cw-1 rows); batch
+    and channels may stay split."""
+    return on_local_shards(_causal_conv_local, (x, w), (0, 2), follow=(None, {2: 1}))
+
+
+def _causal_conv_local(x, w):
     cw = w.shape[0]
     pad = F.pad(x, (0, 0, cw - 1, 0))
     out = torch.zeros_like(x)
@@ -115,8 +124,10 @@ def _in_proj(p, x):
     return z, xi, bi, ci, dt
 
 
-def _scan(p, x, spec: ArchSpec):
-    """The forward/prefill mixer body.  Returns (out, pre-conv stream, final state)."""
+def _scan(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
+    """The forward/prefill mixer body.  Returns (out, pre-conv stream, final
+    state).  Under a plan, constrained at the JAX package's sites
+    (:148-155)."""
     bsz, s, _ = x.shape
     din, g, ds, nh, hd = spec.d_inner, spec.ssm_groups, spec.ssm_state, spec.ssm_heads, \
         spec.ssm_head_dim
@@ -125,24 +136,28 @@ def _scan(p, x, spec: ArchSpec):
     bi = _causal_conv(bi0, p["conv_b"])
     ci = _causal_conv(ci0, p["conv_c"])
     a = -torch.exp(p["a_log"].float())
-    xh = xi.view(bsz, s, nh, hd)
+    xh = plan.constrain(xi.view(bsz, s, nh, hd), ("batch", None, "ssm_heads", None))
+    dt = plan.constrain(dt, ("batch", None, "ssm_heads"))
     y, hlast = ops.ssd(xh, dt, a, bi.view(bsz, s, g, ds), ci.view(bsz, s, g, ds))
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = rmsnorm(y.reshape(bsz, s, din) * F.silu(z), p["norm"], spec.norm_eps)
+    y = plan.constrain(y.reshape(bsz, s, din), ("batch", "seq", "d_inner"))
+    y = rmsnorm(y * F.silu(z), p["norm"], spec.norm_eps)
     return y @ p["w_out"].to(x.dtype), (xi0, bi0, ci0), hlast
 
 
-def mamba_fwd(p, x, spec: ArchSpec):
+def mamba_fwd(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """x: (B, S, D) -> (B, S, D)."""
-    return _scan(p, x, spec)[0]
+    return _scan(p, x, spec, plan)[0]
 
 
 def mamba_cache_defs(spec: ArchSpec, batch: int) -> dict[str, ParamDef]:
     din, g, ds, nh, hd, cw = (spec.d_inner, spec.ssm_groups, spec.ssm_state,
                               spec.ssm_heads, spec.ssm_head_dim, spec.ssm_conv)
     return {
-        "conv": ParamDef((batch, cw - 1, din + 2 * g * ds), "zeros"),
-        "ssm": ParamDef((batch, nh, hd, ds), "zeros"),
+        "conv": ParamDef((batch, cw - 1, din + 2 * g * ds), ("batch", None, "d_inner"),
+                         "zeros"),
+        "ssm": ParamDef((batch, nh, hd, ds), ("batch", None, "ssm_head_dim", None),
+                        "zeros"),
     }
 
 

@@ -10,23 +10,25 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.layers import ParamDef, linear
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
 def mlp_defs(spec: ArchSpec) -> dict[str, ParamDef]:
     d, f = spec.d_model, spec.d_ff
     defs = {
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d)),
+        "w_up": ParamDef((d, f), ("embed", "ff")),
+        "w_down": ParamDef((f, d), ("ff", "embed")),
     }
     if spec.act == "silu":
-        defs["w_gate"] = ParamDef((d, f))
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"))
     return defs
 
 
-def mlp_apply(p, x, spec: ArchSpec) -> torch.Tensor:
+def mlp_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN) -> torch.Tensor:
     up = linear(x, p["w_up"])
     if spec.act == "silu":
         h = F.silu(linear(x, p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
+    h = plan.constrain(h, ("batch", "seq", "ff"))
     return linear(h, p["w_down"])

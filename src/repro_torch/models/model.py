@@ -7,9 +7,13 @@ points:
   * ``decode_step`` — one token with caches
 and ``forward_hidden`` / ``head_fn`` for chunked cross-entropy (:99-121).
 
-The JAX package has no sharding on this path (``NULL_PLAN``), so the port
-takes no plan.  ``forward`` returns ``(logits, aux)`` as the JAX one does:
-``aux`` sums the MoE layers' load-balance losses.
+The training entry points (``forward``, ``forward_hidden``, ``head_fn``)
+take a ``ShardingPlan`` as the JAX ones do, and constrain the residual
+stream and the logits at the JAX package's sites (:76, :86, :119); under a
+plan the parameters and the batch are ``DTensor``s on its mesh.  Serving
+(``prefill``, ``decode_step``) runs unsharded.  ``forward`` returns
+``(logits, aux)`` as the JAX one does: ``aux`` sums the MoE layers'
+load-balance losses.
 """
 from __future__ import annotations
 
@@ -20,21 +24,23 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import blocks
-from repro_torch.models.layers import ParamDef, init_tree, map_with_path, rmsnorm, take_embedding
+from repro_torch.models.layers import (ParamDef, axes_tree, init_tree, map_with_path, rmsnorm,
+                                       take_embedding)
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
 def model_param_defs(spec: ArchSpec) -> dict[str, Any]:
     d, v = spec.d_model, spec.vocab_size
     defs: dict[str, Any] = {
         "stack": blocks.stack_param_defs(spec),
-        "final_norm": ParamDef((d,), "zeros"),
+        "final_norm": ParamDef((d,), ("embed",), "zeros"),
     }
     if spec.frontend == "tokens":
-        defs["embed"] = ParamDef((v, d))
+        defs["embed"] = ParamDef((v, d), ("vocab", "embed"))
         if not spec.tie_embeddings:
-            defs["lm_head"] = ParamDef((d, v))
+            defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"))
     else:
-        defs["lm_head"] = ParamDef((d, v))
+        defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"))
     return defs
 
 
@@ -44,6 +50,11 @@ def init_params(spec: ArchSpec, seed: int = 0, *, device=None, dtype=torch.float
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return init_tree(model_param_defs(spec), gen, device=dev, dtype=dtype)
+
+
+def param_axes(spec: ArchSpec):
+    """The logical axes of every parameter, in ``model_param_defs``' tree."""
+    return axes_tree(model_param_defs(spec))
 
 
 def cache_defs(spec: ArchSpec, batch: int, seq: int):
@@ -63,52 +74,57 @@ def init_caches(spec: ArchSpec, batch: int, seq: int, dtype=torch.bfloat16, *, d
 
 # ---------------------------------------------------------------------------
 
-def _embed_in(params, inputs, spec: ArchSpec, compute_dtype):
+def _embed_in(params, inputs, spec: ArchSpec, compute_dtype, plan: ShardingPlan = NULL_PLAN):
     if spec.frontend == "tokens":
-        return take_embedding(params["embed"], inputs).to(compute_dtype)
-    return inputs.to(compute_dtype)  # precomputed (B, S, D) embeddings
+        x = take_embedding(params["embed"], inputs).to(compute_dtype)
+    else:
+        x = inputs.to(compute_dtype)  # precomputed (B, S, D) embeddings
+    return plan.constrain(x, ("batch", "seq", "embed"))
 
 
-def _project(params, h, spec: ArchSpec):
+def _project(params, h, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     if spec.frontend == "tokens" and spec.tie_embeddings:
-        return h @ params["embed"].to(h.dtype).T
-    return h @ params["lm_head"].to(h.dtype)
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["lm_head"].to(h.dtype)
+    axes = ("batch", "seq", "vocab") if logits.ndim == 3 else ("batch", "vocab")
+    return plan.constrain(logits, axes)
 
 
-def _head(params, x, spec: ArchSpec):
-    return _project(params, rmsnorm(x, params["final_norm"], spec.norm_eps), spec)
+def _head(params, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
+    return _project(params, rmsnorm(x, params["final_norm"], spec.norm_eps), spec, plan)
 
 
 def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)
 
 
-def forward(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32,
-            remat: str = "dots"):
+def forward(params, inputs, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, *,
+            compute_dtype=torch.float32, remat: str = "dots"):
     """inputs: (B, S) int tokens or (B, S, D) embeddings -> (logits (B, S, V),
     aux: the MoE layers' summed load-balance loss, f32 0 without MoE).
     ``remat``: the per-layer policy while autograd records
     (``blocks.REMAT_POLICIES``)."""
-    x = _embed_in(params, inputs, spec, compute_dtype)
+    x = _embed_in(params, inputs, spec, compute_dtype, plan)
     x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec,
-                                  remat)
-    return _head(params, x, spec), aux
+                                  remat, plan)
+    return _head(params, x, spec, plan), aux
 
 
-def forward_hidden(params, inputs, spec: ArchSpec, *, compute_dtype=torch.float32,
-                   remat: str = "dots"):
+def forward_hidden(params, inputs, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, *,
+                   compute_dtype=torch.float32, remat: str = "dots"):
     """Like ``forward`` but stops before the LM head: returns the final-normed
     hidden states (B, S, D) and aux.  Pair with ``head_fn`` for chunked
     cross-entropy, which never holds the (B, S, V) logits."""
-    x = _embed_in(params, inputs, spec, compute_dtype)
+    x = _embed_in(params, inputs, spec, compute_dtype, plan)
     x, aux = blocks.stack_forward(params["stack"], x, _positions(x.shape[1], x.device), spec,
-                                  remat)
+                                  remat, plan)
     return rmsnorm(x, params["final_norm"], spec.norm_eps), aux
 
 
-def head_fn(params, spec: ArchSpec):
+def head_fn(params, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """Closure projecting (already final-normed) hidden chunks to logits."""
-    return lambda h: _project(params, h, spec)
+    return lambda h: _project(params, h, spec, plan)
 
 
 def prefill(params, inputs, caches, spec: ArchSpec, *, compute_dtype=torch.bfloat16):

@@ -2,17 +2,30 @@
 
 Counterpart of the JAX package's ``train/loss.py``.  The JAX
 ``cross_entropy`` picks the gold logit with an iota-compare masked sum, for
-the sake of XLA's partitioner on vocab-sharded logits; the port shards
-nothing and gathers it, which selects the same value.
+the sake of XLA's partitioner on vocab-sharded logits; the port gathers it,
+which selects the same value.  Sharded logits (a ``DTensor``) are summed on
+each rank's rows with the vocabulary gathered (``on_local_shards``), and the
+per-rank sums added before the mean is taken.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel.local_shards import on_local_shards, replicate
+
 
 def _nll_sum(logits, labels, ignore_index: int):
-    """Sum of -log p(label) over the valid positions, and their count (f32)."""
+    """Sum of -log p(label) over the valid positions, and their count (f32);
+    replicated on the logits' mesh when they are a ``DTensor``."""
+    tot, cnt = on_local_shards(functools.partial(_local_nll_sum, ignore_index=ignore_index),
+                               (logits, labels), range(logits.ndim - 1), out=({}, {}))
+    return replicate(tot), replicate(cnt)
+
+
+def _local_nll_sum(logits, labels, ignore_index: int):
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
@@ -41,8 +54,7 @@ def chunked_cross_entropy(hidden, head_fn, labels, *, chunk: int = 512,
     c = min(chunk, s)
     while s % c:
         c //= 2
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot = cnt = None
 
     def body(h, lab):
         return _nll_sum(head_fn(h), lab, ignore_index)
@@ -50,5 +62,5 @@ def chunked_cross_entropy(hidden, head_fn, labels, *, chunk: int = 512,
     for i in range(0, s, c):
         t, n = checkpoint(body, hidden[:, i:i + c], labels[:, i:i + c], use_reentrant=False,
                           preserve_rng_state=False)
-        tot, cnt = tot + t, cnt + n
+        tot, cnt = (t, n) if tot is None else (tot + t, cnt + n)
     return tot / cnt.clamp_min(1.0)

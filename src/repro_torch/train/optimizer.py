@@ -13,6 +13,13 @@ Unlike the JAX version, which returns a new state, ``apply_updates`` updates
 the state's tensors in place (``torch._foreach_*`` over the leaves; no
 ``torch.optim``, whose state would not match this layout): at qwen2-1.5b's
 1.5 B parameters a second copy of params, m and v would take 18.5 GB.
+
+Under a sharding plan the leaves are ``DTensor``s, and the gradients come
+placed as their parameters are.  AdamW is elementwise, so the updates run on
+each rank's local shards.  ``global_norm`` sums each sharded leaf's squares
+over the mesh dims that split it (one all-reduce per mesh dim), so every
+rank computes the same norm bit for bit; a leaf that no mesh dim splits
+takes the same path as an unsharded one.
 """
 from __future__ import annotations
 
@@ -21,8 +28,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-
+import torch.distributed as dist
 from repro_torch.models.layers import map_with_path
+from repro_torch.parallel.sharding import local
 
 
 @dataclass(frozen=True)
@@ -39,7 +47,7 @@ class OptConfig:
 
 
 def leaves(tree) -> list:
-    """The tensors of a dict/list tree, in tree order."""
+    """The leaves of a dict/list tree, in tree order."""
     out: list = []
     map_with_path(lambda _, t: out.append(t), tree)
     return out
@@ -72,10 +80,39 @@ def init_state(params, param_dtype=torch.float32) -> dict[str, Any]:
     return state
 
 
+def state_axes(param_axes_tree, param_dtype=torch.float32):
+    """Logical-axes tree mirroring the state (for ``ShardingPlan.spec``)."""
+    state = {
+        "params": param_axes_tree,
+        "m": param_axes_tree,
+        "v": param_axes_tree,
+        "step": (),
+    }
+    if param_dtype != torch.float32:
+        state["master"] = param_axes_tree
+    return state
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, in f32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares over every element, in f32: a plain tensor,
+    the same on every rank when the tensors are ``DTensor``s."""
+    norms = torch.stack(torch._foreach_norm([local(t).float() for t in tensors]))
+    split: dict[int, list[int]] = {}  # mesh dim -> the leaves it shards
+    for j, t in enumerate(tensors):
+        for dim, pl in enumerate(getattr(t, "placements", ())):
+            if pl.is_partial():
+                raise ValueError("global_norm takes placed tensors, not partial sums")
+            if pl.is_shard():
+                split.setdefault(dim, []).append(j)
+    if split:
+        sq = norms.square()
+        for dim, idx in split.items():
+            part = sq[idx]
+            dist.all_reduce(part, group=tensors[idx[0]].device_mesh.get_group(dim))
+            sq[idx] = part
+        some = sorted({j for idx in split.values() for j in idx})
+        norms[some] = sq[some].sqrt()
+    return torch.linalg.vector_norm(norms)
 
 
 @torch.no_grad()
@@ -83,19 +120,21 @@ def apply_updates(state: dict[str, Any], grads, cfg: OptConfig):
     """One AdamW step, in place.  grads: a tree matching params (any float
     dtype), or the list of its leaves; f32 grads are scaled in place by the
     clip.  Returns (state, {"grad_norm", "lr"}) as device scalars."""
-    g32 = [g.float() for g in (grads if isinstance(grads, list) else leaves(grads))]
-    gnorm = global_norm(g32)
+    grads = grads if isinstance(grads, list) else leaves(grads)
+    gnorm = global_norm(grads)
+    g32 = [local(g).float() for g in grads]
     if cfg.grad_clip:
         torch._foreach_mul_(g32, torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0))
 
-    state["step"] += 1
-    step = state["step"].to(torch.float32)
+    step = local(state["step"])
+    step += 1
+    step = step.to(torch.float32)
     lr = lr_schedule(cfg, step)
     bc1 = 1 - cfg.b1 ** step
     bc2 = 1 - cfg.b2 ** step
 
-    master = leaves(state.get("master", state["params"]))
-    m, v = leaves(state["m"]), leaves(state["v"])
+    master = [local(t) for t in leaves(state.get("master", state["params"]))]
+    m, v = [local(t) for t in leaves(state["m"])], [local(t) for t in leaves(state["v"])]
     torch._foreach_mul_(m, cfg.b1)
     torch._foreach_add_(m, g32, alpha=1 - cfg.b1)
     torch._foreach_mul_(v, cfg.b2)
@@ -112,5 +151,5 @@ def apply_updates(state: dict[str, Any], grads, cfg: OptConfig):
     torch._foreach_sub_(master, upd)
     if "master" in state:
         for p, mp in zip(leaves(state["params"]), master):
-            p.copy_(mp)
+            local(p).copy_(mp)
     return state, {"grad_norm": gnorm, "lr": lr}

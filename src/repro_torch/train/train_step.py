@@ -1,15 +1,22 @@
-"""Train-step factory: microbatched gradient accumulation + AdamW.
+"""Train-step factory: microbatched gradient accumulation + AdamW + sharding.
 
 Counterpart of the JAX package's ``train/train_step.py``: ``RunConfig`` with
 the same knobs and defaults (remat policy, microbatches, dtypes, chunked CE),
-``make_loss_fn`` (``ce + lb_weight * aux``), ``make_train_step`` and
-``init_train_state``.  The port runs on one card, so there is no ``plan``
-or ``opt_plan`` argument (ROADMAP.md Queue 1: parallel).
+``make_loss_fn`` (``ce + lb_weight * aux``), ``make_train_step(spec, plan,
+cfg, opt_plan)``, ``init_train_state``, ``batch_axes`` and
+``train_state_axes``.
 
 A step takes a batch of numpy arrays or tensors (``inputs``, ``labels``),
 moves it to the parameters' device, differentiates the loss with
 ``torch.autograd.grad`` (the parameters are leaves that require grad) and
 updates the state in place (``optimizer.apply_updates``).
+
+Under a plan (``init_train_state(..., mesh=)`` distributes the state by
+``train_state_axes``) every parameter and optimizer leaf is a ``DTensor``
+on the mesh; each step distributes the batch over the plan's ``batch``
+axes, and each gradient is brought to its parameter's layout (or to
+``opt_plan``'s, the JAX ``shard_grads``) before it is accumulated: partial
+sums over the data split are reduced there.
 """
 from __future__ import annotations
 
@@ -18,9 +25,12 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import model as M
+from repro_torch.parallel.sharding import (NULL_PLAN, ShardingPlan, distribute_tree, local,
+                                           placements, plan_for_mesh)
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy, cross_entropy
 
@@ -42,15 +52,20 @@ class RunConfig:
 BF16_RUN = RunConfig(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
 
 
-def make_loss_fn(spec: ArchSpec, cfg: RunConfig):
+def batch_axes(spec: ArchSpec):
+    inp = ("batch", None) if spec.frontend == "tokens" else ("batch", None, None)
+    return {"inputs": inp, "labels": ("batch", None)}
+
+
+def make_loss_fn(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, cfg: RunConfig = RunConfig()):
     def loss_fn(params, batch):
         if cfg.loss_chunk > 0:
-            hidden, aux = M.forward_hidden(params, batch["inputs"], spec,
+            hidden, aux = M.forward_hidden(params, batch["inputs"], spec, plan,
                                            compute_dtype=cfg.compute_dtype, remat=cfg.remat)
-            ce = chunked_cross_entropy(hidden, M.head_fn(params, spec), batch["labels"],
+            ce = chunked_cross_entropy(hidden, M.head_fn(params, spec, plan), batch["labels"],
                                        chunk=cfg.loss_chunk)
         else:
-            logits, aux = M.forward(params, batch["inputs"], spec,
+            logits, aux = M.forward(params, batch["inputs"], spec, plan,
                                     compute_dtype=cfg.compute_dtype, remat=cfg.remat)
             ce = cross_entropy(logits, batch["labels"])
         return ce + cfg.lb_weight * aux, {"ce": ce, "lb": aux}
@@ -62,25 +77,49 @@ def to_device(batch, device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_train_step(spec: ArchSpec, cfg: RunConfig = RunConfig()):
+def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
+                    cfg: RunConfig = RunConfig(), opt_plan: ShardingPlan | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place, metrics are device scalars (``loss``, ``grad_norm``,
-    ``lr``, and ``ce``/``lb`` without microbatches)."""
-    loss_fn = make_loss_fn(spec, cfg)
+    ``lr``, and ``ce``/``lb`` without microbatches), the same on every rank.
+
+    opt_plan: optional plan for the gradients (and so the optimizer's
+    update).  When weights are partially replicated, gradients are
+    reduce-scattered into this layout per microbatch, ZeRO-2 style, as the
+    JAX ``shard_grads`` (:83-90) constrains them."""
+    loss_fn = make_loss_fn(spec, plan, cfg)
+    axes = opt.leaves(M.param_axes(spec))
+
+    def shard_grads(grads, ps):
+        out = []
+        for g, p, ax in zip(grads, ps, axes):
+            if isinstance(p, DTensor):
+                want = (p.placements if opt_plan is None else
+                        placements(opt_plan.spec(ax, tuple(p.shape)), p.device_mesh))
+                g = g.redistribute(p.device_mesh, want)
+            out.append(g)
+        return out
 
     def grads_of(params, batch):
         ps = opt.leaves(params)
         for p in ps:
             p.requires_grad_(True)
         loss, metrics = loss_fn(params, batch)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(torch.autograd.grad(loss, ps))
+        return local(loss.detach()), {k: local(v.detach()) for k, v in metrics.items()}, \
+            shard_grads(torch.autograd.grad(loss, ps), ps)
 
     def train_step(state, batch):
         params = state["params"]
-        batch = to_device(batch, opt.leaves(params)[0].device)
+        some = opt.leaves(params)[0]
+        batch = to_device(batch, some.device)
+
+        def placed(b):
+            if not isinstance(some, DTensor):
+                return b
+            return distribute_tree(b, batch_axes(spec), plan, some.device_mesh)
+
         if cfg.microbatches <= 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(params, placed(batch))
         else:
             k = cfg.microbatches
             bsz = batch["labels"].shape[0]
@@ -89,14 +128,14 @@ def make_train_step(spec: ArchSpec, cfg: RunConfig = RunConfig()):
             mb = bsz // k
             grads, loss = None, 0.0
             for i in range(k):
-                sl = {name: a[i * mb:(i + 1) * mb] for name, a in batch.items()}
+                sl = placed({name: a[i * mb:(i + 1) * mb] for name, a in batch.items()})
                 l, _, g = grads_of(params, sl)
                 if grads is None:
                     grads = [x.float() for x in g]  # a fresh f32 sum, or the grads themselves
                 else:
-                    torch._foreach_add_(grads, [x.float() for x in g])
+                    torch._foreach_add_([local(x) for x in grads], [local(x).float() for x in g])
                 loss = loss + l
-            torch._foreach_div_(grads, float(k))
+            torch._foreach_div_([local(x) for x in grads], float(k))
             loss, metrics = loss / k, {}
         _, om = opt.apply_updates(state, grads, cfg.opt)
         return state, {"loss": loss, **metrics, **om}
@@ -105,8 +144,19 @@ def make_train_step(spec: ArchSpec, cfg: RunConfig = RunConfig()):
 
 
 def init_train_state(spec: ArchSpec, cfg: RunConfig = RunConfig(), *, seed: int = 0,
-                     device=None):
+                     device=None, plan: ShardingPlan | None = None, mesh=None):
     """f32 parameters from ``M.init_params(spec, seed)`` (on the card unless
-    ``device`` says otherwise) and the optimizer state around them."""
+    ``device`` says otherwise) and the optimizer state around them.  With a
+    ``mesh``, every leaf becomes a ``DTensor`` placed by ``train_state_axes``
+    under ``plan`` (``plan_for_mesh(mesh)`` if none); every rank draws the
+    same full state from the seed and keeps its own shards."""
     params = M.init_params(spec, seed, device=device, dtype=torch.float32)
-    return opt.init_state(params, cfg.param_dtype)
+    state = opt.init_state(params, cfg.param_dtype)
+    if mesh is None:
+        return state
+    plan = plan_for_mesh(mesh) if plan is None else plan
+    return distribute_tree(state, train_state_axes(spec, cfg), plan, mesh)
+
+
+def train_state_axes(spec: ArchSpec, cfg: RunConfig = RunConfig()):
+    return opt.state_axes(M.param_axes(spec), cfg.param_dtype)

@@ -5,7 +5,7 @@ they meet to the JAX package: ``SyntheticLM`` batches equal the JAX
 package's array for array, and train states cross-load in both directions
 through ``to_jax_state`` / ``from_jax_state`` (the JAX checkpoint format on
 both sides), bit for bit.  Also the training CLI on the CPU, its restart
-drill, and its refusal of ``--mesh``.
+drill, and its refusal of a ``--mesh`` larger than its world.
 """
 from __future__ import annotations
 
@@ -285,6 +285,10 @@ def test_train_cli_fault_drill_resumes_exactly(tmp_path):
 
 
 def test_train_cli_refuses_a_mesh():
+    """A mesh needs one process per rank: one process refuses 2x2 before it
+    starts any process group (tests/test_torch_parallel_train.py runs it
+    under torchrun)."""
     args = train_cli.parser().parse_args(["--reduced", "--device", "cpu", "--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="needs 4 ranks and this run has 1"):
         train_cli.train_loop(args, reduced(ARCHS["qwen2-1.5b"]))
+    assert not torch.distributed.is_initialized()

@@ -137,7 +137,7 @@ def test_microbatch_equivalence():
     out = {}
     for k in (1, 4):
         state = _port_state(j0, spec)
-        out[k] = make_train_step(spec, RunConfig(remat="none", microbatches=k))(state, batch)
+        out[k] = make_train_step(spec, cfg=RunConfig(remat="none", microbatches=k))(state, batch)
     (s1, m1), (s4, m4) = out[1], out[4]
     np.testing.assert_allclose(float(m1["loss"]), float(m4["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(m1["loss"]), float(jm["loss"]), rtol=1e-5)
@@ -157,7 +157,7 @@ def test_loss_decreases_over_steps():
     j0 = _jax_state(jspec, jcfg)
     _, jm = jax.jit(j_make_train_step(jspec, cfg=jcfg))(j0, data.batch_at(0))
     state = _port_state(j0, spec)
-    step = make_train_step(spec, cfg)
+    step = make_train_step(spec, cfg=cfg)
     losses = []
     for i in range(60):
         state, m = step(state, data.batch_at(i))
@@ -228,7 +228,7 @@ def test_bf16_train_step_matches_jax():
     _, jm = jax.jit(j_make_train_step(jspec, cfg=jcfg))(j0, batch)
     state = _port_state(j0, spec)
     assert opt.leaves(state["params"])[0].dtype == torch.bfloat16
-    state, m = make_train_step(spec, BF16_RUN.with_(remat="none"))(state, batch)
+    state, m = make_train_step(spec, cfg=BF16_RUN.with_(remat="none"))(state, batch)
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=2e-2)
     for p, mp in zip(opt.leaves(state["params"]), opt.leaves(state["master"])):
         assert p.dtype == torch.bfloat16 and mp.dtype == torch.float32
@@ -283,8 +283,8 @@ def test_train_step_variants_match_plain(knobs):
     batch = _batch(spec, 4, 32)
     j0 = _jax_state(jspec, JRunConfig(remat="none"))
     js, jm = jax.jit(j_make_train_step(jspec, cfg=JRunConfig(remat="none")))(j0, batch)
-    s0, m0 = make_train_step(spec, RunConfig(remat="none"))(_port_state(j0, spec), batch)
-    s1, m1 = make_train_step(spec, RunConfig(remat="none").with_(**knobs))(
+    s0, m0 = make_train_step(spec, cfg=RunConfig(remat="none"))(_port_state(j0, spec), batch)
+    s1, m1 = make_train_step(spec, cfg=RunConfig(remat="none").with_(**knobs))(
         _port_state(j0, spec), batch)
     np.testing.assert_allclose(float(m0["loss"]), float(m1["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(m0["loss"]), float(jm["loss"]), rtol=1e-5)
@@ -359,7 +359,7 @@ def test_train_step_matches_jax_step():
     jg = jax.grad(lambda p: j_make_loss_fn(jspec, NULL_PLAN, jcfg)(p, batch)[0])(j0["params"])
     js, jm = jax.jit(j_make_train_step(jspec, cfg=jcfg))(j0, batch)
     state = _port_state(j0, spec)
-    state, m = make_train_step(spec, RunConfig(remat="none", opt=opt.OptConfig(warmup_steps=0)))(
+    state, m = make_train_step(spec, cfg=RunConfig(remat="none", opt=opt.OptConfig(warmup_steps=0)))(
         state, batch)
     for key, rtol in (("loss", 1e-5), ("grad_norm", 2e-4), ("lr", 1e-6)):
         np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=rtol, err_msg=key)
