@@ -130,6 +130,32 @@ Phases, one or more lines each:
                loss equals the unsharded step's, compressed_psum on card
                tensors against its formula, and pipeline_forward with one
                stage against the sequential stage
+  serve_mesh   (after each model's serve and consistency lines) the same
+               full-width model served under plan_for_mesh of a (1, 1)
+               ("data", "model") mesh of the world-1 NCCL group: parameters
+               and caches DTensors, the kernels reached through local_map;
+               Engine(plan=) from the same weights and prompts generates
+               the serve phase's first 8 tokens (MESH_NEW: DTensor's host
+               dispatch makes each step slow) with its launch counts a
+               token (counts set to 0 just before it), prefill logits bit
+               for bit against the unsharded prefill and MESH_DECODE_STEPS
+               greedy decode steps' logits within 1e-5 relative, the steps
+               that differ printed (on a mesh of one the caches' kv_seq is
+               whole, so decode reads the slice the unsharded path reads;
+               the masked read of a split kv_seq is held on gloo ranks by
+               tests/test_torch_serve_plan.py); prefill ms, decode ms a
+               step and device busy
+               share of both; and rmsnorm's host cost a call at the decode
+               shape through its operator (torch.ops.repro_torch) against
+               the bare launch
+  dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
+               world, at full size with fake tensors labelled cuda, three
+               at once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
+               multipod, mamba2-130m long_500k pod, each ok, with its peak
+               GiB a device, FLOPs a device against model_flops / n_chips,
+               collective bytes by kind and seconds; then reduced qwen2-1.5b
+               train_4k pod under --device cpu and --device cuda, whose
+               records agree key for key but lower_s
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -170,6 +196,16 @@ REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
 MESH_STEPS = 6  # train steps of the mesh phase, unsharded and under a (1, 1) plan
 MESH_RTOL = 1e-6  # the (1, 1) plan vs unsharded, where some op breaks bit equality
 MESH_MAMBA_LAYERS = 4  # mamba2-130m's depth in the mesh phase (of 24)
+MESH_DECODE_STEPS = 4  # greedy decode steps whose logits serve_mesh holds
+# serve_mesh's new tokens, the serve phase's first MESH_NEW: a decode step
+# under the (1, 1) plan costs about 27x the unsharded one in host dispatch
+MESH_NEW = 8
+MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, relative
+# the dry run's full-size cells, and the reduced one run under both labels
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
+                ("mamba2-130m", "long_500k", "pod"))
+DRYRUN_REDUCED = ("qwen2-1.5b", "train_4k", "pod")
+DRYRUN_TIMEOUT = 600  # seconds, per subprocess
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
 STEP_TOL = {"loss": 1e-4, "grad_rtol": 1e-3, "grad_atol": 1e-5}
 # the DSE: the backend benchmark's population (benchmarks/fig10_agents.py:
@@ -592,7 +628,8 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
 def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
     """One full-width ``Engine.generate`` (B=BATCH, NEW new tokens, fp32,
     greedy) with every launch count set to 0 just before it; fails unless the
-    counts are ``want``.  Returns (params, prompts, launches)."""
+    counts are ``want``.  Returns (params, prompts, launches, the generated
+    tokens, their ServeStats, device ms of prefill and of a decode step)."""
     t0 = time.perf_counter()
     params = M.init_params(spec, SEED, device="cuda")
     torch.cuda.synchronize()
@@ -642,7 +679,7 @@ def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
     top = sorted(pre.items(), key=lambda kv: -kv[1])[:6]
     print(f"[serve] {spec.name} prefill's largest device kernels (ms): "
           + "; ".join(f"{name[:80]} {ms:.3f}" for name, ms in top))
-    return params, prompts, launches
+    return params, prompts, launches, out, stats, (sum(pre.values()), sum(step.values()))
 
 
 def prefill_vs_decode(torch, M, spec, params, tok):
@@ -695,6 +732,198 @@ def consistency(torch, M, moem, map_with_path, reduced, spec, params, prompts):
           f"aux {aux_gpu.item():.6f} vs {aux_cpu.item():.6f}")
     if not (err_small <= 1e-4 and err_aux <= 1e-4):
         fail(f"{spec.name}: the card's forward disagrees with the CPU's")
+
+
+def serve_mesh(torch, np, M, Engine, counted, card, spec, params, prompts, want, base):
+    """``spec`` served under plan_for_mesh of a (1, 1) ("data", "model") mesh
+    of the world-1 NCCL group, from the serve phase's weights and prompts:
+    ``Engine(plan=)`` for MESH_NEW new tokens, every launch count set to 0
+    just before it, must give the serve phase's launches a token (``want``
+    is theirs for NEW) and its first MESH_NEW tokens (``base``: tokens,
+    stats and device ms); prefill logits bit for bit and MESH_DECODE_STEPS
+    greedy decode steps' logits within MESH_DECODE_RTOL of the unsharded
+    ones.  Returns the launches."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import NULL_PLAN, distribute_tree, placements, plan_for_mesh
+    base_out, base_stats, (base_pre_ms, base_step_ms) = base
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    plan = plan_for_mesh(mesh)
+    dparams = distribute_tree(params, M.param_axes(spec), plan, mesh)
+    b, s = prompts.shape
+    max_len, f32 = s + NEW, torch.float32
+    eng = Engine(spec, dparams, plan=plan, max_len=max_len, dtype=f32, device="cuda")
+    eng.generate(prompts, max_new=2)  # warm-up: DTensor's sharding cache
+    # the RMSNorm launches of prefill and of each decode step, for MESH_NEW steps
+    want = {**want, "rmsnorm": want["rmsnorm"] // (1 + NEW) * (1 + MESH_NEW)}
+    for fn in counted.values():
+        fn.launches = 0
+    out, stats = eng.generate(prompts, max_new=MESH_NEW)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    if launches != want:
+        fail(f"serve_mesh {spec.name}: launches {launches}, the serve phase's {want}")
+    if not np.array_equal(out, base_out[:, :MESH_NEW]):
+        fail(f"serve_mesh {spec.name}: tokens differ from the unsharded Engine's at "
+             f"{np.argwhere(out != base_out[:, :MESH_NEW])[:8].tolist()}")
+
+    def inputs(sharded):
+        caches = M.init_caches(spec, b, max_len, dtype=f32, device="cuda")
+        tok = torch.as_tensor(prompts, device="cuda")
+        if sharded:
+            caches = distribute_tree(caches, M.cache_axes(spec, b, max_len), plan, mesh)
+            tok = distribute_tensor(tok, mesh, placements(plan.spec(("batch", None),
+                                                                    tuple(tok.shape)), mesh),
+                                    src_data_rank=None)
+        return caches, tok
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    @torch.inference_mode()
+    def logits(p, sharded):
+        caches, tok = inputs(sharded)
+        pl = plan if sharded else NULL_PLAN
+        lg, caches = M.prefill(p, tok, caches, spec, pl, compute_dtype=f32)
+        got = [whole(lg).clone()]
+        for i in range(MESH_DECODE_STEPS):
+            lg, caches = M.decode_step(p, caches, got[-1].argmax(-1), s + i, spec, pl,
+                                       compute_dtype=f32)
+            got.append(whole(lg).clone())
+        return got
+
+    want_lg, have_lg = logits(params, False), logits(dparams, True)
+    prefill_same = same_bits(torch, (have_lg[0],), (want_lg[0],))
+    rel = [((h - w).abs().max() / w.abs().max()).item() for h, w in zip(have_lg, want_lg)]
+    differ = [i for i, (h, w) in enumerate(zip(have_lg[1:], want_lg[1:]), 1)
+              if not torch.equal(h, w)]
+    caches, tok = inputs(True)
+    pre = device_by_kernel(lambda: M.prefill(dparams, tok, caches, spec, plan,
+                                             compute_dtype=f32), 2)
+    step = device_by_kernel(lambda: M.decode_step(dparams, caches, tok.full_tensor()[:, -1], s,
+                                                  spec, plan, compute_dtype=f32), 8)
+    pre_ms, step_ms = sum(pre.values()) or None, sum(step.values()) or None
+
+    def busy(dev_ms, wall_ms):
+        return "not measured" if not dev_ms else f"{dev_ms:.3f} device ms = {dev_ms / wall_ms:.3f}"
+    wall = (stats.prefill_s * 1e3, stats.decode_s * 1e3 / MESH_NEW)
+    base_wall = (base_stats.prefill_s * 1e3, base_stats.decode_s * 1e3 / NEW)
+    print(f"[serve_mesh] {card} | {spec.name} B={b} prompt={s} new={MESH_NEW} fp32 under a (1, 1) "
+          f"plan: prefill {wall[0]:.3f} ms (unsharded {base_wall[0]:.3f}), decode "
+          f"{wall[1]:.3f} ms/step (unsharded {base_wall[1]:.3f}); device busy (torch.profiler) "
+          f"prefill {busy(pre_ms, wall[0])} (unsharded {busy(base_pre_ms, base_wall[0])}), "
+          f"decode step {busy(step_ms, wall[1])} (unsharded {busy(base_step_ms, base_wall[1])}); "
+          f"launches {launches} (the serve phase's a token); the unsharded Engine's first "
+          f"{MESH_NEW} tokens")
+    print(f"[serve_mesh] {spec.name} logits under the plan vs unsharded: prefill bit for bit "
+          f"{prefill_same}; max |diff| / max |logit| by step (0: prefill) {rel}; decode steps "
+          f"that differ in any bit {differ} (tol {MESH_DECODE_RTOL})")
+    if not prefill_same or max(rel) > MESH_DECODE_RTOL:
+        fail(f"serve_mesh {spec.name}: logits differ from the unsharded ones")
+    del eng, dparams, caches, tok
+    return launches
+
+
+def rmsnorm_dispatch_cost(torch, rn, d):
+    """Host microseconds a call of RMSNorm at the decode shape (BATCH, d) f32:
+    through rmsnorm (its operator, torch.ops.repro_torch.rmsnorm_fwd) and
+    through the bare launch (rmsnorm._forward), medians of five runs of 2000
+    calls taken in turns, each run closed by a synchronise."""
+    x = torch.randn((BATCH, d), device="cuda")
+    w = torch.randn((d,), device="cuda")
+    runs = {"op": [], "bare": []}
+    with torch.inference_mode():
+        for _ in range(5):
+            for name, fn in (("op", lambda: rn.rmsnorm(x, w)), ("bare", lambda: rn._forward(x, w,
+                                                                                         1e-5))):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    fn()
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) / 2000 * 1e6)
+    med = {k: sorted(v)[2] for k, v in runs.items()}
+    print(f"[serve_mesh] rmsnorm f32 ({BATCH}, {d}) host us a call: through its operator "
+          f"{med['op']:.3f}, bare launch {med['bare']:.3f} (medians of 5 runs of 2000, in "
+          f"turns): the operator's dispatch costs {med['op'] - med['bare']:.3f} us a call")
+    return med
+
+
+def dryrun_phase(card) -> None:
+    """The dry run in subprocesses on fake worlds: DRYRUN_CELLS at full size
+    (fake tensors labelled cuda, three processes at once), each ok; then the
+    reduced DRYRUN_REDUCED cell labelled cpu and cuda, whose records agree
+    key for key but lower_s.  Every process is stopped before it returns."""
+    import os
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    try:
+        def start(arch, shape, mesh, out, *extra):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--mesh", mesh, "--out", str(out), *extra]
+            return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+
+        def finish(procs):
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=DRYRUN_TIMEOUT)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            return logs
+
+        def record(out, arch, shape, mesh):
+            path = out / f"{arch}__{shape}__{mesh}.json"
+            return json.loads(path.read_text()) if path.exists() else None
+
+        t0 = time.perf_counter()
+        logs = finish([start(*cell, tmp / "full") for cell in DRYRUN_CELLS])
+        for cell, log in zip(DRYRUN_CELLS, logs):
+            rec = record(tmp / "full", *cell)
+            if rec is None or rec["status"] != "ok":
+                fail(f"dryrun {':'.join(cell)}: {(rec or {}).get('error') or log[-2000:]}")
+            hlo, mem = rec["hlo"], rec["memory"]
+            per_chip = rec["model_flops"] / rec["n_chips"]
+            print(f"[dryrun] {card} host | {':'.join(cell)} (fake world of {rec['n_chips']}, "
+                  f"labels cuda): ok; peak {mem['peak_bytes_per_device'] / 2**30:.3f} GiB a "
+                  f"device, arguments {mem['argument_bytes'] / 2**30:.3f} GiB"
+                  + (f", caches {mem['kv_cache_bytes_per_device'] / 2**30:.3f} GiB"
+                     if "kv_cache_bytes_per_device" in mem else "")
+                  + f"; FLOPs a device {hlo['flops_per_device']:.4e} against model_flops / "
+                  f"n_chips {per_chip:.4e} ({hlo['flops_per_device'] / per_chip:.3f}x); bytes "
+                  f"a device {hlo['bytes_per_device']:.4e}; collective bytes "
+                  f"{ {k: f'{v:.4e}' for k, v in hlo['collective_bytes'].items()} } by group "
+                  f"{ {k: f'{v:.4e}' for k, v in hlo['collective_by_group'].items()} }; "
+                  f"{rec['lower_s']} s")
+            keys = ("arch", "shape", "mesh", "n_chips", "model_flops", "memory", "hlo", "lower_s")
+            print(f"[dryrun] record {json.dumps({k: rec[k] for k in keys})}")
+        print(f"[dryrun] three full-size cells in {time.perf_counter() - t0:.3f} s wall")
+        arch, shape, mesh = DRYRUN_REDUCED
+        finish([start(arch, shape, mesh, tmp / dev, "--reduced", "--device", dev)
+                for dev in ("cpu", "cuda")])
+        cpu, cuda = (record(tmp / dev, arch, shape, mesh) for dev in ("cpu", "cuda"))
+        if not cpu or not cuda or cpu["status"] != "ok" or cuda["status"] != "ok":
+            fail(f"dryrun reduced {arch}:{shape}: {(cpu or {}).get('error')} / "
+                 f"{(cuda or {}).get('error')}")
+        strip = lambda r: {k: v for k, v in r.items() if k != "lower_s"}
+        differ = sorted(k for k in set(cpu) | set(cuda) if k != "lower_s"
+                        and cpu.get(k) != cuda.get(k))
+        print(f"[dryrun] reduced {arch}:{shape}:{mesh} labelled cpu and cuda: records equal key "
+              f"for key but lower_s: {strip(cpu) == strip(cuda)} ({cpu['lower_s']} s and "
+              f"{cuda['lower_s']} s)" + (f"; keys that differ {differ}" if differ else ""))
+        if strip(cpu) != strip(cuda):
+            fail(f"dryrun: the cpu- and cuda-labelled records differ: "
+                 + "; ".join(f"{k}: {cpu.get(k)} against {cuda.get(k)}" for k in differ))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def train_counts(spec, remat: str) -> dict[str, int]:
@@ -1595,7 +1824,13 @@ def main() -> None:
     by_path = {}
     dse_rows, by_path["dse"], dse_more = dse(torch, np, counted, card)
 
-    # -- serve, then consistency, per model ------------------------------------
+    # -- serve, consistency and serve_mesh, per model ---------------------------
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed("cuda")  # a world of one, NCCL: serve_mesh's and the mesh phase's
+    rmsnorm_dispatch_cost(torch, rn, spec.d_model)
+
     def attention_counts(model_spec):
         # per layer: flash once in prefill; norm1 and norm2 in prefill and in
         # each decode step, and the final norm; serving launches no backward
@@ -1612,9 +1847,11 @@ def main() -> None:
                                "ssd_scan_bwd": 0, **no_dse}),
             (gspec, G_PROMPT, attention_counts(gspec)),
             (rspec, R_PROMPT, attention_counts(rspec))):
-        params, prompts, by_path[model_spec.name] = serve(
+        params, prompts, by_path[model_spec.name], *base = serve(
             torch, np, M, Engine, counted, param_count, card, model_spec, prompt, want)
         consistency(torch, M, moem, map_with_path, reduced, model_spec, params, prompts)
+        by_path[f"serve_mesh {model_spec.name}"] = serve_mesh(
+            torch, np, M, Engine, counted, card, model_spec, params, prompts, want, base)
         del params
         torch.cuda.empty_cache()
 
@@ -1628,10 +1865,6 @@ def main() -> None:
     # -- mesh: the sharded train path on a mesh of one card ------------------------
     import dataclasses
 
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import init_distributed
-    init_distributed("cuda")  # a world of one, NCCL
     by_path[f"mesh {spec.name} train"] = mesh_train(torch, counted, card, spec, TRAIN_SEQ,
                                                     MESH_STEPS)
     torch.cuda.empty_cache()
@@ -1642,6 +1875,9 @@ def main() -> None:
     mesh_dp_pipeline(torch, card)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # -- dryrun: the program on fake worlds of 256 and 512 ranks --------------------
+    dryrun_phase(card)
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")

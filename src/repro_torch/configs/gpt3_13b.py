@@ -1,0 +1,4 @@
+"""Config module for --arch; exact spec lives in registry."""
+from repro_torch.configs.registry import GPT3_13B as SPEC
+
+__all__ = ["SPEC"]

@@ -17,6 +17,16 @@ raises ``ValueError`` on a view that breaks this, and never copies it.
 any other device raises.  ``flash_attention.launches`` counts kernel
 launches.
 
+Each launch is an operator (``kernels/_library.py``):
+``torch.ops.repro_torch.flash_fwd`` and ``flash_bwd``.  A ``FakeTensor``
+(the dry run's stand-ins, labelled ``cpu`` or ``cuda``) takes the operator
+before any device branch, so its fake implementation gives the shapes,
+nothing is launched and no launch is counted; the dense plain version is
+never reached either.  The FLOP formulas count what the kernels do per
+(batch, head) and unmasked (query, key) pair (``pairs``): 4 hd forward (Q
+K^T and P V), 10 hd backward (Q K^T again, dO V^T, P^T dO, dS^T Q, dS K),
+the counts behind ``chip_smoke.py``'s bounds.
+
 Gradients.  When grad mode is on and an input requires grad, a CUDA call
 goes through ``FlashAttentionFn``: its forward launches the same kernel and
 also keeps each row's log-sum-exp, and its backward is
@@ -33,9 +43,10 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _library, ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,6 +125,8 @@ def _check_card(q, k, v):
         raise ValueError(f"the kernel takes {sorted(map(str, _DTYPES))}, not {q.dtype}")
     if b * s * h == 0 or k.shape[1] == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if _library.is_fake(q):
+        return  # no storage: the layout is checked where the kernel launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         problem = tma_layout_problem(x.shape, x.stride(), x.element_size(), x.data_ptr())
         if problem:
@@ -122,7 +135,8 @@ def _check_card(q, k, v):
 
 def _launch(q, k, v, causal, window, scale, with_lse: bool):
     """One forward launch on checked CUDA tensors: o, and each row's f32
-    log-sum-exp (B, H, S) if ``with_lse`` (else None)."""
+    log-sum-exp (B, H, S) if ``with_lse`` (else None).  The CUDA
+    implementation of ``repro_torch::flash_fwd``."""
     b, s, h, hd = q.shape
     t, g = k.shape[1], k.shape[2]
     o = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -156,18 +170,25 @@ def _tma_ready(x):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                         scale: float | None = None):
-    """The backward kernels on CUDA tensors: q/o/do (B,S,H,hd), k/v
-    (B,T,G,hd), lse the forward's f32 (B,H,S).  Returns dq, dk, dv in the
+    """The backward kernels on CUDA tensors (or fake ones): q/o/do (B,S,H,hd),
+    k/v (B,T,G,hd), lse the forward's f32 (B,H,S).  Returns dq, dk, dv in the
     layouts and dtype of q, k and v."""
     _check(q, k, v, window)
     _check_card(q, k, v)
     b, s, h, hd = q.shape
-    t, g = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} or lse {tuple(lse.shape)} "
                          f"do not fit q {tuple(q.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("o and do take q's dtype, lse float32")
+    return _bwd_op(q, k, v, o, lse, do, causal, window, float(scale or 1.0 / math.sqrt(hd)))
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, window, scale):
+    """One backward call on checked CUDA tensors: the CUDA implementation of
+    ``repro_torch::flash_bwd``."""
+    b, s, h, hd = q.shape
+    t, g = k.shape[1], k.shape[2]
     # dO goes through TMA and o through 16-byte loads: an autograd gradient
     # may come expanded (stride 0) or unaligned, and is then copied
     o, do = _tma_ready(o), _tma_ready(do)
@@ -184,7 +205,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     strides = (ctypes.c_longlong * 15)(*(st for x in (q, k, v, o, do) for st in x.stride()[:3]))
     with torch.cuda.device(dev):
         err = _bwd_entry()(ptrs, strides, _DTYPES[q.dtype], b, s, t, h, g, hd, int(causal),
-                           int(window), float(scale or 1.0 / math.sqrt(hd)),
+                           int(window), float(scale),
                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("flash_attention_bwd: a TMA descriptor could not be encoded"
@@ -194,13 +215,56 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     return dq, dk, dv
 
 
+def pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the kernel's mask keeps: key j of T for query i
+    of S when j <= i (causal, anchored at index 0) and j > i - window (a
+    window)."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _fwd_fake(q, k, v, causal, window, scale, with_lse):
+    b, s, h, hd = q.shape
+    return (q.new_empty((b, s, h, hd)),
+            q.new_empty((b, h, s) if with_lse else (0,), dtype=torch.float32))
+
+
+def _fwd_flops(q, k, v, causal, window, scale, with_lse, *, out_shape=None, **_):
+    b, s, h, hd = q
+    return 4 * hd * b * h * pairs(s, k[1], causal, window)
+
+
+def _fwd_cuda(q, k, v, causal, window, scale, with_lse):
+    o, lse = _launch(q, k, v, causal, window, scale, with_lse)
+    return o, (lse if with_lse else q.new_empty((0,), dtype=torch.float32))
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, window, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _bwd_flops(q, k, v, o, lse, do, causal, window, scale, *, out_shape=None, **_):
+    b, s, h, hd = q
+    return 10 * hd * b * h * pairs(s, k[1], causal, window)
+
+
+_fwd_op = _library.define(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, int window, float scale, "
+    "bool with_lse) -> (Tensor, Tensor)", _fwd_cuda, _fwd_fake, _fwd_flops)
+_bwd_op = _library.define(
+    "flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, bool causal, "
+    "int window, float scale) -> (Tensor, Tensor, Tensor)", _launch_bwd, _bwd_fake, _bwd_flops)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward keeps q, k, v, o and each
     row's log-sum-exp; the backward is ``flash_attention_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o, lse = _launch(q, k, v, causal, window, scale, with_lse=True)
+        o, lse = _fwd_op(q, k, v, causal, window, scale, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)
         return o
@@ -218,15 +282,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """q: (B, S, H, hd); k/v: (B, T, G, hd).  Returns (B, S, H, hd) of q.dtype."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    if not _library.is_fake(q):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     _check_card(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale)
-    return _launch(q, k, v, causal, window, scale, with_lse=False)[0]
+    return _fwd_op(q, k, v, causal, window, scale, False)[0]
 
 
 flash_attention.launches = 0

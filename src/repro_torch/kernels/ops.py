@@ -2,7 +2,8 @@
 
 Counterparts of ``kernels/ops.py``: ``mha_flash`` (:24), ``ssd`` (:43) and
 ``fused_rmsnorm`` (:63).  A CUDA tensor goes to the Hopper kernel (or the
-call raises), a CPU tensor to the kernel's plain version.  The models call
+call raises), a CPU tensor to the kernel's plain version, a fake tensor (the
+dry run's) to the kernel operator's fake implementation.  The models call
 these at every length and every row count: there is no separate dense or
 pure-torch model path.
 

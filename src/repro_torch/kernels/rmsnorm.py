@@ -16,6 +16,14 @@ off the current device.
 ``ref.rmsnorm_ref`` for a CPU tensor; any other device raises.
 ``rmsnorm.launches`` counts kernel launches.
 
+Each launch is an operator (``kernels/_library.py``):
+``torch.ops.repro_torch.rmsnorm_fwd`` and ``rmsnorm_bwd``.  A ``FakeTensor``
+(the dry run's stand-ins, labelled ``cpu`` or ``cuda``) takes the operator
+before any device branch: its fake implementation gives the shapes and
+nothing is launched or counted.  The FLOP formulas count 4 operations an
+element forward (square, sum, scale, times ``1 + w``) and 8 backward, the
+counts behind ``chip_smoke.py``'s bounds.
+
 Gradients.  When grad mode is on and x or w requires grad, a CUDA call goes
 through ``RMSNormFn``, whose backward is ``rmsnorm_bwd`` (two launches in
 ``csrc/rmsnorm.cu``: dx from rows held in registers, as the forward holds
@@ -37,7 +45,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _library, ref
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The C entry's code for an (x dtype, w dtype) pair: x code + 2 * w code.
@@ -77,14 +85,16 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
 
     Every normalisation of the models comes here, a decode step's too, so
     the CUDA path does as little in Python as it can."""
-    if not x.is_cuda:
+    if not x.is_cuda and not _library.is_fake(x):
         return _off_card(x, w, eps)
     if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
         return RMSNormFn.apply(x, w, eps)
-    return _forward(x, w, eps)
+    return _fwd_op(x, w, eps)
 
 
 def _forward(x, w, eps):
+    """One launch on CUDA tensors, checked here: the CUDA implementation of
+    ``repro_torch::rmsnorm_fwd``."""
     if x.ndim != 2 or w.ndim != 1:
         raise ValueError(f"want x (rows, d) and w (d,); got {tuple(x.shape)}, {tuple(w.shape)}")
     rows, d = x.shape
@@ -124,20 +134,29 @@ BWD_MAX_D = 58096  # wider rows' column sums (and 16 row sums) would not fit a b
 
 
 def rmsnorm_bwd(x, w, g, *, eps: float = 1e-5):
-    """The backward kernels on CUDA tensors: x (rows, d), w (d,), g the
-    output's gradient (rows, d).  Returns dx (rows, d) of x.dtype and dw (d,)
-    of w.dtype."""
+    """The backward kernels on CUDA tensors (or fake ones): x (rows, d), w
+    (d,), g the output's gradient (rows, d).  Returns dx (rows, d) of x.dtype
+    and dw (d,) of w.dtype."""
     if x.ndim != 2 or w.shape != (x.shape[1],) or g.shape != x.shape:
         raise ValueError(f"want x and g (rows, d), w (d,); got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}, {tuple(w.shape)}")
     rows, d = x.shape
     code = _CODES.get((x.dtype, w.dtype))
-    if code is None or g.dtype != x.dtype or not x.is_cuda or {w.device, g.device} != {x.device}:
+    on_card = x.is_cuda or _library.is_fake(x)
+    if code is None or g.dtype != x.dtype or not on_card or {w.device, g.device} != {x.device}:
         raise ValueError(f"the kernel takes CUDA float32 or bfloat16 x and g of one dtype on one "
                          f"device; got x {x.dtype}, g {g.dtype}, w {w.dtype}")
     if not rows or not d or d > BWD_MAX_D:
         raise ValueError(f"the kernel takes rows > 0 and 0 < d <= {BWD_MAX_D}, not "
                          f"{tuple(x.shape)}")
+    return _bwd_op(x, w, g, eps)
+
+
+def _launch_bwd(x, w, g, eps):
+    """One backward call on checked CUDA tensors: the CUDA implementation of
+    ``repro_torch::rmsnorm_bwd``."""
+    rows, d = x.shape
+    code = _CODES[x.dtype, w.dtype]
     x, g = (t if t.stride(1) == 1 else t.contiguous() for t in (x, g))
     w = w.contiguous()
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
@@ -156,6 +175,24 @@ def rmsnorm_bwd(x, w, g, *, eps: float = 1e-5):
     return dx, dw
 
 
+def _fwd_fake(x, w, eps):
+    if x.ndim != 2 or w.shape != (x.shape[1],) or (x.dtype, w.dtype) not in _CODES:
+        raise ValueError(f"the kernel takes x (rows, d) and w (d,) in float32 or bfloat16; got "
+                         f"{x.dtype} {tuple(x.shape)}, {w.dtype} {tuple(w.shape)}")
+    return x.new_empty(x.shape)
+
+
+def _bwd_fake(x, w, g, eps):
+    return x.new_empty(x.shape), w.new_empty(w.shape)
+
+
+_fwd_op = _library.define("rmsnorm_fwd(Tensor x, Tensor w, float eps) -> Tensor", _forward,
+                          _fwd_fake, lambda x, w, eps, **_: 4 * x[0] * x[1])
+_bwd_op = _library.define("rmsnorm_bwd(Tensor x, Tensor w, Tensor g, float eps) "
+                          "-> (Tensor, Tensor)",
+                          _launch_bwd, _bwd_fake, lambda x, w, g, eps, **_: 8 * x[0] * x[1])
+
+
 @functools.cache
 def _bwd_entry():
     fn = _build.load("rmsnorm").rmsnorm_bwd
@@ -172,7 +209,7 @@ class RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        return _forward(x, w, eps)
+        return _fwd_op(x, w, eps)
 
     @staticmethod
     def backward(ctx, g):

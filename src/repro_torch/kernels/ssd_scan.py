@@ -42,6 +42,17 @@ as lean as before.  A CPU call differentiates through the plain version,
 which is also the card's reference for the gradient.
 ``ssd_scan_bwd_plain`` is the backward's chunk algebra in plain torch: the
 derivation's check on the CPU.
+
+Each call is an operator (``kernels/_library.py``):
+``torch.ops.repro_torch.ssd_fwd`` (y, the final state and the scratch) and
+``ssd_bwd``.  A ``FakeTensor`` (the dry run's stand-ins, labelled ``cpu`` or
+``cuda``) takes the operator before any device branch: its fake
+implementation gives the shapes (the scratch's too) and nothing is launched
+or counted; the plain version's loop over S is never reached.  The FLOP
+formulas count the sequential recurrence's work per (batch, head): 4 S N P
+forward (a multiply-add per state element to add B (x dt) in and one to
+read y = C h out) and 8 S N P backward, the counts behind
+``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
@@ -51,7 +62,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _library, ref
 
 DIMS = (16, 32, 64, 128)  # the head dims P and state sizes N the kernel takes
 CHUNK = 64  # the kernels' chunk length, L in csrc/ssd_scan.cu
@@ -242,7 +253,8 @@ def _rows_ready(t):
 
 def _launch(x, dt, a, b, c):
     """One forward call on checked CUDA tensors: y, the final state, and the
-    scratch that holds the state entering each chunk and each chunk's decay."""
+    scratch that holds the state entering each chunk and each chunk's decay.
+    The CUDA implementation of ``repro_torch::ssd_fwd``."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
@@ -262,12 +274,12 @@ def _launch(x, dt, a, b, c):
 
 
 def ssd_scan_bwd(x, dt, a, b, c, scratch, dy, dstate=None):
-    """The backward kernels on CUDA tensors: the forward's inputs and its
-    ``scratch`` (``_launch``), dy (B,S,H,P) and dstate (B,H,P,N) f32 or None
-    (zero).  Returns dx, ddt, da, db, dc: dx, db, dc in x's dtype, ddt and
-    da in f32."""
+    """The backward kernels on CUDA tensors (or fake ones): the forward's
+    inputs and its ``scratch`` (``_launch``), dy (B,S,H,P) and dstate
+    (B,H,P,N) f32 or None (zero).  Returns dx, ddt, da, db, dc: dx, db, dc in
+    x's dtype, ddt and da in f32."""
     _check(x, dt, a, b, c)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not _library.is_fake(x):
         raise ValueError(f"ssd_scan_bwd launches kernels on CUDA tensors, not {x.device}: the "
                          "CPU differentiates through the plain version")
     _check_card(x, b)
@@ -284,13 +296,14 @@ def ssd_scan_bwd(x, dt, a, b, c, scratch, dy, dstate=None):
         raise ValueError("scratch is not the forward's")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
-    x, b, c, dy = (_rows_ready(t) for t in (x, b, c, dy))
-    return _launch_bwd(x, dt, a, b, c, scratch, dy, None if dstate is None else dstate.contiguous())
+    return _bwd_op(x, dt, a, b, c, scratch, dy, dstate)
 
 
 def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
-    """One backward call on checked CUDA tensors whose rows the kernels can
-    read (x, b, c, dy), with dstate contiguous or None."""
+    """One backward call on checked CUDA tensors, dstate possibly None: the
+    CUDA implementation of ``repro_torch::ssd_bwd``."""
+    x, b, c, dy = (_rows_ready(t) for t in (x, b, c, dy))
+    dstate = None if dstate is None else dstate.contiguous()
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev, f32 = x.device, torch.float32
@@ -312,6 +325,37 @@ def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
     return dx, ddt, da, db, dc
 
 
+def _fwd_fake(x, dt, a, b, c):
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    return (x.new_empty((bsz, s, h, p)), x.new_empty((bsz, h, p, n), dtype=torch.float32),
+            x.new_empty((scratch_floats(bsz, s, h, p, n),), dtype=torch.float32))
+
+
+def _bwd_fake(x, dt, a, b, c, scratch, dy, dstate):
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape), a.new_empty(a.shape),
+            b.new_empty(b.shape), c.new_empty(c.shape))
+
+
+def _fwd_flops(x, dt, a, b, c, **_):
+    bsz, s, h, p = x
+    return 4 * s * b[3] * p * bsz * h
+
+
+def _bwd_flops(x, dt, a, b, c, scratch, dy, dstate, **_):
+    bsz, s, h, p = x
+    return 8 * s * b[3] * p * bsz * h
+
+
+_fwd_op = _library.define(
+    "ssd_fwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c) -> (Tensor, Tensor, Tensor)",
+    _launch, _fwd_fake, _fwd_flops)
+_bwd_op = _library.define(
+    "ssd_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor scratch, Tensor dy, "
+    "Tensor? dstate) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _launch_bwd, _bwd_fake, _bwd_flops)
+
+
 class SSDScanFn(torch.autograd.Function):
     """The kernels with their gradient, on checked CUDA tensors whose rows
     the kernels can read: the forward keeps its inputs and the scratch of
@@ -321,33 +365,34 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b, c):
         ctx.set_materialize_grads(False)
-        y, state, scratch = _launch(x, dt, a, b, c)
+        y, state, scratch = _fwd_op(x, dt, a, b, c)
         ctx.save_for_backward(x, dt, a, b, c, scratch)
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, a, b, c, scratch = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else _rows_ready(dy)
-        return _launch_bwd(x, dt, a, b, c, scratch, dy,
-                           None if dstate is None else dstate.contiguous())
+        return _bwd_op(x, dt, a, b, c, scratch, torch.zeros_like(x) if dy is None else dy,
+                       dstate)
 
 
 def ssd_scan(x, dt, a, b, c):
     """x: (B, S, H, P); dt: (B, S, H) f32; a: (H,) f32; b/c: (B, S, G, N).
     Returns y (B, S, H, P) of x.dtype and the final state (B, H, P, N) f32."""
     _check(x, dt, a, b, c)
-    if x.device.type == "cpu":
+    fake = _library.is_fake(x)
+    if x.device.type == "cpu" and not fake:
         return ssd_scan_plain(x, dt, a, b, c)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
     _check_card(x, b)
     if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
         raise ValueError("the last axis of x, b and c, and a, must be contiguous")
-    x, b, c = (_rows_ready(t) for t in (x, b, c))
+    if not fake:
+        x, b, c = (_rows_ready(t) for t in (x, b, c))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
         return SSDScanFn.apply(x, dt, a, b, c)
-    y, state, _ = _launch(x, dt, a, b, c)
+    y, state, _ = _fwd_op(x, dt, a, b, c)
     return y, state
 
 

@@ -7,7 +7,15 @@ Decode attends one query row against the cache with plain tensor ops, as
 the JAX package computes it outside any Pallas kernel (:248-256).
 
 Caches are dicts of tensors that prefill and decode update in place (no
-copy of the whole cache per token) and return.  A global layer's cache is
+copy of the whole cache per token) and return.  Under a plan each is a
+``DTensor`` placed by its cache axes (``kv_seq`` split over 'data' and
+'model', or 'model' alone, when the batch and the groups leave them free):
+every write at a position goes through ``local_shards.write_along``, so each
+rank writes the rows that fall in its own shard and the cache is never
+gathered.  Where ``kv_seq`` is split, decode reads the whole cache under
+the JAX mask ``arange(T) <= pos`` (:233-246), as a slice would split
+unevenly; where it is whole (unsharded, or a plan that splits batch or
+groups instead) decode reads the slots ``0..pos`` alone.  A global layer's cache is
 ``{"k", "v"}`` of (B, T, G, hd) with T the serving length.  A
 sliding-window layer keeps a ring buffer of ``t = min(window, T)`` slots,
 the JAX ``attn_cache_defs`` (:170-180): token ``pos`` lives in slot
@@ -24,7 +32,8 @@ import torch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name
+from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name, linear
+from repro_torch.parallel.local_shards import grad_as_input, lift, split_along, write_along
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
@@ -43,22 +52,28 @@ def attn_defs(spec: ArchSpec) -> dict[str, ParamDef]:
     return defs
 
 
-def _project_qkv(p, x, spec: ArchSpec):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, G, hd)."""
+def _project_qkv(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, G, hd).  Under a plan a
+    product whose heads do not split over 'model' is kept whole along its
+    last dim, so that it can be viewed as (heads, hd)."""
     b, s, d = x.shape
 
-    def proj(w, bias):
-        y = (x @ w.reshape(d, -1).to(x.dtype)).view(b, s, *w.shape[1:])
+    def proj(w, bias, heads):
+        y = linear(x, grad_as_input(w.reshape(d, -1)))  # the gradient views back
+        if not plan.can_shard(heads, w.shape[1]):
+            y = plan.constrain(y, ("batch", "seq", None))
+        y = y.view(b, s, *w.shape[1:])
         return y + bias.to(y.dtype) if spec.qkv_bias else y
 
-    return (proj(p["wq"], p.get("bq")), proj(p["wk"], p.get("bk")),
-            proj(p["wv"], p.get("bv")))
+    return (proj(p["wq"], p.get("bq"), "q_heads"), proj(p["wk"], p.get("bk"), "kv_heads"),
+            proj(p["wv"], p.get("bv"), "kv_heads"))
 
 
 def _out_proj(p, o):
     """o: (B, S, H, hd) -> (B, S, D)."""
     h, hd, d = p["wo"].shape
-    return o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d).to(o.dtype)
+    flat = grad_as_input(o.reshape(*o.shape[:2], h * hd))  # its gradient views back to (H, hd)
+    return linear(flat, grad_as_input(p["wo"].reshape(h * hd, d)))
 
 
 def _repeat_kv(k, n_heads: int):
@@ -68,7 +83,8 @@ def _repeat_kv(k, n_heads: int):
 
 
 def _attend(p, x, positions, spec: ArchSpec, window: int, plan: ShardingPlan = NULL_PLAN):
-    """Self-attention over the sequence; also returns the roped k and v.
+    """Self-attention over the sequence; also returns the roped k and v
+    (B, S, G, hd), as the cache takes them.
 
     The kernel masks by index, so ``positions`` (used for RoPE) must be
     ``arange(S)``, as every caller passes.  Under a plan, the JAX layout
@@ -78,11 +94,11 @@ def _attend(p, x, positions, spec: ArchSpec, window: int, plan: ShardingPlan = N
     the residual stream's sequence split, which ``ops.mha_flash`` gathers.
     """
     h, g = spec.n_heads, spec.n_kv_heads
-    q, k, v = _project_qkv(p, x, spec)
+    q, k, v = _project_qkv(p, x, spec, plan)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
-    k = plan.constrain(k, ("batch", None, None, None))
-    v = plan.constrain(v, ("batch", None, None, None))
+    k = kc = plan.constrain(k, ("batch", None, None, None))
+    v = vc = plan.constrain(v, ("batch", None, None, None))
     # what the 'save_kv' remat policy keeps for the backward (JAX :141-142)
     k = checkpoint_name(k, "attn_kv")
     v = checkpoint_name(v, "attn_kv")
@@ -98,7 +114,7 @@ def _attend(p, x, positions, spec: ArchSpec, window: int, plan: ShardingPlan = N
         q = plan.constrain(q, ("batch", "seq", None, None))
     o = ops.mha_flash(q, k, v, causal=True, window=window,
                       scale=1.0 / math.sqrt(spec.resolved_head_dim))
-    return _out_proj(p, o), k, v
+    return _out_proj(p, o), kc, vc
 
 
 def attention_fwd(p, x, positions, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, *,
@@ -124,63 +140,85 @@ def attn_cache_defs(spec: ArchSpec, batch: int, seq: int, *,
     return defs
 
 
-def attn_prefill(p, x, positions, spec: ArchSpec, cache, *, window: int = 0):
+def attn_prefill(p, x, positions, spec: ArchSpec, plan: ShardingPlan, cache, *,
+                 window: int = 0):
     """Forward over the prompt, writing its k/v into the cache in place: a
     full cache takes them at ``[:, :S]``; a ring cache keeps the trailing
-    ``min(S, t)`` tokens at slot ``pos % t`` and is emptied elsewhere, as
+    ``m = min(S, t)`` tokens at slot ``pos % t`` and is emptied elsewhere, as
     the JAX ``attn_prefill`` (:193-201) rebuilds it."""
     s, t = x.shape[1], cache["k"].shape[1]
-    y, k, v = _attend(p, x, positions, spec, window)
+    y, k, v = _attend(p, x, positions, spec, window, plan)
     if not window:
         if s > t:
             raise ValueError(f"prompt of {s} tokens does not fit a cache of {t}")
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-        return y, cache
+        write_along(cache["k"], k, 0)
+        write_along(cache["v"], v, 0)
+        return y, constrain_cache(cache, plan)
     m = min(s, t)
-    tail = positions[s - m:].long()
-    slots = tail % t
+    r = (s - m) % t  # the slot of the first kept token: the kept tokens wrap at t - r
     for name, new in (("k", k), ("v", v)):
-        cache[name][:, slots] = new[:, s - m:].to(cache[name].dtype)
-        cache[name][:, m:] = 0  # m < t only when S < t: then slot i holds token i
-    cache["kpos"][slots] = (tail + 1).to(cache["kpos"].dtype)
-    cache["kpos"][m:] = 0
-    return y, cache
+        cache[name].zero_()  # m < t only when S < t: then slot i holds token i
+        write_along(cache[name], new[:, s - m:s - r], r)
+        write_along(cache[name], new[:, s - r:], 0)
+    kpos = torch.zeros((t,), dtype=torch.int32, device=x.device)
+    tail = torch.arange(s - m, s, device=x.device)
+    kpos[tail % t] = (tail + 1).to(torch.int32)
+    write_along(cache["kpos"], kpos, 0, dim=0)
+    return y, constrain_cache(cache, plan)
 
 
-def attn_decode(p, x, pos: int, spec: ArchSpec, cache, *, window: int = 0):
+def constrain_cache(cache, plan: ShardingPlan):
+    """The cache's k and v laid out by their cache axes (JAX :211-215); the
+    identity where they are already, as a cache placed by ``cache_axes``
+    is."""
+    out = dict(cache)
+    for n in ("k", "v"):
+        out[n] = plan.constrain(cache[n], ("batch", "kv_seq", "kv_heads", "head_dim"))
+    return out
+
+
+def attn_decode(p, x, pos: int, spec: ArchSpec, plan: ShardingPlan, cache, *,
+                window: int = 0):
     """One decode step.  x: (B, D); pos: the new token's position (shared
     across the batch).  A full cache takes its k/v at slot ``min(pos, T-1)``
     in place and attends to slots ``0..pos``; a ring cache takes them at
     ``pos % t`` and attends to every slot under the JAX mask (:241): filled,
-    not after ``pos``, and within the last ``t`` positions.
+    not after ``pos``, and within the last ``t`` positions.  A full cache
+    whose ``kv_seq`` a plan splits is read whole under the mask
+    ``arange(T) <= pos``, as the JAX module reads it.
 
     GQA is computed with grouped einsums (no head-repeat copy).
     """
     b, d = x.shape
     h, g, hd = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim
-    q, k, v = _project_qkv(p, x[:, None, :], spec)  # (B,1,...)
+    q, k, v = _project_qkv(p, x[:, None, :], spec, plan)  # (B,1,...)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, spec.rope_theta)
     k = apply_rope(k, posv, spec.rope_theta)
 
     t = cache["k"].shape[1]
     slot = pos % t if window else min(pos, t - 1)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    write_along(cache["k"], k, slot)
+    write_along(cache["v"], v, slot)
+    cache = constrain_cache(cache, plan)
+    n, valid = t, None
     if window:
-        cache["kpos"][slot] = pos + 1
+        write_along(cache["kpos"], pos + 1, slot, dim=0)
         kpos = cache["kpos"]
         valid = (kpos > 0) & (kpos - 1 <= pos) & (kpos - 1 > pos - t)
-        n = t
+    elif split_along(cache["k"], 1):
+        valid = lift(torch.arange(t, device=x.device) <= pos, cache["k"])
     else:
         n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
 
-    qg = q[:, 0].reshape(b, g, h // g, hd)
-    kk = cache["k"][:, :n].to(q.dtype)
-    vv = cache["v"][:, :n].to(q.dtype)
+    # (B, H, hd) -> (B, G, R, hd): heads split only where the groups split too
+    q1 = plan.constrain(q[:, 0], ("batch", "q_heads" if plan.can_shard("kv_heads", g) else None,
+                                  None))
+    qg = q1.reshape(b, g, h // g, hd)
+    kk, vv = (cache[name] if n == t else cache[name][:, :n] for name in ("k", "v"))
+    kk, vv = kk.to(q.dtype), vv.to(q.dtype)
     s = (torch.einsum("bgrk,btgk->bgrt", qg, kk) * (1.0 / math.sqrt(hd))).float()
-    if window:
+    if valid is not None:
         s = torch.where(valid, s, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bgrt,btgk->bgrk", pr, vv).reshape(b, 1, h, hd)

@@ -22,10 +22,10 @@ applied per layer, as the JAX ``stack_train`` applies them per sublayer
     ``dots_with_no_batch_dims_saveable`` does;
   * ``save_kv``: saves only the roped k and v that enter attention
     (``checkpoint_name(.., "attn_kv")``, as the JAX module names them).
-The kernels write through ctypes into fresh ``torch.empty`` buffers, which
-the dispatch mode of selective checkpointing sees only as ``empty``: it
-recomputes the ``empty`` and the launch fills it again, so no cached buffer
-is ever read empty.  That holds for the autograd Functions' saved
+Each kernel launch is an operator (``kernels/_library.py``), which the
+dispatch mode of selective checkpointing sees as one op: no policy saves
+it, so its recompute launches the kernel again.  That holds for the
+autograd Functions' saved
 intermediates too (flash attention's log-sum-exp, the SSD scan's y, final
 state and scratch of entering states): every policy but ``none`` drops them
 with the layer and the recompute launches the forward again, so a Mamba
@@ -90,14 +90,18 @@ def layer_cache_defs(spec: ArchSpec, ld: LayerDef, batch: int, seq: int) -> dict
 
 def _ffn(p, x, ld: LayerDef, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """x + FFN(norm2(x)) and the layer's load-balance loss (None without MoE).
-    x: (B, S, D), or (B, D) in decode, which the MoE routes as S = 1."""
+    x: (B, S, D), or (B, D) in decode, which the FFN takes as S = 1 (JAX
+    :104-110)."""
     if ld.ffn == "none":
         return x, None
     h = rmsnorm(x, p["norm2"], spec.norm_eps)
+    h3 = h if h.ndim == 3 else h[:, None, :]
     if ld.ffn == "mlp":
-        return x + mlpm.mlp_apply(p["ffn"], h, spec, plan), None
-    y, aux = moem.moe_apply(p["ffn"], h if h.ndim == 3 else h[:, None, :], spec, plan)
-    return x + y.view_as(x), aux["lb_loss"]
+        y, aux = mlpm.mlp_apply(p["ffn"], h3, spec, plan), None
+    else:
+        y, aux = moem.moe_apply(p["ffn"], h3, spec, plan)
+        aux = aux["lb_loss"]
+    return x + (y if h.ndim == 3 else y[:, 0]), aux
 
 
 def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec,
@@ -111,23 +115,24 @@ def _apply_forward(p, x, positions, ld: LayerDef, spec: ArchSpec,
     return plan.constrain(x, ("batch", "seq", "embed")), aux
 
 
-def _apply_prefill(p, x, positions, ld: LayerDef, spec: ArchSpec, cache):
+def _apply_prefill(p, x, positions, ld: LayerDef, spec: ArchSpec, plan: ShardingPlan, cache):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
     if ld.mixer == "mamba":
-        y, cache = mb.mamba_prefill(p["mixer"], h, spec, cache)
+        y, cache = mb.mamba_prefill(p["mixer"], h, spec, plan, cache)
     else:
-        y, cache = attn.attn_prefill(p["mixer"], h, positions, spec, cache,
+        y, cache = attn.attn_prefill(p["mixer"], h, positions, spec, plan, cache,
                                      window=_window(spec, ld))
-    return _ffn(p, x + y, ld, spec)[0], cache
+    return _ffn(p, x + y, ld, spec, plan)[0], cache
 
 
-def _apply_decode(p, x, pos: int, ld: LayerDef, spec: ArchSpec, cache):
+def _apply_decode(p, x, pos: int, ld: LayerDef, spec: ArchSpec, plan: ShardingPlan, cache):
     h = rmsnorm(x, p["norm1"], spec.norm_eps)
     if ld.mixer == "mamba":
-        y, cache = mb.mamba_decode(p["mixer"], h, spec, cache)
+        y, cache = mb.mamba_decode(p["mixer"], h, spec, plan, cache)
     else:
-        y, cache = attn.attn_decode(p["mixer"], h, pos, spec, cache, window=_window(spec, ld))
-    return _ffn(p, x + y, ld, spec)[0], cache
+        y, cache = attn.attn_decode(p["mixer"], h, pos, spec, plan, cache,
+                                    window=_window(spec, ld))
+    return _ffn(p, x + y, ld, spec, plan)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -187,13 +192,16 @@ def stack_forward(params, x, positions, spec: ArchSpec, remat: str = "none",
     return x, aux
 
 
-def stack_prefill(params, x, positions, spec: ArchSpec, caches):
+def stack_prefill(params, x, positions, spec: ArchSpec, plan: ShardingPlan, caches):
+    """Prompt pass over every layer, each layer's output constrained as the
+    JAX ``stack_prefill`` constrains it (:180)."""
     for i, (p, ld) in enumerate(zip(params, spec.layer_defs())):
-        x, caches[i] = _apply_prefill(p, x, positions, ld, spec, caches[i])
+        x, caches[i] = _apply_prefill(p, x, positions, ld, spec, plan, caches[i])
+        x = plan.constrain(x, ("batch", "seq", "embed"))
     return x, caches
 
 
-def stack_decode(params, x, pos: int, spec: ArchSpec, caches):
+def stack_decode(params, x, pos: int, spec: ArchSpec, plan: ShardingPlan, caches):
     for i, (p, ld) in enumerate(zip(params, spec.layer_defs())):
-        x, caches[i] = _apply_decode(p, x, pos, ld, spec, caches[i])
+        x, caches[i] = _apply_decode(p, x, pos, ld, spec, plan, caches[i])
     return x, caches

@@ -6,8 +6,9 @@ names, shapes, logical sharding axes and init kinds as the JAX ``ParamDef``
 (:20-45); ``repro_torch.parallel.sharding`` maps the axes onto a device
 mesh.  ``<module>_defs(spec)`` returns a nested dict (a list for the layer
 stack) of ParamDefs, ``init_tree`` materialises it from a
-``torch.Generator``, ``axes_tree`` takes its axes, and the ``apply``
-functions consume the resulting tree of tensors.
+``torch.Generator``, ``abstract_tree`` makes fake stand-ins of it for the
+dry run, ``axes_tree`` takes its axes, and the ``apply`` functions consume
+the resulting tree of tensors.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.local_shards import lift, on_local_shards
+from repro_torch.parallel.local_shards import grad_as_input, lift, on_local_shards, whole_along
 
 
 class ParamDef(NamedTuple):
@@ -62,6 +65,25 @@ def init_tree(defs, generator: torch.Generator, *, device, dtype=torch.float32):
     return map_with_path(lambda _, d: _init_leaf(d, generator, device, dtype), defs)
 
 
+def fake_mode() -> FakeTensorMode:
+    """The active ``FakeTensorMode``, or a new one."""
+    return detect_fake_mode() or FakeTensorMode()
+
+
+def abstract_tree(defs, dtype=torch.float32, *, device=None):
+    """The JAX ``abstract_tree``: a stand-in for each ParamDef, a
+    ``FakeTensor`` of its shape and ``dtype`` labelled ``device`` (the card,
+    ``cuda``, unless ``cpu`` is asked for), made in the active
+    ``FakeTensorMode`` or a new one.  A stand-in has no storage: nothing is
+    allocated and no kernel can launch on it.  The JAX package stacks a
+    repeating block pattern's defs (``stack_defs``) for its scanned stack;
+    the port's stack is a list of layers, so ``stack_defs`` has no
+    counterpart."""
+    dev = torch.device(device or "cuda")
+    with fake_mode():
+        return map_with_path(lambda _, d: torch.empty(d.shape, dtype=dtype, device=dev), defs)
+
+
 def axes_tree(defs):
     return map_with_path(lambda _, d: d.axes, defs)
 
@@ -103,7 +125,14 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def linear(x, w, b=None):
-    y = x @ w.to(x.dtype)
+    """x (..., K) @ w (K, N) [+ b].  A (B, S, K) ``DTensor`` ``x`` is taken
+    whole along S, and the product's gradient laid out as the product: the
+    product folds (B, S) into rows, which a ``DTensor`` view may do only
+    where S is not split, forward and backward."""
+    if x.ndim == 3:
+        y = grad_as_input(whole_along(x, 1) @ w.to(x.dtype))
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

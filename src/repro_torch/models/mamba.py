@@ -16,7 +16,10 @@ kernel.
 
 The decode cache is a dict ``{"conv": (B, cw-1, C), "ssm": (B, H, P, N)}``;
 ``conv`` holds the last cw-1 rows of the *pre-activation* conv input.
-Prefill and decode update it in place and return it.
+Prefill and decode update it in place and return it.  Under a plan the
+cache's leaves are ``DTensor``s placed by their cache axes; what is written
+into them is first laid out as they are (``_store``), so each rank copies
+its own shard.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, rmsnorm
-from repro_torch.parallel.local_shards import on_local_shards
+from repro_torch.models.layers import ParamDef, linear, rmsnorm
+from repro_torch.parallel.local_shards import on_local_shards, whole_along
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 DEFAULT_CHUNK = 256
@@ -117,10 +120,17 @@ def ssd_chunked(x, dt, a, b, c, chunk: int = DEFAULT_CHUNK, h0=None):
     return torch.cat(ys, dim=1), hprev
 
 
+def _whole_heads(t, nh: int, plan: ShardingPlan, axes):
+    """``t`` (..., d_inner) kept whole along its last dim under a plan whose
+    'model' axis does not split the ``nh`` heads, so that it can be viewed
+    as (heads, head_dim)."""
+    return t if plan.can_shard("ssm_heads", nh) else plan.constrain(t, axes)
+
+
 def _in_proj(p, x):
     """x: (..., D) -> z, x, b, c (pre-conv) and dt (f32, through softplus)."""
-    z, xi, bi, ci = (x @ p[k].to(x.dtype) for k in ("w_z", "w_x", "w_b", "w_c"))
-    dt = F.softplus((x @ p["w_dt"].to(x.dtype)).float() + p["dt_bias"].float())
+    z, xi, bi, ci = (linear(x, p[k]) for k in ("w_z", "w_x", "w_b", "w_c"))
+    dt = F.softplus(linear(x, p["w_dt"]).float() + p["dt_bias"].float())
     return z, xi, bi, ci, dt
 
 
@@ -136,13 +146,14 @@ def _scan(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     bi = _causal_conv(bi0, p["conv_b"])
     ci = _causal_conv(ci0, p["conv_c"])
     a = -torch.exp(p["a_log"].float())
+    xi = _whole_heads(xi, nh, plan, ("batch", None, None))
     xh = plan.constrain(xi.view(bsz, s, nh, hd), ("batch", None, "ssm_heads", None))
     dt = plan.constrain(dt, ("batch", None, "ssm_heads"))
     y, hlast = ops.ssd(xh, dt, a, bi.view(bsz, s, g, ds), ci.view(bsz, s, g, ds))
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = plan.constrain(y.reshape(bsz, s, din), ("batch", "seq", "d_inner"))
     y = rmsnorm(y * F.silu(z), p["norm"], spec.norm_eps)
-    return y @ p["w_out"].to(x.dtype), (xi0, bi0, ci0), hlast
+    return linear(y, p["w_out"]), (xi0, bi0, ci0), hlast
 
 
 def mamba_fwd(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
@@ -150,32 +161,39 @@ def mamba_fwd(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     return _scan(p, x, spec, plan)[0]
 
 
+_CACHE_AXES = {"conv": ("batch", None, "d_inner"), "ssm": ("batch", None, "ssm_head_dim", None)}
+
+
 def mamba_cache_defs(spec: ArchSpec, batch: int) -> dict[str, ParamDef]:
     din, g, ds, nh, hd, cw = (spec.d_inner, spec.ssm_groups, spec.ssm_state,
                               spec.ssm_heads, spec.ssm_head_dim, spec.ssm_conv)
     return {
-        "conv": ParamDef((batch, cw - 1, din + 2 * g * ds), ("batch", None, "d_inner"),
-                         "zeros"),
-        "ssm": ParamDef((batch, nh, hd, ds), ("batch", None, "ssm_head_dim", None),
-                        "zeros"),
+        "conv": ParamDef((batch, cw - 1, din + 2 * g * ds), _CACHE_AXES["conv"], "zeros"),
+        "ssm": ParamDef((batch, nh, hd, ds), _CACHE_AXES["ssm"], "zeros"),
     }
 
 
-def mamba_prefill(p, x, spec: ArchSpec, cache):
+def _store(cache, plan: ShardingPlan, **new):
+    """Copy each new leaf into the cache in place, laid out first by the
+    cache's axes (``mamba_cache_defs``) so that the copy is each rank's own."""
+    for name, t in new.items():
+        cache[name].copy_(plan.constrain(t.to(cache[name].dtype), _CACHE_AXES[name]))
+    return cache
+
+
+def mamba_prefill(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
     """Forward over the prompt, writing the conv tail and the final state
     into ``cache`` in place.  A prompt shorter than cw-1 leaves the zeros
     the causal conv pads with in front of it."""
     k = spec.ssm_conv - 1
-    out, pre, hlast = _scan(p, x, spec)
+    out, pre, hlast = _scan(p, x, spec, plan)
     tail = torch.cat([t[:, -k:] for t in pre], dim=-1)  # raw pre-activation rows
     if tail.shape[1] < k:
         tail = F.pad(tail, (0, 0, k - tail.shape[1], 0))
-    cache["conv"].copy_(tail)
-    cache["ssm"].copy_(hlast)
-    return out, cache
+    return out, _store(cache, plan, conv=tail, ssm=hlast)
 
 
-def mamba_decode(p, x, spec: ArchSpec, cache):
+def mamba_decode(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
     """One-token recurrent update.  x: (B, D).  Updates ``cache`` in place."""
     bsz, _ = x.shape
     din, g, ds, nh, hd = spec.d_inner, spec.ssm_groups, spec.ssm_state, spec.ssm_heads, \
@@ -192,15 +210,13 @@ def mamba_decode(p, x, spec: ArchSpec, cache):
 
     a = -torch.exp(p["a_log"].float())                        # (nh,)
     decay = torch.exp(dt * a)                                 # (B, nh)
-    xh = xi.reshape(bsz, nh, hd).float()
+    xh = _whole_heads(xi, nh, plan, ("batch", None)).reshape(bsz, nh, hd).float()
     bh = bi.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()  # (B,nh,ds)
     chp = ci.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()
     h = cache["ssm"].float()
     h = h * decay[..., None, None] + (dt[..., None] * xh)[..., None] * bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", h, chp).to(x.dtype)
     y = y + xh.to(x.dtype) * p["d_skip"].to(x.dtype)[None, :, None]
-    y = rmsnorm(y.reshape(bsz, din) * F.silu(z), p["norm"], spec.norm_eps)
+    y = rmsnorm(whole_along(y, 2).reshape(bsz, din) * F.silu(z), p["norm"], spec.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
-    cache["conv"].copy_(window[:, 1:])
-    cache["ssm"].copy_(h)
-    return out, cache
+    return out, _store(cache, plan, conv=window[:, 1:], ssm=h)

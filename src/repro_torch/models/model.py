@@ -7,13 +7,15 @@ points:
   * ``decode_step`` — one token with caches
 and ``forward_hidden`` / ``head_fn`` for chunked cross-entropy (:99-121).
 
-The training entry points (``forward``, ``forward_hidden``, ``head_fn``)
-take a ``ShardingPlan`` as the JAX ones do, and constrain the residual
-stream and the logits at the JAX package's sites (:76, :86, :119); under a
-plan the parameters and the batch are ``DTensor``s on its mesh.  Serving
-(``prefill``, ``decode_step``) runs unsharded.  ``forward`` returns
-``(logits, aux)`` as the JAX one does: ``aux`` sums the MoE layers'
-load-balance losses.
+Every entry point takes a ``ShardingPlan`` as the JAX ones do, and
+constrains the residual stream and the logits at the JAX package's sites
+(:76, :86, :119, :123-147); under a plan the parameters, the batch and the
+caches are ``DTensor``s on its mesh (the caches placed by ``cache_axes``).
+``forward`` returns ``(logits, aux)`` as the JAX one does: ``aux`` sums the
+MoE layers' load-balance losses.
+
+``abstract_params`` and ``abstract_caches`` are the JAX ones (:45-67): trees
+of fake stand-ins (``layers.abstract_tree``) for the dry run.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import blocks
-from repro_torch.models.layers import (ParamDef, axes_tree, init_tree, map_with_path, rmsnorm,
-                                       take_embedding)
+from repro_torch.models.layers import (ParamDef, abstract_tree, axes_tree, fake_mode, init_tree,
+                                       linear, map_with_path, rmsnorm, take_embedding)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
@@ -52,6 +54,11 @@ def init_params(spec: ArchSpec, seed: int = 0, *, device=None, dtype=torch.float
     return init_tree(model_param_defs(spec), gen, device=dev, dtype=dtype)
 
 
+def abstract_params(spec: ArchSpec, dtype=torch.float32, *, device=None):
+    """Fake stand-ins of every parameter (``layers.abstract_tree``)."""
+    return abstract_tree(model_param_defs(spec), dtype, device=device)
+
+
 def param_axes(spec: ArchSpec):
     """The logical axes of every parameter, in ``model_param_defs``' tree."""
     return axes_tree(model_param_defs(spec))
@@ -61,32 +68,50 @@ def cache_defs(spec: ArchSpec, batch: int, seq: int):
     return blocks.stack_cache_defs(spec, batch, seq)
 
 
+def _cache_dtype(path, dtype):
+    return torch.int32 if path[-1] == "kpos" else dtype
+
+
 def init_caches(spec: ArchSpec, batch: int, seq: int, dtype=torch.bfloat16, *, device=None):
     """Zeroed per-layer caches; prefill and decode fill them in place.  Every
     leaf takes ``dtype`` but a ring cache's ``kpos``, which is int32 so that
     it holds positions exactly (the JAX package's takes the cache dtype)."""
     dev = resolve_device(device)
     return map_with_path(
-        lambda path, d: torch.zeros(d.shape, dtype=torch.int32 if path[-1] == "kpos" else dtype,
-                                    device=dev),
+        lambda path, d: torch.zeros(d.shape, dtype=_cache_dtype(path, dtype), device=dev),
         cache_defs(spec, batch, seq))
+
+
+def abstract_caches(spec: ArchSpec, batch: int, seq: int, dtype=torch.bfloat16, *, device=None):
+    """Fake stand-ins of ``init_caches``' tree (``kpos`` int32 as there)."""
+    with fake_mode():
+        return map_with_path(lambda path, d: abstract_tree(d, _cache_dtype(path, dtype),
+                                                           device=device),
+                             cache_defs(spec, batch, seq))
+
+
+def cache_axes(spec: ArchSpec, batch: int, seq: int):
+    """The logical axes of every cache leaf, in ``cache_defs``' tree."""
+    return axes_tree(cache_defs(spec, batch, seq))
 
 
 # ---------------------------------------------------------------------------
 
 def _embed_in(params, inputs, spec: ArchSpec, compute_dtype, plan: ShardingPlan = NULL_PLAN):
+    """(B, S) tokens or (B, S, D) embeddings, or in decode (B,) or (B, D),
+    constrained as the JAX package constrains each (:72, :144)."""
     if spec.frontend == "tokens":
         x = take_embedding(params["embed"], inputs).to(compute_dtype)
     else:
-        x = inputs.to(compute_dtype)  # precomputed (B, S, D) embeddings
-    return plan.constrain(x, ("batch", "seq", "embed"))
+        x = inputs.to(compute_dtype)  # precomputed embeddings
+    return plan.constrain(x, ("batch", "seq", "embed") if x.ndim == 3 else ("batch", "embed"))
 
 
 def _project(params, h, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     if spec.frontend == "tokens" and spec.tie_embeddings:
-        logits = h @ params["embed"].to(h.dtype).T
+        logits = linear(h, params["embed"].T)
     else:
-        logits = h @ params["lm_head"].to(h.dtype)
+        logits = linear(h, params["lm_head"])
     axes = ("batch", "seq", "vocab") if logits.ndim == 3 else ("batch", "vocab")
     return plan.constrain(logits, axes)
 
@@ -127,18 +152,19 @@ def head_fn(params, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     return lambda h: _project(params, h, spec, plan)
 
 
-def prefill(params, inputs, caches, spec: ArchSpec, *, compute_dtype=torch.bfloat16):
+def prefill(params, inputs, caches, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, *,
+            compute_dtype=torch.bfloat16):
     """Prompt pass: returns (last-position logits (B, V), filled caches)."""
-    x = _embed_in(params, inputs, spec, compute_dtype)
+    x = _embed_in(params, inputs, spec, compute_dtype, plan)
     x, caches = blocks.stack_prefill(params["stack"], x, _positions(x.shape[1], x.device),
-                                     spec, caches)
-    return _head(params, x[:, -1, :], spec), caches
+                                     spec, plan, caches)
+    return _head(params, x[:, -1, :], spec, plan), caches
 
 
-def decode_step(params, caches, inputs, pos: int, spec: ArchSpec, *,
-                compute_dtype=torch.bfloat16):
+def decode_step(params, caches, inputs, pos: int, spec: ArchSpec,
+                plan: ShardingPlan = NULL_PLAN, *, compute_dtype=torch.bfloat16):
     """One decode step.  inputs: (B,) token ids or (B, D) embeddings;
     pos: position of the new token."""
-    x = _embed_in(params, inputs, spec, compute_dtype)
-    x, caches = blocks.stack_decode(params["stack"], x, int(pos), spec, caches)
-    return _head(params, x, spec), caches
+    x = _embed_in(params, inputs, spec, compute_dtype, plan)
+    x, caches = blocks.stack_decode(params["stack"], x, int(pos), spec, plan, caches)
+    return _head(params, x, spec, plan), caches

@@ -5,8 +5,11 @@ the loss's gold pick, the causal conv and the MoE dispatch index by
 position, which ``DTensor`` does not take.  Each runs through
 ``on_local_shards``, the one place that says which splits such code may
 keep, which it must have gathered, and how the gradients of inputs held
-whole on every rank add up.  It imports nothing of the port, so the
-kernels' wrappers can use it.
+whole on every rank add up.  The serving caches' in-place writes at a
+position (a prompt's rows, a decode slot) go through ``write_along``, the
+same rule for a write: each rank writes the part of the rows that falls in
+its own shard, at its own offset, and nothing is gathered.  It imports
+nothing of the port, so the kernels' wrappers can use it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,42 @@ def lift(t: torch.Tensor, like) -> torch.Tensor:
     return DTensor.from_local(t, mesh, [R] * mesh.ndim, run_check=False)
 
 
+def split_along(x: torch.Tensor, dim: int) -> bool:
+    """Does a mesh dim split ``x``'s ``dim``?  (Never for a plain tensor.)"""
+    return isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == dim
+                                          for p in x.placements)
+
+
+def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` split by no mesh dim, its other splits kept: a
+    ``DTensor`` view may flatten dims only where the outer one alone is
+    split, so a (B, S, D) residual stream split over its sequence is gathered
+    along it before a product folds (B, S) into rows (sequence parallelism's
+    gather before a projection).  A plain tensor as it is."""
+    if not split_along(x, dim):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        R if isinstance(p, Shard) and p.dim == dim else p for p in x.placements))
+
+
+class _GradAsInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):  # a partial sum's gradient is whole on every rank
+        ctx.layout = x.device_mesh, tuple(R if p.is_partial() else p for p in x.placements)
+        return x.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.layout)
+
+
+def grad_as_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient is laid out as ``x`` is: ``DTensor`` lays out a
+    gradient op by op, and may split a dim that a view in the backward must
+    then unflatten unevenly.  A plain tensor as it is."""
+    return _GradAsInput.apply(x) if isinstance(x, DTensor) else x
+
+
 def replicate(x: torch.Tensor) -> torch.Tensor:
     """A ``DTensor`` replicated on its mesh, one mesh dim at a time: partial
     sums over two dims are reduced in mesh-dim order, so every rank gets the
@@ -40,6 +79,46 @@ def replicate(x: torch.Tensor) -> torch.Tensor:
             pl[i] = R
             x = x.redistribute(mesh, tuple(pl))
     return x
+
+
+def shard_extent(t: DTensor, dim: int) -> tuple[int, int]:
+    """(offset, length) along ``dim`` of this rank's shard of ``t``: each mesh
+    dim that shards ``dim`` splits the extent left by those before it into
+    ``torch.chunk`` pieces (ceil-sized, the last possibly short), as
+    ``DTensor`` lays out a ``Shard``."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    offset, length = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            piece = -(-length // mesh.size(i))
+            start = min(coord[i] * piece, length)
+            offset, length = offset + start, min(piece, length - start)
+    return offset, length
+
+
+def write_along(dst: torch.Tensor, src, start: int, dim: int = 1) -> None:
+    """``dst[start:start + n] = src`` along ``dim``, in place, where ``src``
+    has ``n`` rows along ``dim`` (or is a number, written to one row).  A
+    ``DTensor`` ``dst`` is written on each rank's own shard: ``src`` is laid
+    out as ``dst`` is on every other dim and whole along ``dim``, and each
+    rank copies the rows that fall within its shard, at its own offset
+    (``shard_extent``).  The dst is never gathered."""
+    number = isinstance(src, (int, float))
+    n = 1 if number else src.shape[dim]
+    if isinstance(dst, DTensor):
+        (lo, length), mine = shard_extent(dst, dim), dst.to_local()
+        if not number:
+            want = tuple(R if isinstance(p, Shard) and p.dim == dim else p for p in dst.placements)
+            src = lift(src, dst).redistribute(dst.device_mesh, want).to_local()
+    else:
+        lo, length, mine = 0, dst.shape[dim], dst
+    first, stop = max(start, lo), min(start + n, lo + length)
+    if first < stop:
+        rows = mine.narrow(dim, first - lo, stop - first)
+        if number:
+            rows.fill_(src)
+        else:
+            rows.copy_(src.narrow(dim, first - start, stop - first))
 
 
 def on_local_shards(fn, args, keep, *, lead: int = 0, follow=None, out=None):

@@ -7,6 +7,12 @@ greedy (argmax) or temperature sampling from a ``torch.Generator`` seeded by
 timers wait for the card before reading the clock.  ``generate`` runs under
 ``torch.inference_mode``: parameters that require grad (a train state's)
 build no graph, and the kernels take their lean forward-only path.
+
+Under a plan (``plan=``, JAX :35) the parameters are ``DTensor``s on the
+plan's mesh (``sharding.distribute_tree`` by ``M.param_axes``), the caches
+are made on that mesh by ``M.cache_axes``, the prompts are placed by
+``("batch", None)``, and each step's logits come back whole, so every rank
+samples the same tokens and returns them.  With no plan nothing changes.
 """
 from __future__ import annotations
 
@@ -15,10 +21,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import model as M
+from repro_torch.models.layers import map_with_path
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan, distribute_tree, placements
 from repro_torch.serve import api
 
 
@@ -33,16 +42,33 @@ class ServeStats:
         return self.tokens_out / self.decode_s if self.decode_s else 0.0
 
 
+def _mesh_of(params):
+    """The mesh the parameters are ``DTensor``s on."""
+    leaves = []
+    map_with_path(lambda _, t: leaves.append(t), params)
+    mesh = next((t.device_mesh for t in leaves if isinstance(t, DTensor)), None)
+    if mesh is None:
+        raise ValueError("under a plan the parameters must be DTensors on its mesh "
+                         "(sharding.distribute_tree by M.param_axes)")
+    return mesh
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 class Engine:
-    def __init__(self, spec: ArchSpec, params, *, max_len: int = 256,
-                 dtype=torch.float32, device=None):
+    def __init__(self, spec: ArchSpec, params, *, plan: ShardingPlan = NULL_PLAN,
+                 max_len: int = 256, dtype=torch.float32, device=None):
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params
+        self.plan = plan
+        self.mesh = _mesh_of(params) if plan.axis_sizes else None
         self.max_len = max_len
         self.dtype = dtype
-        self._prefill = api.make_prefill_step(spec, compute_dtype=dtype)
-        self._decode = api.make_serve_step(spec, compute_dtype=dtype)
+        self._prefill = api.make_prefill_step(spec, plan, compute_dtype=dtype)
+        self._decode = api.make_serve_step(spec, plan, compute_dtype=dtype)
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -59,6 +85,12 @@ class Engine:
         stats = ServeStats()
         caches = M.init_caches(self.spec, b, self.max_len, dtype=self.dtype, device=self.device)
         tokens = torch.as_tensor(prompts, device=self.device)
+        if self.mesh is not None:
+            caches = distribute_tree(caches, M.cache_axes(self.spec, b, self.max_len), self.plan,
+                                     self.mesh)
+            tokens = distribute_tensor(tokens, self.mesh, placements(
+                self.plan.spec(("batch", None), tuple(tokens.shape)), self.mesh),
+                src_data_rank=None)
 
         t0 = self._clock()
         logits, caches = self._prefill(self.params, tokens, caches)
@@ -68,6 +100,7 @@ class Engine:
         out = np.zeros((b, max_new), np.int32)
         t0 = self._clock()
         for i in range(max_new):
+            logits = _whole(logits)
             if temperature > 0:
                 probs = torch.softmax(logits.float() / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=gen)[:, 0]

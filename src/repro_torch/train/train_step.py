@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``train/train_step.py``: ``RunConfig`` with
 the same knobs and defaults (remat policy, microbatches, dtypes, chunked CE),
 ``make_loss_fn`` (``ce + lb_weight * aux``), ``make_train_step(spec, plan,
 cfg, opt_plan)``, ``init_train_state``, ``batch_axes`` and
-``train_state_axes``.
+``train_state_axes``, and the dry run's fake stand-ins
+``abstract_train_state`` and ``batch_abstract`` (JAX :41-53, :129-134).
 
 A step takes a batch of numpy arrays or tensors (``inputs``, ``labels``),
 moves it to the parameters' device, differentiates the loss with
@@ -29,6 +30,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import model as M
+from repro_torch.models.layers import fake_mode
 from repro_torch.parallel.sharding import (NULL_PLAN, ShardingPlan, distribute_tree, local,
                                            placements, plan_for_mesh)
 from repro_torch.train import optimizer as opt
@@ -50,6 +52,20 @@ class RunConfig:
 
 
 BF16_RUN = RunConfig(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+
+def batch_abstract(spec: ArchSpec, batch: int, seq: int, compute_dtype=torch.bfloat16, *,
+                   device=None):
+    """Fake stand-ins of one batch: int32 tokens (or ``compute_dtype``
+    embeddings) and int32 labels, labelled ``device`` (the card unless
+    ``cpu`` is asked for)."""
+    dev = torch.device(device or "cuda")
+    with fake_mode():
+        if spec.frontend == "tokens":
+            inp = torch.empty((batch, seq), dtype=torch.int32, device=dev)
+        else:
+            inp = torch.empty((batch, seq, spec.d_model), dtype=compute_dtype, device=dev)
+        return {"inputs": inp, "labels": torch.empty((batch, seq), dtype=torch.int32, device=dev)}
 
 
 def batch_axes(spec: ArchSpec):
@@ -74,7 +90,10 @@ def make_loss_fn(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN, cfg: RunConfig 
 
 
 def to_device(batch, device) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch's arrays as tensors on ``device``; ``DTensor``s (a batch placed
+    by the caller) as they are."""
+    return {k: v if isinstance(v, DTensor) else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
 
 
 def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
@@ -114,7 +133,7 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
         batch = to_device(batch, some.device)
 
         def placed(b):
-            if not isinstance(some, DTensor):
+            if not isinstance(some, DTensor) or all(isinstance(t, DTensor) for t in b.values()):
                 return b
             return distribute_tree(b, batch_axes(spec), plan, some.device_mesh)
 
@@ -156,6 +175,13 @@ def init_train_state(spec: ArchSpec, cfg: RunConfig = RunConfig(), *, seed: int 
         return state
     plan = plan_for_mesh(mesh) if plan is None else plan
     return distribute_tree(state, train_state_axes(spec, cfg), plan, mesh)
+
+
+def abstract_train_state(spec: ArchSpec, cfg: RunConfig = RunConfig(), *, device=None):
+    """Fake stand-ins of ``init_train_state``'s tree (params in
+    ``cfg.param_dtype``, f32 moments and master copy, the int32 step)."""
+    with fake_mode():
+        return opt.init_state(M.abstract_params(spec, device=device), cfg.param_dtype)
 
 
 def train_state_axes(spec: ArchSpec, cfg: RunConfig = RunConfig()):

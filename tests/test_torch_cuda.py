@@ -1045,3 +1045,26 @@ def test_fp64_chain_probe_counts_the_chain(dev):
     from repro_torch.kernels import dse_sim
     short, long_ = dse_sim.fp64_chain_probe(1 << 10, dev), dse_sim.fp64_chain_probe(1 << 14, dev)
     assert 2 * (1 << 10) <= short < long_ and long_ >= 2 * (1 << 14)
+
+
+def test_operators_launch_on_the_card_and_stand_ins_do_not(dev):
+    """A real CUDA tensor reaches each kernel through its operator and counts
+    a launch; a fake stand-in labelled cuda takes the fake implementation,
+    with the same shapes, and counts none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q = torch.randn((1, 64, 4, 64), device=dev)
+    x, w = torch.randn((8, 128), device=dev), torch.randn((128,), device=dev)
+    xs, dt = torch.randn((1, 64, 4, 16), device=dev), torch.rand((1, 64, 4), device=dev)
+    a, bc = -torch.rand((4,), device=dev), torch.randn((1, 64, 1, 16), device=dev)
+    counted = (fa.flash_attention, rn.rmsnorm, ss.ssd_scan)
+    before = [f.launches for f in counted]
+    real = (fa.flash_attention(q, q, q), rn.rmsnorm(x, w), ss.ssd_scan(xs, dt, a, bc, bc)[0])
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1]
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fx, fw = (mode.from_tensor(t) for t in (q, x, w))
+        fxs, fdt, fa_, fbc = (mode.from_tensor(t) for t in (xs, dt, a, bc))
+        fake = (fa.flash_attention(fq, fq, fq), rn.rmsnorm(fx, fw),
+                ss.ssd_scan(fxs, fdt, fa_, fbc, fbc)[0])
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1]
+    for r, f in zip(real, fake):
+        assert f.shape == r.shape and f.dtype == r.dtype and f.device.type == "cuda"

@@ -1,0 +1,421 @@
+"""The dry run on a fake world, the kernels' fake paths, the cost-analysis
+copy, the bridge and the ``SPEC`` modules, on the CPU.
+
+Dry run.  ``repro_torch.launch.dryrun.run_cell`` on reduced qwen2, mamba2,
+gemma3 and granite-moe, each at a small train, prefill and decode shape
+(batch 32, sequence 64) on the 256-rank ``pod`` mesh, and gemma3's decode
+on the 512-rank ``multipod`` mesh, in a subprocess holding a fake world of
+512 ranks (labels ``cpu``: this host's PyTorch has no CUDA), against the
+JAX package's ``run_cell`` on the same reduced spec and shapes (its
+``get_arch`` and ``SHAPES`` replaced) in a subprocess of its own with 512
+forced host devices.  Held:
+  * ``status``, ``params``, ``active_params``, ``model_flops``, ``n_chips``
+    equal;
+  * ``kv_cache_bytes_per_device`` equal but for the ring caches' ``kpos``
+    (int32 in the port, bf16 in the JAX package: 2 bytes a slot more);
+  * ``argument_bytes`` equal but for ``kpos`` and for the inputs the JAX
+    program never reads, which XLA drops from its entry parameters: the
+    caches prefill rebuilds from nothing (Mamba's conv and SSM states, the
+    ring caches) and decode's position in a model without attention
+    (mamba2).  The port's prefill writes those caches in place, so they are
+    its inputs;
+  * ``flops_per_device`` within ``FLOP_BAND`` of XLA's: the port counts
+    matrix products and its kernels (flash at 4 hd a pair, 10 hd backward),
+    XLA also one per element of every elementwise op (decode sits near 0.9)
+    and counts remat recompute as the port does; where the heads do not
+    divide 'model' each of its ranks runs the attention of its whole
+    sequence (the kernel anchors the causal mask at index 0, so the
+    sequence is gathered; XLA shards the S^2 work over the query sequence),
+    up to 2.5x in training here.  Granite's decode is the exception: the
+    port runs each rank's routing groups through the experts gathered
+    whole, where XLA splits the experts' ff dim over the 16-way 'model'
+    axis (4 experts do not divide it), about 10x (``MOE_DECODE_BAND``);
+  * one hand-computed case pins the per-device count: (4096 x 8192) @
+    (8192 x 8192) split rows over 'data' and columns over 'model' of a
+    (16, 16) mesh is 2 * 256 * 8192 * 512 FLOPs on rank 0, where
+    ``FlopCounterMode`` over the ``DTensor`` ops counts the global 256x.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels import flash_attention as fa, ref, rmsnorm as rn, ssd_scan as ss
+from repro_torch.models import model as M
+from repro_torch.parallel.sharding import ShardingPlan
+
+ROOT = Path(__file__).resolve().parent.parent
+TIMEOUT = 600  # seconds, per subprocess: each takes about 90 s here
+SHAPES = {"t": (64, 32, "train"), "p": (64, 32, "prefill"), "d": (64, 32, "decode")}
+ARCH_CELLS = ("qwen2-1.5b", "mamba2-130m", "gemma3-1b", "granite-moe-3b-a800m")
+CELLS = [(a, s, "pod") for a in ARCH_CELLS for s in SHAPES] + [("gemma3-1b", "d", "multipod")]
+FLOP_BAND = (0.8, 3.0)
+MOE_DECODE_BAND = (8.0, 16.0)
+POD = {"data": 16, "model": 16}
+MULTIPOD = {"pod": 2, "data": 16, "model": 16}
+
+_SETUP = """
+import json, sys
+from pathlib import Path
+from {pkg}.configs import ShapeSpec, get_arch, reduced
+from {pkg}.launch import dryrun as D
+D.SHAPES = {{n: ShapeSpec(n, *v) for n, v in {shapes!r}.items()}}
+"""
+
+PORT = _SETUP + """
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.core.bridge import MeshPlan
+from repro_torch.models.layers import fake_mode
+D.init_fake_world(512)
+mesh = D.make_production_mesh(device="cpu")
+with fake_mode():
+    a = distribute_tensor(torch.empty(4096, 8192), mesh, [Shard(0), Replicate()],
+                          src_data_rank=None)
+    b = distribute_tensor(torch.empty(8192, 8192), mesh, [Replicate(), Shard(1)],
+                          src_data_rank=None)
+    cost, whole = D.LocalCost(), FlopCounterMode(display=False)
+    with cost:
+        a @ b
+    with whole:
+        a @ b
+m = MeshPlan((2, 16, 16), ("pod", "data", "model"), True, True).make_mesh(device="cpu")
+print("PIN " + json.dumps(dict(local=cost.flops, flop_counter=whole.get_total_flops(),
+                               mesh=[list(m.mesh_dim_names), list(m.shape)])))
+for cell in sys.argv[2:]:
+    arch, shape, mesh_kind = cell.split(":")
+    rec = D.run_cell(arch, shape, mesh_kind, D.default_knobs(arch, shape), Path(sys.argv[1]),
+                     device="cpu", spec=reduced(get_arch(arch)))
+    print("REC " + json.dumps(rec))
+"""
+
+JAX = _SETUP + """
+whole_arch = D.get_arch
+D.get_arch = lambda name: reduced(whole_arch(name))
+for cell in sys.argv[2:]:
+    arch, shape, mesh_kind = cell.split(":")
+    rec = D.run_cell(arch, shape, mesh_kind, D.default_knobs(arch, shape), Path(sys.argv[1]))
+    print("REC " + json.dumps(rec))
+"""
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    """(the port's records, the JAX package's, the pinned case), by cell;
+    both subprocesses run at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    cells = [":".join(c) for c in CELLS]
+    procs = {}
+    for name, pkg, script in (("port", "repro_torch", PORT), ("jax", "repro", JAX)):
+        code = script.format(pkg=pkg, shapes=SHAPES)
+        out = tmp_path_factory.mktemp(name)
+        procs[name] = subprocess.Popen([sys.executable, "-c", code, str(out), *cells], env=env,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    res = {}
+    for name, p in procs.items():
+        stdout, stderr = p.communicate(timeout=TIMEOUT)
+        assert p.returncode == 0, stderr[-4000:]
+        recs = [json.loads(line[4:]) for line in stdout.splitlines() if line.startswith("REC ")]
+        res[name] = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+        if name == "port":
+            res["pin"] = next(json.loads(line[4:]) for line in stdout.splitlines()
+                              if line.startswith("PIN "))
+    return res
+
+
+def _local_bytes(spec, axis_sizes, b, s, keep) -> int:
+    """Rank 0's bytes of the cache leaves ``keep(layer def, leaf name)``
+    picks: bf16, kpos int32, split by the plan's spec."""
+    plan = ShardingPlan(axis_sizes=axis_sizes)
+    total = 0
+    for ld, layer in zip(spec.layer_defs(), M.cache_defs(spec, b, s)):
+        for name, d in layer.items():
+            if not keep(ld, name):
+                continue
+            n = 1
+            for size, entry in zip(d.shape, plan.spec(d.axes, d.shape) + (None,) * len(d.shape)):
+                names = (entry,) if isinstance(entry, str) else (entry or ())
+                n *= size // int(np.prod([axis_sizes[a] for a in names]))
+            total += n * (4 if name == "kpos" else 2)
+    return total
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: ":".join(c))
+def test_dryrun_record_matches_jax_run_cell(records, cell):
+    arch, shape, mesh_kind = cell
+    port, jax_rec = records["port"][cell], records["jax"][cell]
+    assert port["status"] == jax_rec["status"] == "ok", port.get("error")
+    for key in ("params", "active_params", "model_flops", "n_chips"):
+        assert port[key] == jax_rec[key], key
+    assert port["counted_by"] == "torch" and port["lower_s"] > 0
+    spec = reduced(ARCHS[arch])
+    b, s = SHAPES[shape][1], SHAPES[shape][0]
+    sizes = MULTIPOD if mesh_kind == "multipod" else POD
+    # kpos: 4 bytes a slot against 2
+    kpos = _local_bytes(spec, sizes, b, s, lambda ld, name: name == "kpos") // 2
+    extra = {"train": 0, "decode": kpos,
+             # what the JAX prefill rebuilds from nothing (kpos among it)
+             "prefill": _local_bytes(spec, sizes, b, s, lambda ld, name: ld.mixer != "attn_full")}
+    extra = extra[port["kind"]]
+    if port["kind"] == "decode" and all(ld.mixer == "mamba" for ld in spec.layer_defs()):
+        extra += 4  # the position, which no layer reads
+    mem, jmem = port["memory"], jax_rec["memory"]
+    assert mem["argument_bytes"] == jmem["argument_bytes"] + extra
+    if port["kind"] != "train":
+        assert mem["kv_cache_bytes_per_device"] == jmem["kv_cache_bytes_per_device"] + kpos
+    assert mem["peak_bytes_per_device"] >= mem["argument_bytes"]
+    ratio = port["hlo"]["flops_per_device"] / jax_rec["hlo"]["flops_per_device"]
+    lo, hi = MOE_DECODE_BAND if (spec.n_experts and port["kind"] == "decode") else FLOP_BAND
+    assert lo <= ratio <= hi, ratio
+    kinds = set(port["hlo"]["collective_bytes"])
+    assert kinds and kinds == set(port["hlo"]["collective_counts"])
+    assert {k.split("@")[0] for k in port["hlo"]["collective_by_group"]} == kinds
+    assert all(int(k.split("@")[1]) in (2, 16, 32, 256, 512)
+               for k in port["hlo"]["collective_by_group"])
+
+
+def test_per_device_flops_are_rank_zeros_own(records):
+    pin = records["pin"]
+    assert pin["local"] == 2 * 256 * 8192 * 512
+    assert pin["flop_counter"] == 256 * pin["local"]  # the global shapes
+    assert pin["mesh"] == [["pod", "data", "model"], [2, 16, 16]]
+
+
+def test_dryrun_cli_writes_a_record(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                        "mamba2-130m", "--shape", "long_500k", "--reduced", "--device", "cpu",
+                        "--out", str(tmp_path)], env=env, capture_output=True, text=True,
+                       timeout=TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    rec = json.loads((tmp_path / "mamba2-130m__long_500k__pod.json").read_text())
+    assert rec["status"] == "ok" and rec["n_chips"] == 256 and rec["kind"] == "decode"
+    skipped = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                              "qwen2-1.5b", "--shape", "long_500k", "--reduced", "--device",
+                              "cpu", "--out", str(tmp_path)], env=env, capture_output=True,
+                             text=True, timeout=TIMEOUT)
+    assert skipped.returncode == 0 and "-> skipped" in skipped.stdout
+
+
+# -- the kernels' fake paths ----------------------------------------------------
+
+def _refuse(*_, **__):
+    raise AssertionError("reached")
+
+
+@pytest.fixture()
+def guarded(monkeypatch):
+    """The ctypes entries and the dense plain versions raise if reached."""
+    for mod, names in ((fa, ("_entry", "_bwd_entry", "flash_attention_plain")),
+                       (rn, ("_bwd_entry", "_bind", "_off_card")),
+                       (ss, ("_entry", "_bwd_entry", "ssd_scan_plain")),
+                       (ref, ("attention_ref", "ssd_ref", "rmsnorm_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, _refuse)
+    counts = [fa.flash_attention, fa.flash_attention_bwd, rn.rmsnorm, rn.rmsnorm_bwd,
+              ss.ssd_scan, ss.ssd_scan_bwd]
+    before = [f.launches for f in counts]
+    yield
+    assert [f.launches for f in counts] == before
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_kernels_take_their_fake_path(guarded, grad):
+    """Fake stand-ins labelled cpu go through the operators' fake
+    implementations, forward and backward: the shapes of the kernels'
+    outputs, and the FLOP formulas the docstrings state."""
+    b, s, h, g, hd, w = 2, 100, 4, 2, 16, 16
+    with FakeTensorMode():
+        q = torch.empty(b, s, h, hd, requires_grad=grad)
+        k = torch.empty(b, s, g, hd, requires_grad=grad)
+        x = torch.empty(b * s, 64, requires_grad=grad)
+        nw = torch.empty(64)
+        xs = torch.empty(b, s, h, 16, requires_grad=grad)
+        dt, a = torch.empty(b, s, h), torch.empty(h)
+        bc = torch.empty(b, s, 1, 16)
+        with FlopCounterMode(display=False) as fc:
+            o = fa.flash_attention(q, k, k, window=w)
+            y = rn.rmsnorm(x, nw)
+            ys, st = ss.ssd_scan(xs, dt, a, bc, bc)
+            if grad:
+                (o.sum() + y.sum() + ys.sum() + st.sum()).backward()
+    assert o.shape == q.shape and y.shape == x.shape
+    assert ys.shape == xs.shape and st.shape == (b, h, 16, 16) and st.dtype == torch.float32
+    pairs = fa.pairs(s, s, True, w)
+    assert pairs == sum(min(i, w - 1) + 1 for i in range(s))
+    passes = (1, 2.5) if grad else (1, 0)  # forward; backward: 10 hd against 4 hd
+    flash = 4 * hd * b * h * pairs * sum(passes)
+    norm = 4 * b * s * 64 * (1 + 2 * (passes[1] > 0))
+    scan = 4 * s * 16 * 16 * b * h * (1 + 2 * (passes[1] > 0))
+    assert fc.get_total_flops() == flash + norm + scan
+
+
+def test_cuda_labelled_stand_ins_take_the_fake_path(guarded):
+    with FakeTensorMode():
+        q = torch.empty(1, 8, 2, 16, device="cuda")
+        o = fa.flash_attention(q, q, q)
+        y = rn.rmsnorm(torch.empty(4, 32, device="cuda"), torch.empty(32, device="cuda"))
+    assert o.device.type == "cuda" and o.shape == q.shape and y.shape == (4, 32)
+
+
+def test_real_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """A real CPU tensor never reaches an operator: the operators raise here,
+    and the wrappers still give their plain versions' results."""
+    for mod in (fa, rn, ss):
+        monkeypatch.setattr(mod, "_fwd_op", _refuse)
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 12, 2, 16, generator=gen)
+    torch.testing.assert_close(fa.flash_attention(q, q, q), fa.flash_attention_plain(q, q, q),
+                               rtol=0, atol=0)
+    x, w = torch.randn(6, 32, generator=gen), torch.randn(32, generator=gen)
+    torch.testing.assert_close(rn.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
+    xs, dt = torch.randn(1, 8, 2, 16, generator=gen), torch.rand(1, 8, 2, generator=gen)
+    a, bc = -torch.rand(2, generator=gen), torch.randn(1, 8, 1, 16, generator=gen)
+    for got, want in zip(ss.ssd_scan(xs, dt, a, bc, bc), ss.ssd_scan_plain(xs, dt, a, bc, bc)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_stand_ins_allocate_nothing():
+    spec = reduced(ARCHS["jamba-v0.1-52b"])
+    with FakeTensorMode():
+        params = M.abstract_params(spec, torch.bfloat16, device="cpu")
+        caches = M.abstract_caches(spec, 4, 32, device="cpu")
+    leaves = []
+    from repro_torch.models.layers import map_with_path
+    map_with_path(lambda _, t: leaves.append(t), [params, caches])
+    assert all(type(t).__name__ == "FakeTensor" for t in leaves)
+    defs = M.model_param_defs(spec)
+    assert params["embed"].shape == defs["embed"].shape and params["embed"].dtype == torch.bfloat16
+    kpos = [c["kpos"] for c in caches if "kpos" in c]
+    assert all(t.dtype == torch.int32 for t in kpos)
+
+
+# -- the cost-analysis copy, the bridge, the SPEC modules ---------------------------
+
+def test_hlo_analysis_copy_matches_the_jax_package():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import hlo_analysis as J
+    from repro_torch.core import hlo_analysis as T
+    from test_hlo import SHARDED_SNIPPET
+
+    def scanned(x, ws):
+        def body(c, w):
+            return jnp.tanh(c @ w), None
+        y, _ = jax.lax.scan(body, x, ws)
+        return y.sum()
+
+    shapes = (jax.ShapeDtypeStruct((32, 64), jnp.float32),
+              jax.ShapeDtypeStruct((5, 64, 64), jnp.float32))
+    text = jax.jit(scanned).lower(*shapes).compile().as_text()
+    for src in (SHARDED_SNIPPET, text):
+        got, want = T.HloCostModel(src).analyze(), J.HloCostModel(src).analyze()
+        assert vars(got) == vars(want)
+    assert T.COLLECTIVE_OPS == J.COLLECTIVE_OPS
+
+
+def _designs(n=200, seed=0):
+    from repro_torch.core.workload import Parallelism
+    rng = np.random.default_rng(seed)
+    out = [Parallelism(1024, dp=64, sp=4, pp=1, weight_sharded=True)]
+    for _ in range(n):
+        dp, sp, pp = (int(2 ** rng.integers(0, 5)) for _ in range(3))
+        out.append(Parallelism(1024, dp=dp, sp=sp, pp=pp, weight_sharded=bool(rng.integers(2))))
+    return out
+
+
+def test_bridge_matches_the_jax_package():
+    from repro.configs import ARCHS as JARCHS
+    from repro.core import bridge as JB
+    from repro.core.workload import Parallelism as JPar, generate_trace as j_trace
+    from repro_torch.core import bridge as TB
+    from repro_torch.core.hlo_analysis import CostTotals
+    from repro_torch.core.workload import generate_trace
+
+    for par in _designs():
+        jpar = JPar(par.n_npus, par.dp, par.sp, par.pp, par.weight_sharded)
+        assert TB.plan_from_design(par).__dict__ == JB.plan_from_design(jpar).__dict__
+    rng = np.random.default_rng(1)
+    for _ in range(50):
+        sizes = {a: int(2 ** rng.integers(0, 5)) for a in ("pod", "data", "model", "pipe")
+                 if rng.integers(2)}
+        ws, sp = bool(rng.integers(2)), bool(rng.integers(2))
+        got = TB.design_from_mesh(sizes, weight_sharded=ws, sp=sp)
+        assert got.__dict__ == JB.design_from_mesh(sizes, weight_sharded=ws, sp=sp).__dict__
+    rt = TB.design_from_mesh({"data": 16, "model": 16}, weight_sharded=True)
+    assert rt.n_npus == 256 and rt.dp == 16 and rt.tp == 16
+    par = _designs(0)[0]
+    spec = ARCHS["qwen2-1.5b"]
+    jspec = JARCHS["qwen2-1.5b"]
+    trace = generate_trace(spec, par, batch=256, seq=4096)
+    jtrace = j_trace(jspec, JPar(par.n_npus, par.dp, par.sp, par.pp, par.weight_sharded),
+                     batch=256, seq=4096)
+    for hlo_flops, coll in ((3.1e12, {"all-gather": 7e8, "reduce-scatter": 6e6}), (0.0, {})):
+        t = CostTotals(flops=hlo_flops)
+        jt = JB.CostTotals(flops=hlo_flops)
+        for k, v in coll.items():
+            t.collective_bytes[k] = jt.collective_bytes[k] = v
+        got, want = TB.calibrate(trace, t, 256), JB.calibrate(jtrace, jt, 256)
+        assert got.detail == want.detail
+        np.testing.assert_equal([got.flops_ratio, got.coll_bytes_ratio],
+                                [want.flops_ratio, want.coll_bytes_ratio])
+
+
+def test_spec_modules_match_the_registry():
+    import importlib
+
+    from repro_torch.configs import registry
+    mods = sorted(p.stem for p in (ROOT / "src" / "repro_torch" / "configs").glob("*.py")
+                  if p.stem not in ("__init__", "base", "registry"))
+    assert len(mods) == 14
+    specs = {importlib.import_module(f"repro_torch.configs.{m}").SPEC for m in mods}
+    assert specs == set(registry.ARCHS.values())
+    for m in mods:
+        jmod = importlib.import_module(f"repro.configs.{m}")
+        assert importlib.import_module(f"repro_torch.configs.{m}").SPEC.name == jmod.SPEC.name
+
+
+def test_quickstart_loop_on_the_port():
+    """examples/quickstart.py's loop on the port: a GA search of the
+    design space (fewer steps), the best design point as a mesh plan, then
+    reduced qwen2 train steps whose loss falls."""
+    from repro_torch.core.bridge import plan_from_design
+    from repro_torch.core.compute import SYSTEM_1_DEVICE
+    from repro_torch.core.dse import run_search
+    from repro_torch.core.env import CosmicEnv
+    from repro_torch.core.psa import paper_psa
+    from repro_torch.core.workload import Parallelism
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import RunConfig, init_train_state, make_train_step
+
+    env = CosmicEnv(spec=ARCHS["gpt3-13b"], n_npus=512, device=SYSTEM_1_DEVICE, batch=512,
+                    seq=2048)
+    res = run_search(paper_psa(512), env, "ga", steps=60, seed=0)
+    cfg = res.best_config
+    assert res.best_reward > 0
+    par = Parallelism(512, cfg["dp"], cfg["sp"], cfg["pp"], bool(cfg["weight_sharded"]))
+    plan = plan_from_design(par)
+    assert int(np.prod(plan.shape)) == par.dp * par.sp * par.tp * par.pp
+    spec = reduced(ARCHS["qwen2-1.5b"])
+    run_cfg = RunConfig(remat="none", opt=OptConfig(lr=3e-3, warmup_steps=0))  # no warm-up
+    state = init_train_state(spec, run_cfg, seed=0, device="cpu")
+    step = make_train_step(spec, cfg=run_cfg)
+    data = SyntheticLM(spec, DataConfig(global_batch=8, seq_len=64, seed=0))
+    losses = []
+    for i in range(8):
+        state, metrics = step(state, data.batch_at(i))
+        losses.append(metrics["loss"].item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -140,7 +140,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.runtime.fault",
             "repro_torch.launch.train", "repro_torch.core.env",
             "repro_torch.core.backends.torch_backend", "repro_torch.dse",
-            "repro_torch.kernels.dse_sim"} <= set(mods)
+            "repro_torch.kernels.dse_sim", "repro_torch.launch.dryrun",
+            "repro_torch.core.bridge", "repro_torch.core.hlo_analysis"} <= set(mods)
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 22
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"

@@ -463,9 +463,10 @@ def kernel_functions(monkeypatch):
     """Route the models' flash attention and RMSNorm through the kernels'
     autograd Functions, with numpy stand-ins for the launches."""
     from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn
-    monkeypatch.setattr(fa, "_launch", _fake_flash_launch)
+    # the Functions' forward launches are the operators (kernels/_library.py)
+    monkeypatch.setattr(fa, "_fwd_op", _fake_flash_launch)
     monkeypatch.setattr(fa, "flash_attention_bwd", _fake_flash_bwd)
-    monkeypatch.setattr(rn, "_forward", _fake_rms_forward)
+    monkeypatch.setattr(rn, "_fwd_op", _fake_rms_forward)
     monkeypatch.setattr(rn, "rmsnorm_bwd", _fake_rms_bwd)
     monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal, window, scale:
                         fa.FlashAttentionFn.apply(q, k, v, causal, window, scale))
