@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Compare this checkout with another on one NVIDIA GPU: the flash kernels'
+outputs bit for bit, and the unsharded serving path's times.
+
+    python3 chip_ab.py LABEL OUT [AGAINST]
+
+Builds the flash attention (forward and backward) and RMSNorm kernels of
+the checkout it sits in, then:
+  * flash: ``_launch`` (with the log-sum-exp) and ``flash_attention_bwd``
+    at the smoke run's shapes (qwen2, gemma3 global and window 512,
+    granite, phi-3's head_dim 96, ragged and windowed cases), f32 and
+    bf16, causal at offset 0, inputs from seed 5; o, lse, dq, dk and dv are
+    saved to OUT (``torch.save``) and, with AGAINST (another checkout's
+    OUT), compared with its bit for bit: the line says which cases differ,
+    and any difference exits 1;
+  * serving: qwen2-1.5b (prompt 1000), gemma3-1b (2040) and
+    granite-moe-3b-a800m (1024) at full width and depth, random weights
+    from seed 0, fp32, greedy, batch 4, through ``Engine.generate``: one
+    warm-up call, then three of 32 new tokens; decode ms a step (decode
+    seconds over the 32 steps, as ``chip_smoke.py`` takes it) of each and
+    their median, and the prefill ms median.
+To compare two commits, copy this script into an unpacked checkout of the
+other (``git archive``) and run both in one chip call in turns: A, B, B, A.
+Decode is host-bound, so its wall moves with the host: compare medians
+only within one call.  Exits non-zero without CUDA.
+"""
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# (B, S, H, G, head_dim, window): S = T, causal
+FLASH_CASES = ((4, 1000, 12, 2, 128, 0), (4, 1000, 12, 2, 128, 256), (4, 200, 12, 2, 128, 0),
+               (4, 2040, 4, 1, 256, 0), (4, 2040, 4, 1, 256, 512), (4, 1024, 24, 8, 64, 0),
+               (4, 1024, 32, 32, 96, 0), (2, 333, 6, 6, 64, 37))
+MODELS = (("qwen2-1.5b", 1000), ("gemma3-1b", 2040), ("granite-moe-3b-a800m", 1024))
+BATCH, NEW, CALLS = 4, 32, 3
+
+
+def flash_outputs(torch, fa) -> dict:
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, g, hd, window in FLASH_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((b, s, g, hd), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            o, lse = fa._launch(q, k, v, True, window, hd ** -0.5, with_lse=True)
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+            out[str(dtype).removeprefix("torch."), b, s, h, g, hd, window] = [
+                x.cpu() for x in (o, lse, *grads)]
+    return out
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("[ab] CUDA is not available: this needs an NVIDIA GPU")
+    if len(sys.argv) < 3:
+        sys.exit(__doc__)
+    label, out_path = sys.argv[1], Path(sys.argv[2])
+    against = Path(sys.argv[3]) if len(sys.argv) > 3 else None
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build, flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm"])
+    print(f"[ab] {label}: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    got = flash_outputs(torch, fa)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(got, out_path)
+    if against is not None:
+        want = torch.load(against)
+        differ = [key for key in got if not all(torch.equal(x, y) for x, y in
+                                                zip(got[key], want[key]))]
+        print(f"[ab] {label} {card}: flash o, lse, dq, dk, dv in {len(got)} cases against "
+              f"{against.name}: bit for bit {not differ}; cases that differ {differ}", flush=True)
+        if differ:
+            sys.exit(1)
+
+    for arch, prompt in MODELS:
+        spec = get_arch(arch)
+        params = M.init_params(spec, 0, device="cuda")
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, spec.vocab_size, (BATCH, prompt)).astype(np.int32)
+        engine = Engine(spec, params, max_len=prompt + NEW, device="cuda")
+        engine.generate(prompts, 4)  # warm-up
+        decode, prefill = [], []
+        for _ in range(CALLS):
+            _, stats = engine.generate(prompts, NEW)
+            decode.append(stats.decode_s / NEW * 1e3)
+            prefill.append(stats.prefill_s * 1e3)
+        print(f"[ab] {label} {card} {arch} B={BATCH} prompt={prompt} new={NEW} fp32: decode ms "
+              f"a step {[round(x, 3) for x in decode]} median {statistics.median(decode):.3f}; "
+              f"prefill ms median {statistics.median(prefill):.3f}", flush=True)
+        del params, engine
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

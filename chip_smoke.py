@@ -27,7 +27,12 @@ Phases, one or more lines each:
                chunks: the state entering each chunk, and the final state)
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
                and its entering state).  Flash attention at head_dim 96
-               (phi-3-vision-4.2b, 32 heads).  The backward kernels: flash
+               (phi-3-vision-4.2b, 32 heads).  Flash attention at a query
+               offset, forward and backward: qwen2's train shape as the last
+               of four 'model' ranks of a sequence-split attention sees it
+               (S = 1024 rows at offset 3072 of T = 4096 keys; SDPA with the
+               band as its mask), the forward's rows also bit for bit
+               against the whole sequence's launch.  The backward kernels: flash
                attention's (up to four launches, each row's device ms split
                by kernel: flash_bwd_delta, D = rowsum(dO o O) and the padded
                log-sum-exp; flash_bwd_dkdv, keys as rows; flash_bwd_dq; and
@@ -149,9 +154,12 @@ Phases, one or more lines each:
                shape through its operator (torch.ops.repro_torch) against
                the bare launch
   dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
-               world, at full size with fake tensors labelled cuda, three
-               at once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
-               multipod, mamba2-130m long_500k pod, each ok, with its peak
+               world, at full size with fake tensors labelled cuda, five at
+               once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
+               multipod, mamba2-130m long_500k pod, granite-moe-3b-a800m
+               and moonshot-v1-16b-a3b train_4k pod (the MoE with its ff
+               columns, and its experts, split over 'model'), each ok with
+               its peak a device within the card's memory, with its peak
                GiB a device, FLOPs a device against model_flops / n_chips,
                collective bytes by kind and seconds; then reduced qwen2-1.5b
                train_4k pod under --device cpu and --device cuda, whose
@@ -192,6 +200,10 @@ CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 24
 PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
+# flash attention at a query offset: qwen2's train_4k sequence as the last of
+# four 'model' ranks sees it under sequence-split attention (its rows
+# 3072..4095 against all 4096 keys)
+OFFSET_S, OFFSET_T, OFFSET = 1024, 4096, 3072
 REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
 MESH_STEPS = 6  # train steps of the mesh phase, unsharded and under a (1, 1) plan
 MESH_RTOL = 1e-6  # the (1, 1) plan vs unsharded, where some op breaks bit equality
@@ -201,9 +213,11 @@ MESH_DECODE_STEPS = 4  # greedy decode steps whose logits serve_mesh holds
 # under the (1, 1) plan costs about 27x the unsharded one in host dispatch
 MESH_NEW = 8
 MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, relative
-# the dry run's full-size cells, and the reduced one run under both labels
+# the dry run's full-size cells (each must fit the card's memory), and the
+# reduced one run under both labels
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
-                ("mamba2-130m", "long_500k", "pod"))
+                ("mamba2-130m", "long_500k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
+                ("moonshot-v1-16b-a3b", "train_4k", "pod"))
 DRYRUN_REDUCED = ("qwen2-1.5b", "train_4k", "pod")
 DRYRUN_TIMEOUT = 600  # seconds, per subprocess
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
@@ -327,38 +341,52 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_flash(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
+def band_mask(torch, s, t, window, q_offset):
+    """Query row i (at position q_offset + i) sees key j: j <= q_offset + i
+    and, with a window, j > q_offset + i - window; SDPA's mask for the
+    library call (``is_causal`` where it is the plain causal mask)."""
+    qpos = q_offset + torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(t, device="cuda")[None, :]
+    band = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+    return band, (dict(attn_mask=band) if window or q_offset else dict(is_causal=True))
+
+
+def check_flash(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters, q_offset=0):
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn((b, n, heads, hd), generator=gen, device="cuda").to(dtype)
                for n, heads in ((s, h), (t, g), (t, g)))
-    got = fa.flash_attention(q, k, v, causal=True, window=window)
-    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    got = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     name = dtype_name(dtype)
     err = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), atol=TOL[name], rtol=TOL[name])
+    extra = {}
+    if q_offset:  # the rows of the whole sequence's launch (q_offset a multiple of its tiles)
+        whole_q = torch.randn((b, t, h, hd), generator=gen, device="cuda").to(dtype)
+        whole_q[:, q_offset:q_offset + s] = q
+        whole = fa.flash_attention(whole_q, k, v, causal=True, window=window)
+        extra["same_bits_as_whole_rows"] = bool(torch.equal(got, whole[:, q_offset:q_offset + s]))
+        ok = ok and extra["same_bits_as_whole_rows"]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    qpos = torch.arange(s, device="cuda")[:, None]
-    kpos = torch.arange(t, device="cuda")[None, :]
-    band = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
-    mask = dict(attn_mask=band) if window else dict(is_causal=True)
+    band, mask = band_mask(torch, s, t, window, q_offset)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask)
-    kernel = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    kernel = lambda: fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
     lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max().item()
     pairs = int(band.sum().item())
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
     flops = 4.0 * hd * pairs * b * h
     bound_ms, bound_by = bound(nbytes, flops, name)
-    extra = {}
     if name == "float32":  # the kernel runs f32 as three TF32 products on the tensor cores
         extra["bound_3xtf32_ms"], extra["bound_3xtf32_by"] = bound(nbytes, 3 * flops, "tf32")
     ms, library_ms = paired_ms(kernel, lib, iters)
     row = dict(
-        case=f"flash_attention {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal window={window}",
+        case=f"flash_attention {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal window={window}"
+             + (f" q_offset={q_offset}" if q_offset else ""),
         max_abs_err=err, tol=TOL[name], ok=bool(ok),
         ms=ms, device_ms=device_ms(kernel, iters),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window),
-                         iters),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                                          q_offset=q_offset), iters),
         library_ms=library_ms, library_device_ms=device_ms(lib, iters),
         library_max_abs_err=lib_err,
         bound_ms=bound_ms, bound_by=bound_by, **extra)
@@ -403,30 +431,27 @@ def rel_close(torch, got, want, tol: float) -> tuple[float, float, bool]:
                                                               atol=tol * scale + 1e-6))
 
 
-def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
+def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters, q_offset=0):
     """The backward kernels (dq, dk, dv from q, k, v, o, lse, dO) vs autograd
     through the plain version; timed beside SDPA's backward."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, do = (torch.randn((b, n, heads, hd), generator=gen, device="cuda").to(dtype)
                    for n, heads in ((s, h), (t, g), (t, g), (s, h)))
     scale = hd ** -0.5
-    o, lse = fa._launch(q, k, v, True, window, scale, with_lse=True)
+    o, lse = fa._launch(q, k, v, True, window, scale, with_lse=True, q_offset=q_offset)
     kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window,
-                                            scale=scale)
+                                            scale=scale, q_offset=q_offset)
     got = kernel()
     deterministic = same_bits(torch, got, kernel())
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = fa.flash_attention_plain(*leaves, causal=True, window=window)
+    out = fa.flash_attention_plain(*leaves, causal=True, window=window, q_offset=q_offset)
     plain = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
     want = plain()
     torch.cuda.synchronize()
     name = dtype_name(dtype)
     errs = [rel_close(torch, x, y, TOL[name]) for x, y in zip(got, want)]
     lib_leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
-    qpos = torch.arange(s, device="cuda")[:, None]
-    kpos = torch.arange(t, device="cuda")[None, :]
-    band = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
-    mask = dict(attn_mask=band) if window else dict(is_causal=True)
+    band, mask = band_mask(torch, s, t, window, q_offset)
     lib_out = F.scaled_dot_product_attention(*lib_leaves, enable_gqa=True, **mask)
     do_t = do.transpose(1, 2)
     lib = lambda: torch.autograd.grad(lib_out, lib_leaves, do_t, retain_graph=True)
@@ -444,7 +469,7 @@ def check_flash_bwd(torch, F, fa, b, s, t, h, g, hd, window, dtype, iters):
     phases = device_ms_split(kernel, iters, "flash_bwd")
     row = dict(
         case=f"flash_attention_bwd {name} B={b} S={s} T={t} H={h} G={g} hd={hd} causal "
-             f"window={window}",
+             f"window={window}" + (f" q_offset={q_offset}" if q_offset else ""),
         max_abs_err=max(e[0] for e in errs), rel_err_by_grad=[e[1] for e in errs],
         tol=TOL[name], deterministic=deterministic,
         ok=all(e[2] for e in errs) and deterministic,
@@ -851,11 +876,12 @@ def rmsnorm_dispatch_cost(torch, rn, d):
     return med
 
 
-def dryrun_phase(card) -> None:
+def dryrun_phase(card, total_memory: int) -> None:
     """The dry run in subprocesses on fake worlds: DRYRUN_CELLS at full size
-    (fake tensors labelled cuda, three processes at once), each ok; then the
-    reduced DRYRUN_REDUCED cell labelled cpu and cuda, whose records agree
-    key for key but lower_s.  Every process is stopped before it returns."""
+    (fake tensors labelled cuda, all at once), each ok with a peak a device
+    within the card's ``total_memory``; then the reduced DRYRUN_REDUCED cell
+    labelled cpu and cuda, whose records agree key for key but lower_s.
+    Every process is stopped before it returns."""
     import os
     import shutil
     import tempfile
@@ -905,7 +931,11 @@ def dryrun_phase(card) -> None:
                   f"{rec['lower_s']} s")
             keys = ("arch", "shape", "mesh", "n_chips", "model_flops", "memory", "hlo", "lower_s")
             print(f"[dryrun] record {json.dumps({k: rec[k] for k in keys})}")
-        print(f"[dryrun] three full-size cells in {time.perf_counter() - t0:.3f} s wall")
+            if mem["peak_bytes_per_device"] > total_memory:
+                fail(f"dryrun {':'.join(cell)}: a device's peak {mem['peak_bytes_per_device']} "
+                     f"bytes exceeds the card's {total_memory}")
+        print(f"[dryrun] {len(DRYRUN_CELLS)} full-size cells in {time.perf_counter() - t0:.3f} s "
+              f"wall, each peak within the card's {total_memory / 2**30:.3f} GiB")
         arch, shape, mesh = DRYRUN_REDUCED
         finish([start(arch, shape, mesh, tmp / dev, "--reduced", "--device", dev)
                 for dev in ("cpu", "cuda")])
@@ -1759,6 +1789,12 @@ def main() -> None:
                                    pspec.resolved_head_dim, 0), 3)):
             named[name, key] = check_flash_bwd(torch, F, fa, *args, dtype, iters)
             rows.append(named[name, key])
+        # one 'model' rank of a sequence-split attention, forward and backward
+        off_args = (TRAIN_BATCH, OFFSET_S, OFFSET_T, h, g, hd, 0, dtype)
+        named[name, "qwen2 q_offset"] = check_flash(torch, F, fa, *off_args, 5, q_offset=OFFSET)
+        named[name, "bwd qwen2 q_offset"] = check_flash_bwd(torch, F, fa, *off_args, 3,
+                                                            q_offset=OFFSET)
+        rows += [named[name, "qwen2 q_offset"], named[name, "bwd qwen2 q_offset"]]
         for key, (n_rows, width), iters in (
                 ("bwd qwen2 train", (TRAIN_BATCH * TRAIN_SEQ, d), 50),
                 ("bwd 4000x1536", (4000, d), 50),
@@ -1877,13 +1913,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- dryrun: the program on fake worlds of 256 and 512 ranks --------------------
-    dryrun_phase(card)
+    dryrun_phase(card, torch.cuda.get_device_properties(0).total_memory)
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
     print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
           f"without device events, each taken again (up to {TRACE_TRIES} tries)")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
+                 "same_bits_as_whole_rows",
                  "plain_ms", "bound_ms", "bound_by", "library_ms",
                  # the DSE sweep's measured cycles an op, P scan and fp64 latency
                  # (its chain estimate and served-from shares, worked out rather
@@ -1895,10 +1932,12 @@ def main() -> None:
 
     # more: the kernel at the other shapes of its paths, and bf16 flash
     flash_more = [("bfloat16", "qwen2")] + [
+        (name, "qwen2 q_offset") for name in ("float32", "bfloat16")] + [
         (name, key) for key in ("gemma3 global", f"gemma3 window {gw}", "hd256 ragged 200")
         for name in ("float32", "bfloat16")] + [("float32", "granite")] + [
         (name, "phi3 hd96") for name in ("float32", "bfloat16")]
     bwd_more = [("bfloat16", "bwd qwen2")] + [
+        (name, "bwd qwen2 q_offset") for name in ("float32", "bfloat16")] + [
         (name, key) for key in ("bwd qwen2 ragged 1000", "bwd gemma3 global",
                                 f"bwd gemma3 window {gw}", "bwd granite", "bwd phi3 hd96")
         for name in ("float32", "bfloat16")]

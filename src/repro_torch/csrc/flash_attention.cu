@@ -53,6 +53,10 @@
 //     loaded; a consumer warpgroup whose 64 rows are all masked on a tile
 //     (or all past S) waits for it and releases it without computing.  q
 //     tiles are scheduled heaviest (latest) first.
+//   * A query offset: query row i sits at position q_offset + i of the key
+//     sequence (keys from 0), so one rank of a sequence-split attention
+//     takes its own rows against the whole K/V.  Every mask, every
+//     tile-skip test and a tile's key range compare keys with positions.
 //   * GQA: head h reads K/V group h / (H/G) through the tensor maps; nothing
 //     is repeated in memory.  A masked score is -inf and the running max
 //     starts at -1e30, so a row with no valid key keeps p = 0 and writes 0.
@@ -101,6 +105,7 @@ struct Params {
   float* lse;              // (B, H, S) row log-sum-exp, or null
   long long os[3];         // element strides of o: batch, sequence, head
   int S, T, H, G, causal, window;
+  int q_offset;            // query row i sits at position q_offset + i; keys from 0
   float scale_log2;        // softmax scale times log2(e)
 };
 
@@ -122,7 +127,7 @@ __device__ __forceinline__ void online_softmax(float* s, float* m, float* l, flo
       float x = s[4 * j + e] * p.scale_log2;
       if (mask) {
         const int kj = k_col + 8 * j + (e & 1);
-        const int qi = q_row + 8 * (e >> 1);
+        const int qi = q_row + 8 * (e >> 1) + p.q_offset;  // the row's position
         const bool ok = kj < p.T && (!p.causal || kj <= qi) && (p.window <= 0 || kj > qi - p.window);
         x = ok ? x : -INFINITY;
       }
@@ -197,13 +202,16 @@ struct Work {
 
 // Whether a warpgroup whose rows start at r (64 of them) needs no mask on a
 // tile of keys [k0, k0 + bk) restricted to 16 rows from rw; and whether all
-// 64 rows are masked on it.
+// 64 rows are masked on it.  Rows are compared with keys at their positions
+// (row + q_offset).
 __device__ __forceinline__ bool tile_unmasked(const Params& p, int k0, int bk, int rw) {
-  return k0 + bk <= p.T && (!p.causal || k0 + bk - 1 <= rw) &&
-         (p.window <= 0 || k0 > rw + 15 - p.window);
+  const int pw = rw + p.q_offset;
+  return k0 + bk <= p.T && (!p.causal || k0 + bk - 1 <= pw) &&
+         (p.window <= 0 || k0 > pw + 15 - p.window);
 }
 __device__ __forceinline__ bool tile_all_masked(const Params& p, int k0, int bk, int r) {
-  return r >= p.S || (p.causal && k0 > r + 63) || (p.window > 0 && k0 + bk - 1 <= r - p.window);
+  const int pr = r + p.q_offset;
+  return r >= p.S || (p.causal && k0 > pr + 63) || (p.window > 0 && k0 + bk - 1 <= pr - p.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -369,8 +377,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(const __grid_con
   w.h = blockIdx.x % p.H;
   w.g = w.h / (p.H / p.G);
   w.q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int k_end = p.causal ? min(p.T, w.q0 + BQ) : p.T;
-  w.k_begin = (p.window > 0 ? max(0, w.q0 - p.window + 1) : 0) / C::BK * C::BK;
+  // the keys this tile's rows see: j <= position (causal), j > position - window
+  const int pos0 = p.q_offset + w.q0;
+  const int k_end = p.causal ? min(p.T, pos0 + BQ) : p.T;
+  w.k_begin = (p.window > 0 ? max(0, pos0 - p.window + 1) : 0) / C::BK * C::BK;
   w.n_tiles = k_end > w.k_begin ? (k_end - w.k_begin + C::BK - 1) / C::BK : 0;
 
   if (threadIdx.x == 0) {
@@ -435,7 +445,8 @@ int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, i
 
 // q (B,S,H,hd), k/v (B,T,G,hd), o (B,S,H,hd) with the last dim contiguous;
 // lse: an f32 (B,H,S) contiguous array for each row's log-sum-exp, or null;
-// strides[12] = (batch, seq, head) element strides of q, k, v, o.  q, k and v
+// strides[12] = (batch, seq, head) element strides of q, k, v, o; query row i
+// sits at position q_offset + i (>= 0) and key j at j.  q, k and v
 // must suit TMA: 16-byte aligned base, byte strides that are multiples of 16
 // (dims of extent 1 aside).  dtype: 0 = float32, 1 = bfloat16.  Returns 0 on
 // success, -1 if a tensor map could not be encoded, else the CUDA error of
@@ -443,8 +454,8 @@ int dispatch_hd(Params& p, const void* q, const void* k, const void* v, int B, i
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int B, int S, int T, int H, int G, int hd,
                                    const long long* strides, int causal, int window,
-                                   float scale, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0)
+                                   int q_offset, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = o;
@@ -456,6 +467,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.G = G;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0   ? dispatch_hd<float>(p, q, k, v, B, hd, strides, st)

@@ -62,6 +62,9 @@
 //   each; the dQ block takes 64 queries (two 128-row f32 Q and dO tiles
 //   would not fit), its two warpgroups taking alternate key tiles, and adds
 //   their dQ parts in a fixed order at the end.
+//   Query row i sits at position q_offset + i of the key sequence (the
+//   forward's offset): the masks, the tile-skip tests, the dK/dV block's
+//   query range and the dQ block's key range compare keys with positions.
 //   Tiles wholly masked for a warpgroup are waited for and released without
 //   computing; masks are applied only on tiles that cross the diagonal, the
 //   window's edge or T.  TMA fills rows past S or T with zeros.
@@ -135,6 +138,7 @@ struct Common {
   const float* lse2;   // (B*H, SP): the forward's log-sum-exp times log2(e); +inf past S
   const float* delta;  // (B*H, SP): rowsum(dO o O); 0 past S
   int S, T, H, G, SP, causal, window;
+  int q_offset;        // query row i sits at position q_offset + i; keys from 0
   float scale, scale_log2;
 };
 
@@ -170,27 +174,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Query row i (at position i + q_offset) sees key j.
 __device__ __forceinline__ bool visible(const Common& c, int i, int j) {
-  return j < c.T && (!c.causal || j <= i) && (c.window <= 0 || j > i - c.window);
+  const int pi = i + c.q_offset;
+  return j < c.T && (!c.causal || j <= pi) && (c.window <= 0 || j > pi - c.window);
 }
 
-// Keys [r, r + 64) of a warpgroup against queries [q0, q0 + bq): all masked;
-// and keys [rw, rw + 16) of a warp: none masked.
+// Keys [r, r + 64) of a warpgroup against query rows [q0, q0 + bq): all
+// masked; and keys [rw, rw + 16) of a warp: none masked.  Rows are compared
+// with keys at their positions (row + q_offset).
 __device__ __forceinline__ bool kv_all_masked(const Common& c, int q0, int bq, int r) {
-  return r >= c.T || (c.causal && r > q0 + bq - 1) || (c.window > 0 && q0 - (r + 63) >= c.window);
+  const int p0 = q0 + c.q_offset;
+  return r >= c.T || (c.causal && r > p0 + bq - 1) || (c.window > 0 && p0 - (r + 63) >= c.window);
 }
 __device__ __forceinline__ bool kv_unmasked(const Common& c, int q0, int bq, int rw) {
-  return rw + 15 < c.T && (!c.causal || rw + 15 <= q0) &&
-         (c.window <= 0 || rw > q0 + bq - 1 - c.window);
+  const int p0 = q0 + c.q_offset;
+  return rw + 15 < c.T && (!c.causal || rw + 15 <= p0) &&
+         (c.window <= 0 || rw > p0 + bq - 1 - c.window);
 }
-// Queries [r, r + 64) of a warpgroup against keys [k0, k0 + bk): all
-// masked; and queries [rw, rw + 16) of a warp: none masked.
+// Query rows [r, r + 64) of a warpgroup against keys [k0, k0 + bk): all
+// masked; and rows [rw, rw + 16) of a warp: none masked.
 __device__ __forceinline__ bool q_all_masked(const Common& c, int k0, int bk, int r) {
-  return r >= c.S || (c.causal && k0 > r + 63) || (c.window > 0 && k0 + bk - 1 <= r - c.window);
+  const int pr = r + c.q_offset;
+  return r >= c.S || (c.causal && k0 > pr + 63) || (c.window > 0 && k0 + bk - 1 <= pr - c.window);
 }
 __device__ __forceinline__ bool q_unmasked(const Common& c, int k0, int bk, int rw) {
-  return k0 + bk <= c.T && (!c.causal || k0 + bk - 1 <= rw) &&
-         (c.window <= 0 || k0 > rw + 15 - c.window);
+  const int pw = rw + c.q_offset;
+  return k0 + bk <= c.T && (!c.causal || k0 + bk - 1 <= pw) &&
+         (c.window <= 0 || k0 > pw + 15 - c.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -555,10 +566,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkdv(const __grid_const
   w.h = blockIdx.x % p.c.H;
   w.g = w.h / (p.c.H / p.c.G);
   w.k0 = blockIdx.y * C::BKEY;  // the earliest key tile first: under the causal mask the heaviest
-  // the queries that see a key of this tile: i >= j (causal), i < j + window
+  // the query rows that see a key of this tile, row i at position
+  // i + q_offset: i + q_offset >= j (causal), i + q_offset < j + window
   const int k_last = min(w.k0 + C::BKEY, p.c.T) - 1;
-  w.q_begin = p.c.causal ? w.k0 / C::BQ * C::BQ : 0;
-  const int q_end = p.c.window > 0 ? min(p.c.S, k_last + p.c.window) : p.c.S;
+  w.q_begin = p.c.causal ? max(0, w.k0 - p.c.q_offset) / C::BQ * C::BQ : 0;
+  const int q_end =
+      p.c.window > 0 ? min(p.c.S, k_last + p.c.window - p.c.q_offset) : p.c.S;
   w.n_tiles = q_end > w.q_begin ? (q_end - w.q_begin + C::BQ - 1) / C::BQ : 0;
 
   if (threadIdx.x == 0) {
@@ -789,9 +802,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq(const __grid_constan
   w.h = blockIdx.x % p.c.H;
   w.g = w.h / (p.c.H / p.c.G);
   w.q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // the latest query tile first
-  // the keys this tile's queries see: j <= i (causal), j > i - window
-  const int k_end = p.c.causal ? min(p.c.T, w.q0 + C::BQ) : p.c.T;
-  w.k_begin = (p.c.window > 0 ? max(0, w.q0 - p.c.window + 1) : 0) / C::BK * C::BK;
+  // the keys this tile's queries see, at positions i + q_offset: j <= the
+  // position (causal), j > the position - window
+  const int pos0 = p.c.q_offset + w.q0;
+  const int k_end = p.c.causal ? min(p.c.T, pos0 + C::BQ) : p.c.T;
+  w.k_begin = (p.c.window > 0 ? max(0, pos0 - p.c.window + 1) : 0) / C::BK * C::BK;
   w.n_tiles = k_end > w.k_begin ? (k_end - w.k_begin + C::BK - 1) / C::BK : 0;
 
   if (threadIdx.x == 0) {
@@ -850,7 +865,7 @@ struct Args {
   float *lse2, *delta, *sk, *sv;
   void *dq, *dk, *dv;
   const long long* strides;  // (batch, seq, head) of q, k, v, o, dO
-  int B, S, T, H, G, causal, window;
+  int B, S, T, H, G, causal, window, q_offset;
   float scale;
 };
 
@@ -876,6 +891,7 @@ int launch(const Args& a, cudaStream_t stream) {
   c.SP = (a.S + SP_ROUND - 1) / SP_ROUND * SP_ROUND;
   c.causal = a.causal;
   c.window = a.window;
+  c.q_offset = a.q_offset;
   c.scale = a.scale;
   c.scale_log2 = a.scale * LOG2E;
   KVParams kv;
@@ -958,14 +974,15 @@ int dispatch_hd(const Args& a, int hd, cudaStream_t stream) {
 // scratch of B*H*SP floats each, SP = S rounded up to 128), dq, dk, dv
 // (contiguous, the shapes of q, k, v), and where H > G two f32 scratch
 // arrays of B*T*H*hd floats for the heads' dK and dV (else null);
-// strides[15] = (batch, seq, head) element strides of q, k, v, o, dO.
+// strides[15] = (batch, seq, head) element strides of q, k, v, o, dO; query
+// row i sits at position q_offset + i (>= 0) and key j at j.
 // dtype: 0 = float32, 1 = bfloat16 (every tensor but lse and the scratch).
 // Returns 0 on success, -1 if a tensor map could not be encoded, else the
 // CUDA error of a launch.
 extern "C" int flash_attention_bwd(const long long* ptrs, const long long* strides, int dtype,
                                    int B, int S, int T, int H, int G, int hd, int causal,
-                                   int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0)
+                                   int window, int q_offset, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || H % G != 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = reinterpret_cast<const void*>(ptrs[0]);
@@ -990,6 +1007,7 @@ extern "C" int flash_attention_bwd(const long long* ptrs, const long long* strid
   a.G = G;
   a.causal = causal;
   a.window = window;
+  a.q_offset = q_offset;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0   ? dispatch_hd<float>(a, hd, st)

@@ -8,7 +8,11 @@ f32 in 3xTF32 on ``mma.sync``, both fed by TMA.  It reads the model layout
 directly: q (B, S, H, hd) and k/v (B, T, G, hd), head ``h`` reading KV group
 ``h // (H/G)`` through 4-D tensor maps, so nothing is folded, repeated or
 padded in memory.  Any S and T: TMA fills rows past S and T with zeros and
-the kernel masks keys by the true T.  TMA needs a 16-byte aligned base and
+the kernel masks keys by the true T.  ``q_offset`` places query row ``i`` at
+position ``q_offset + i`` of the key sequence (keys from 0): the causal mask
+keeps ``j <= q_offset + i`` and a window ``j > q_offset + i - window``, so a
+rank of a sequence-split attention runs its own rows against the whole K/V;
+a causal call needs ``T >= q_offset + S``.  TMA needs a 16-byte aligned base and
 byte strides that are multiples of 16 (``tma_layout_problem``); the wrapper
 raises ``ValueError`` on a view that breaks this, and never copies it.
 
@@ -58,7 +62,7 @@ def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     vp, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
-                   ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.c_float, vp]
+                   ctypes.POINTER(ctypes.c_longlong), i, i, i, ctypes.c_float, vp]
     fn.restype = i
     return fn
 
@@ -67,14 +71,15 @@ def _entry():
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     i, pll = ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-    fn.argtypes = [pll, pll, i, i, i, i, i, i, i, i, i, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [pll, pll, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, ctypes.c_void_p]
     fn.restype = i
     return fn
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float | None = None):
-    """The kernel's plain version, in its layout: q (B,S,H,hd), k/v (B,T,G,hd)."""
+                          scale: float | None = None, q_offset: int = 0):
+    """The kernel's plain version, in its layout: q (B,S,H,hd), k/v (B,T,G,hd),
+    query row i at position ``q_offset + i``."""
     b, s, h, hd = q.shape
     t, g = k.shape[1], k.shape[2]
     k = k.repeat_interleave(h // g, dim=2)
@@ -84,7 +89,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         return x.transpose(1, 2).reshape(b * h, x.shape[1], hd)
 
     o = ref.attention_ref(fold(q), fold(k), fold(v), causal=causal, window=window,
-                          scale=scale)
+                          scale=scale, q_offset=q_offset)
     return o.reshape(b, h, s, hd).transpose(1, 2)
 
 
@@ -104,7 +109,7 @@ def tma_layout_problem(shape, strides, elem_size: int, ptr: int) -> str | None:
     return None
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, causal=True, q_offset=0):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B,S,H,hd) and k/v (B,T,G,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -115,6 +120,9 @@ def _check(q, k, v, window):
         raise ValueError("q, k and v must share one dtype and one device")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q_offset < 0 or (causal and k.shape[1] < q_offset + s):
+        raise ValueError(f"query offset {q_offset}: want 0 <= q_offset and, causal, "
+                         f"T >= q_offset + S; got S {s}, T {k.shape[1]}")
 
 
 def _check_card(q, k, v):
@@ -133,7 +141,7 @@ def _check_card(q, k, v):
             raise ValueError(f"{name} {tuple(x.shape)} strides {x.stride()}: {problem}")
 
 
-def _launch(q, k, v, causal, window, scale, with_lse: bool):
+def _launch(q, k, v, causal, window, scale, with_lse: bool, q_offset: int = 0):
     """One forward launch on checked CUDA tensors: o, and each row's f32
     log-sum-exp (B, H, S) if ``with_lse`` (else None).  The CUDA
     implementation of ``repro_torch::flash_fwd``."""
@@ -145,7 +153,7 @@ def _launch(q, k, v, causal, window, scale, with_lse: bool):
                                        *v.stride()[:3], *o.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if with_lse else None, _DTYPES[q.dtype], b, s, t, h, g, hd, strides,
-            int(causal), int(window), float(scale),
+            int(causal), int(window), int(q_offset), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         err = _entry()(*args)
@@ -169,11 +177,11 @@ def _tma_ready(x):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None):
+                        scale: float | None = None, q_offset: int = 0):
     """The backward kernels on CUDA tensors (or fake ones): q/o/do (B,S,H,hd),
-    k/v (B,T,G,hd), lse the forward's f32 (B,H,S).  Returns dq, dk, dv in the
-    layouts and dtype of q, k and v."""
-    _check(q, k, v, window)
+    k/v (B,T,G,hd), lse the forward's f32 (B,H,S), the forward's
+    ``q_offset``.  Returns dq, dk, dv in the layouts and dtype of q, k and v."""
+    _check(q, k, v, window, causal, q_offset)
     _check_card(q, k, v)
     b, s, h, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
@@ -181,10 +189,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                          f"do not fit q {tuple(q.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("o and do take q's dtype, lse float32")
-    return _bwd_op(q, k, v, o, lse, do, causal, window, float(scale or 1.0 / math.sqrt(hd)))
+    return _bwd_op(q, k, v, o, lse, do, causal, window, float(scale or 1.0 / math.sqrt(hd)),
+                   int(q_offset))
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal, window, scale):
+def _launch_bwd(q, k, v, o, lse, do, causal, window, scale, q_offset):
     """One backward call on checked CUDA tensors: the CUDA implementation of
     ``repro_torch::flash_bwd``."""
     b, s, h, hd = q.shape
@@ -205,7 +214,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, scale):
     strides = (ctypes.c_longlong * 15)(*(st for x in (q, k, v, o, do) for st in x.stride()[:3]))
     with torch.cuda.device(dev):
         err = _bwd_entry()(ptrs, strides, _DTYPES[q.dtype], b, s, t, h, g, hd, int(causal),
-                           int(window), float(scale),
+                           int(window), int(q_offset), float(scale),
                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("flash_attention_bwd: a TMA descriptor could not be encoded"
@@ -215,83 +224,88 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, scale):
     return dq, dk, dv
 
 
-def pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs the kernel's mask keeps: key j of T for query i
-    of S when j <= i (causal, anchored at index 0) and j > i - window (a
-    window)."""
-    i = np.arange(s, dtype=np.int64)
+def pairs(s: int, t: int, causal: bool, window: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs the kernel's mask keeps: key j of T for query
+    row i of S, at position i + q_offset, when j <= i + q_offset (causal) and
+    j > i + q_offset - window (a window)."""
+    i = np.arange(s, dtype=np.int64) + q_offset
     hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
     lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _fwd_fake(q, k, v, causal, window, scale, with_lse):
+def _fwd_fake(q, k, v, causal, window, scale, with_lse, q_offset):
     b, s, h, hd = q.shape
     return (q.new_empty((b, s, h, hd)),
             q.new_empty((b, h, s) if with_lse else (0,), dtype=torch.float32))
 
 
-def _fwd_flops(q, k, v, causal, window, scale, with_lse, *, out_shape=None, **_):
+def _fwd_flops(q, k, v, causal, window, scale, with_lse, q_offset, *, out_shape=None, **_):
     b, s, h, hd = q
-    return 4 * hd * b * h * pairs(s, k[1], causal, window)
+    return 4 * hd * b * h * pairs(s, k[1], causal, window, q_offset)
 
 
-def _fwd_cuda(q, k, v, causal, window, scale, with_lse):
-    o, lse = _launch(q, k, v, causal, window, scale, with_lse)
+def _fwd_cuda(q, k, v, causal, window, scale, with_lse, q_offset):
+    o, lse = _launch(q, k, v, causal, window, scale, with_lse, q_offset)
     return o, (lse if with_lse else q.new_empty((0,), dtype=torch.float32))
 
 
-def _bwd_fake(q, k, v, o, lse, do, causal, window, scale):
+def _bwd_fake(q, k, v, o, lse, do, causal, window, scale, q_offset):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
-def _bwd_flops(q, k, v, o, lse, do, causal, window, scale, *, out_shape=None, **_):
+def _bwd_flops(q, k, v, o, lse, do, causal, window, scale, q_offset, *, out_shape=None, **_):
     b, s, h, hd = q
-    return 10 * hd * b * h * pairs(s, k[1], causal, window)
+    return 10 * hd * b * h * pairs(s, k[1], causal, window, q_offset)
 
 
 _fwd_op = _library.define(
     "flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, int window, float scale, "
-    "bool with_lse) -> (Tensor, Tensor)", _fwd_cuda, _fwd_fake, _fwd_flops)
+    "bool with_lse, int q_offset) -> (Tensor, Tensor)", _fwd_cuda, _fwd_fake, _fwd_flops)
 _bwd_op = _library.define(
     "flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, bool causal, "
-    "int window, float scale) -> (Tensor, Tensor, Tensor)", _launch_bwd, _bwd_fake, _bwd_flops)
+    "int window, float scale, int q_offset) -> (Tensor, Tensor, Tensor)", _launch_bwd, _bwd_fake,
+    _bwd_flops)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward keeps q, k, v, o and each
-    row's log-sum-exp; the backward is ``flash_attention_bwd``."""
+    row's log-sum-exp; the backward is ``flash_attention_bwd`` at the same
+    mask and query offset."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        o, lse = _fwd_op(q, k, v, causal, window, scale, True)
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        o, lse = _fwd_op(q, k, v, causal, window, scale, True, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, scale)
+        ctx.mask = (causal, window, scale, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, scale = ctx.mask
+        causal, window, scale, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
-                                         scale=scale)
-        return dq, dk, dv, None, None, None
+                                         scale=scale, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
-    """q: (B, S, H, hd); k/v: (B, T, G, hd).  Returns (B, S, H, hd) of q.dtype."""
-    _check(q, k, v, window)
+                    scale: float | None = None, q_offset: int = 0):
+    """q: (B, S, H, hd); k/v: (B, T, G, hd); query row i at position
+    ``q_offset + i``.  Returns (B, S, H, hd) of q.dtype."""
+    q_offset = int(q_offset)
+    _check(q, k, v, window, causal, q_offset)
     if not _library.is_fake(q):
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+            return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                         q_offset=q_offset)
         if q.device.type != "cuda":
             raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     _check_card(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
-    return _fwd_op(q, k, v, causal, window, scale, False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale, q_offset)
+    return _fwd_op(q, k, v, causal, window, scale, False, q_offset)[0]
 
 
 flash_attention.launches = 0

@@ -12,8 +12,9 @@ Under a sharding plan the inputs are ``DTensor``s.  The kernels are
 wrapper runs on local shards through ``parallel.local_shards``, keeping
 whole the dims each kernel needs whole:
   * flash attention: batch and heads may be split (k/v's groups split as
-    q's heads are); the sequence is gathered, since the kernel anchors its
-    causal mask at index 0 (``ref.py:22-26``, ``csrc/flash_attention.cu``);
+    q's heads are), and q's sequence: each rank runs its own query rows at
+    their offset in the sequence (``shard_extent``) against k/v held whole
+    along it, and the keys' gradients are each rank's share, summed;
   * the SSD scan: batch and heads may be split (b/c's groups with them, or
     whole when there is one group); the scan's sequence stays whole;
   * RMSNorm: rows may be split; the normalised last dim stays whole.
@@ -27,7 +28,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.parallel.local_shards import on_local_shards
+from repro_torch.parallel.local_shards import on_local_shards, shard_extent, split_along
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -53,10 +54,14 @@ def mha_flash(q, k, v, *, causal: bool = True, window: int = 0,
 
     Any S and T.  Unlike the JAX wrapper, which hands block multiples to its
     kernel, the kernel here masks the ragged edge of its tiles itself and
-    masks keys by the true T.
+    masks keys by the true T.  A q split over its sequence keeps that split
+    (the JAX sequence-sharded attention): each rank's rows sit at their
+    offset in the sequence, and k/v are whole along it.
     """
-    fn = functools.partial(flash_attention, causal=causal, window=window, scale=scale)
-    return on_local_shards(fn, (q, k, v), (0, 2))
+    offset = shard_extent(q, 1)[0] if split_along(q, 1) else 0
+    fn = functools.partial(flash_attention, causal=causal, window=window, scale=scale,
+                           q_offset=offset)
+    return on_local_shards(fn, (q, k, v), (0, 1, 2), follow=(None, {0: 0, 2: 2}, {0: 0, 2: 2}))
 
 
 def ssd(x, dt, a, b, c):

@@ -13,13 +13,15 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  scale: float | None = None):
-    """Dense masked softmax attention.  q/k/v: (BH, S, hd)."""
+                  scale: float | None = None, q_offset: int = 0):
+    """Dense masked softmax attention.  q/k/v: (BH, S, hd); query row i at
+    position ``q_offset + i`` and key j at j (the JAX ``flash_attention_ref``
+    with ``positions = q_offset + arange(S)``)."""
     bh, s, hd = q.shape
     t = k.shape[1]
     scale = scale or 1.0 / math.sqrt(hd)
     sc = torch.einsum("bqk,btk->bqt", q.float(), k.float()) * scale
-    qpos = torch.arange(s, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:

@@ -1,11 +1,12 @@
 """Multi-pod dry run on a fake world: run every (arch x shape x mesh) cell.
 
 Counterpart of the JAX package's ``launch/dryrun.py``.  For each cell it
-starts PyTorch's ``"fake"`` process group as rank 0 of 256 (``pod``) or 512
-(``multipod``) ranks in this process (``launch/mesh.init_fake_world``), builds
-the production mesh and ``plan_for_mesh`` on it, makes stand-ins of every
-input under a ``FakeTensorMode`` (fake tensors labelled ``--device``: the
-card's ``cuda`` by default, or ``cpu``), distributes them by the plan, and
+starts PyTorch's ``"fake"`` process group as rank 0 (``--rank``: another)
+of 256 (``pod``) or 512 (``multipod``) ranks in this process
+(``launch/mesh.init_fake_world``), builds the production mesh and
+``plan_for_mesh`` on it, makes stand-ins of every input under a
+``FakeTensorMode`` (fake tensors labelled ``--device``: the card's ``cuda``
+by default, or ``cpu``), distributes them by the plan, and
 runs one train step (``make_train_step``), one prefill or one decode step of
 the port itself, eagerly: the ``DTensor`` program every rank would run,
 with rank 0's local shards.  Nothing is allocated and no kernel launches:
@@ -160,10 +161,19 @@ class LocalCost(TorchDispatchMode):
     come back here and are counted: FLOPs by the registered formulas,
     bytes moved by ops that are not views, collectives by kind and group
     size, and the live bytes of every storage an op creates (``track``
-    adds the inputs' own)."""
+    adds the inputs' own).  With ``attribute``, each storage and each FLOP
+    count is also labelled with its op and the port's innermost source line
+    that called it (``label``), and ``attribution()`` gives the FLOPs and
+    the storages live at the peak by label (the live set is taken each
+    time the peak rises by a 200th)."""
 
-    def __init__(self):
+    def __init__(self, attribute: bool = False):
         super().__init__()
+        self.attribute = attribute
+        self._labels: dict[int, tuple[str, int]] = {}  # id(storage) -> (label, bytes)
+        self.flops_by: dict[str, float] = defaultdict(float)
+        self.peak_by: dict[str, int] = {}
+        self._snap_at = 0
         self.flops = 0
         self.bytes = 0
         self.coll_bytes: dict[str, float] = defaultdict(float)
@@ -172,7 +182,7 @@ class LocalCost(TorchDispatchMode):
         self.live = self.peak = 0
         self._seen: weakref.WeakSet = weakref.WeakSet()
 
-    def track(self, t: torch.Tensor) -> None:
+    def track(self, t: torch.Tensor, label: str = "input") -> None:
         """Count ``t``'s storage as live until it is released."""
         st = t.untyped_storage()
         if st in self._seen:
@@ -180,11 +190,38 @@ class LocalCost(TorchDispatchMode):
         self._seen.add(st)
         n = st.nbytes()
         self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._release, n)
+        key = id(st)
+        if self.attribute:
+            self._labels[key] = (label, n)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.attribute and self.peak > self._snap_at * 1.005:
+                self._snap_at = self.peak
+                self.peak_by = defaultdict(int)
+                for lab, nb in self._labels.values():
+                    self.peak_by[lab] += nb
+        weakref.finalize(st, self._release, n, key)
 
-    def _release(self, n: int) -> None:
+    def _release(self, n: int, key: int) -> None:
         self.live -= n
+        self._labels.pop(key, None)
+
+    @staticmethod
+    def label(func) -> str:
+        """``op@file:line``: the port's innermost frame that called ``func``
+        (past the dry run itself and the local-shard plumbing)."""
+        op, f = func.name().split("::")[-1], sys._getframe(1)
+        while f is not None:
+            name = f.f_code.co_filename
+            if "repro_torch" in name and not name.endswith(
+                    ("dryrun.py", "local_shards.py", "_library.py")):
+                return f"{op}@{name.split('repro_torch/')[-1]}:{f.f_lineno}"
+            f = f.f_back
+        return op
+
+    def attribution(self, top: int = 15) -> dict:
+        rank = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+        return {"peak_bytes_by_site": rank(self.peak_by), "flops_by_site": rank(self.flops_by)}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -200,8 +237,12 @@ class LocalCost(TorchDispatchMode):
                 return r
         out = func(*args, **kwargs)
         packet = func._overloadpacket
+        label = self.label(func) if self.attribute else ""
         if packet in registry:
-            self.flops += registry[packet](*args, **kwargs, out_val=out)
+            f = registry[packet](*args, **kwargs, out_val=out)
+            self.flops += f
+            if self.attribute:
+                self.flops_by[label] += f
         outs = [t for t in (out if isinstance(out, (tuple, list)) else (out,))
                 if isinstance(t, torch.Tensor)]
         kind = (_COLLECTIVES.get(func.name().split("::")[-1].split(".")[0])
@@ -215,7 +256,7 @@ class LocalCost(TorchDispatchMode):
             ins = [a for a in args if isinstance(a, torch.Tensor)]
             self.bytes += sum(map(_nbytes, ins + outs))
         for t in outs:
-            self.track(t)
+            self.track(t, label)
         return out
 
 
@@ -259,16 +300,21 @@ def _place(t, axes, plan, mesh):
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, knobs: dict, out_dir: Path,
-             tag: str = "", *, device: str = "cuda", spec=None) -> dict:
+             tag: str = "", *, device: str = "cuda", spec=None, attribute: bool = False,
+             rank: int = 0) -> dict:
     """One cell on a fake world; writes and returns its record.  ``spec``
-    replaces the registry's ``arch`` (a reduced config, say)."""
+    replaces the registry's ``arch`` (a reduced config, say); ``attribute``
+    adds ``LocalCost.attribution()`` under ``attribution``; ``rank``: whose
+    local work is counted (the world's first cell fixes it for the process;
+    under a causal mask a sequence-split attention gives rank 0 the fewest
+    pairs and the last 'model' rank the most)."""
     spec = spec or get_arch(arch)
     shape = SHAPES[shape_name]
     rec: dict = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
         "kind": shape.kind, "knobs": dict(knobs),
         "params": spec.param_count(), "active_params": spec.active_param_count(),
-        "counted_by": "torch",
+        "counted_by": "torch", **({"rank": rank} if rank else {}),
     }
     if not cell_is_runnable(get_arch(arch), shape):
         rec["status"] = "skipped"
@@ -277,7 +323,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, knobs: dict, out_dir: P
         return rec
 
     multi = mesh_kind == "multipod"
-    init_fake_world(512 if multi else 256)
+    init_fake_world(512 if multi else 256, rank)
     mesh = make_production_mesh(multi_pod=multi, device=device)
     n_chips = mesh.size()
     # attn_dp / mamba_dp: replicate those weights over 'model' and compute
@@ -304,7 +350,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, knobs: dict, out_dir: P
     b, s = shape.global_batch, shape.seq_len
     t0 = time.time()
     try:
-        cost = LocalCost()
+        cost = LocalCost(attribute)
         with fake_mode(), _as_on_the_card():
             if shape.kind == "train":
                 state_abs = abstract_train_state(spec, cfg, device=device)
@@ -356,6 +402,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, knobs: dict, out_dir: P
             "collective_counts": dict(cost.coll_counts),
             "collective_by_group": {f"{k}@{g}": v for (k, g), v in cost.coll_by_group.items()},
         }
+        if attribute:
+            rec["attribution"] = cost.attribution()
         rec["n_chips"] = n_chips
         tokens = b * (s if shape.kind != "decode" else 1)
         mult = 6 if shape.kind == "train" else 2
@@ -386,6 +434,31 @@ def _write(out_dir: Path, rec: dict):
     print(f"[dryrun] {rec['arch']}:{rec['shape']}:{rec['mesh']}{tag} -> {status}{extra}", flush=True)
 
 
+def compare(port_dir: Path, ref_dir: Path) -> list[str]:
+    """One line per record of ``port_dir`` that ``ref_dir`` (the JAX dry
+    run's results: ``python -m repro.launch.dryrun --out ref_dir``) also
+    holds: both statuses, the peak GiB a device, FLOPs a device and their
+    ratio, and the collective bytes by kind, the port's against the
+    reference's."""
+    lines = []
+    for path in sorted(port_dir.glob("*.json")):
+        ref_path = ref_dir / path.name
+        if not ref_path.exists():
+            continue
+        p, r = (json.loads(f.read_text()) for f in (path, ref_path))
+        cell = f"{p['arch']}:{p['shape']}:{p['mesh']}"
+        if p["status"] != "ok" or r["status"] != "ok":
+            lines.append(f"{cell} {p['status']} / {r['status']}")
+            continue
+        pk, rk = (x["memory"]["peak_bytes_per_device"] / 2**30 for x in (p, r))
+        pf, rf = (x["hlo"]["flops_per_device"] for x in (p, r))
+        pc, rc = (x["hlo"]["collective_bytes"] for x in (p, r))
+        coll = {k: f"{pc.get(k, 0):.4g} / {rc.get(k, 0):.4g}" for k in sorted(set(pc) | set(rc))}
+        lines.append(f"{cell} ok / ok; peak GiB {pk:.3f} / {rk:.3f} ({pk / rk:.2f}x); FLOPs "
+                     f"{pf:.4g} / {rf:.4g} ({pf / rf:.2f}x); collective bytes {coll}")
+    return lines
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="arch id (default: all assigned)")
@@ -399,13 +472,22 @@ def main() -> None:
                     help="the fake tensors' device label (default: the card's program)")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced() config at the cell's shape")
+    ap.add_argument("--attribute", action="store_true",
+                    help="record the FLOPs and the peak's storages by op and source line")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="count this rank's local work (default 0); name the records with --tag")
+    ap.add_argument("--compare", default=None, metavar="REF_DIR",
+                    help="run nothing: print --out's records against the JAX dry run's in REF_DIR")
     args = ap.parse_args()
+    if args.compare:
+        print("\n".join(compare(Path(args.out), Path(args.compare))))
+        return
 
     archs = [args.arch] if args.arch else list(ASSIGNED)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
     out = Path(args.out)
-    init_fake_world(512 if "multipod" in meshes else 256)  # one world for every cell
+    init_fake_world(512 if "multipod" in meshes else 256, args.rank)  # one world for every cell
 
     n_ok = n_err = 0
     for arch in archs:
@@ -420,7 +502,8 @@ def main() -> None:
                                 if k in ("fsdp", "sp", "donate", "attn_dp", "mamba_dp")
                                 else int(v))
                 rec = run_cell(arch, shape, mesh_kind, knobs, out, args.tag,
-                               device=args.device, spec=spec)
+                               device=args.device, spec=spec, attribute=args.attribute,
+                               rank=args.rank)
                 n_ok += rec["status"] in ("ok", "skipped")
                 n_err += rec["status"] == "error"
     print(f"[dryrun] done: {n_ok} ok/skipped, {n_err} errors", flush=True)

@@ -49,9 +49,9 @@ def init_distributed(device=None) -> torch.device:
     return dev
 
 
-def init_fake_world(world_size: int) -> None:
-    """Start the ``"fake"`` process group as rank 0 of ``world_size`` ranks in
-    this process, unless a fake world at least that large runs already
+def init_fake_world(world_size: int, rank: int = 0) -> None:
+    """Start the ``"fake"`` process group as ``rank`` of ``world_size`` ranks
+    in this process, unless a fake world at least that large runs already
     (a smaller mesh then takes its first ranks).  Raises if a real group, or
     a smaller fake world, is running: its groups cannot be replaced within a
     process."""
@@ -61,7 +61,7 @@ def init_fake_world(world_size: int) -> None:
             return
         raise RuntimeError(f"a {dist.get_backend()} group of {dist.get_world_size()} ranks is "
                            f"running: the fake world of {world_size} needs a process of its own")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device=None):

@@ -12,6 +12,7 @@ the resulting tree of tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 import threading
 from typing import Any, Callable, NamedTuple
@@ -21,7 +22,8 @@ from torch._guards import detect_fake_mode
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.local_shards import grad_as_input, lift, on_local_shards, whole_along
+from repro_torch.parallel.local_shards import (grad_as_input, lift, on_local_shards, shard_extent,
+                                               split_along, whole_along)
 
 
 class ParamDef(NamedTuple):
@@ -138,12 +140,30 @@ def linear(x, w, b=None):
     return y
 
 
+def _rows_in_shard(table, tokens, start: int):
+    """The rows of ``table`` (the table's rows ``start`` onwards) at
+    ``tokens``, zeros for a token outside them."""
+    local = tokens - start
+    mine = (local >= 0) & (local < table.shape[0])
+    return table[local.clamp(0, table.shape[0] - 1)] * mine[..., None].to(table.dtype)
+
+
 def take_embedding(table, tokens):
-    """The rows of ``table`` at ``tokens``.  A sharded table is gathered whole
-    and looked up on each rank's tokens (``on_local_shards``); its gradient is the
-    sum of every rank's share."""
-    return on_local_shards(lambda t, i: t[i], (table, tokens), range(tokens.ndim), lead=1,
-                           follow=({}, None))
+    """The rows of ``table`` at ``tokens``, looked up on each rank's tokens
+    (``on_local_shards``).  A table split over its vocabulary (the JAX
+    ``jnp.take`` on the vocab-split table) stays split: each rank looks the
+    tokens up in its own rows, zeros for the rest, and the result is its
+    share of a sum over the ranks that split the vocabulary (``Partial``,
+    which the residual stream's constraint reduce-scatters); the table's
+    gradient stays on each rank's rows.  Any other split of the table is
+    gathered, and its gradient is the sum of every rank's share."""
+    if not split_along(table, 0):
+        return on_local_shards(lambda t, i: t[i], (table, tokens), range(tokens.ndim), lead=1,
+                               follow=({}, None))
+    # the plan splits the vocabulary over mesh dims that leave the tokens whole
+    fn = functools.partial(_rows_in_shard, start=shard_extent(table, 0)[0])
+    return on_local_shards(fn, (table, tokens), range(tokens.ndim), lead=1, follow=({}, None),
+                           own={0: (0,)})
 
 
 # ---------------------------------------------------------------------------

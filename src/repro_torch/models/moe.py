@@ -23,13 +23,16 @@ matmuls, which the JAX package leaves to XLA outside any Pallas kernel.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.layers import ParamDef
-from repro_torch.parallel.local_shards import on_local_shards, replicate
+from repro_torch.parallel.local_shards import on_local_shards, replicate, shard_extent
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 CAPACITY_FACTOR = 1.25
@@ -95,11 +98,33 @@ def route(logits, k: int, cap: int):
     return top_i, slots, keep, top_w, {**balance(sums, g * t, e, k), "sums": sums}
 
 
-def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int):
+def _expert_ffn(xe, w_gate, w_up, w_down):
+    """SwiGLU of each expert's rows: xe (E, R, D) -> (E, R, D)."""
+    gate = torch.bmm(xe, w_gate.to(xe.dtype))
+    up = torch.bmm(xe, w_up.to(xe.dtype))
+    return torch.bmm(F.silu(gate) * up, w_down.to(xe.dtype))
+
+
+def _all_to_all(t, group):
+    """``t``'s dim-0 chunks, one to each rank of ``group``, in rank order;
+    the chunks received in the same order (autograd: the reverse exchange)."""
+    out = funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 0,
+             group=None):
     """Route the groups of xg (G, T, D) and run their kept tokens through the
-    experts: y (G, T, D) and ``route``'s sums."""
+    experts: y (G, T, D) and ``route``'s sums.
+
+    ``router`` holds every expert; ``w_*`` may hold a share of them: their
+    ff columns (the products' partial sums come back, a share of y), or the
+    experts from ``e_start`` on.  Those then run on this rank's own rows of
+    the buffer (the rest of y is another rank's share), or, with ``group``
+    (the ranks that split the experts, each holding its own groups), every
+    rank's rows of them, exchanged by ``all_to_all`` there and back."""
     ng, tg, d = xg.shape
-    e = router.shape[1]
+    e, el = router.shape[1], w_gate.shape[0]
     logits = (xg @ router.to(xg.dtype)).float()
     top_i, slots, keep, top_w, aux = route(logits, k, cap)
 
@@ -107,46 +132,94 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int):
     # spare last entry.  src: the token each buffer row holds, ng * tg (a
     # row of zeros) where none does
     n_rows, n_tok = e * ng * cap, ng * tg
-    group = torch.arange(ng, device=xg.device)[:, None, None]
-    row = (top_i * ng + group) * cap + slots                            # (G,T,k)
-    tok = (group * tg + torch.arange(tg, device=xg.device)[None, :, None]).expand_as(row)
+    group_ix = torch.arange(ng, device=xg.device)[:, None, None]
+    row = (top_i * ng + group_ix) * cap + slots                         # (G,T,k)
+    tok = (group_ix * tg + torch.arange(tg, device=xg.device)[None, :, None]).expand_as(row)
     src = torch.full((n_rows + 1,), n_tok, dtype=torch.int64, device=xg.device)
     src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1), tok.reshape(-1))
     rows = F.pad(xg.reshape(n_tok, d), (0, 0, 0, 1))
-    xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
-
-    gate = torch.bmm(xe, w_gate.to(xg.dtype))
-    up = torch.bmm(xe, w_up.to(xg.dtype))
-    ye = torch.bmm(F.silu(gate) * up, w_down.to(xg.dtype)).view(n_rows, d)
-
     w = (top_w * keep).to(xg.dtype)                                     # dropped: weight 0
-    picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1)).view(ng, tg, k, d)
+    if el == e or group is not None:
+        xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
+        if group is None:
+            ye = _expert_ffn(xe, w_gate, w_up, w_down).view(n_rows, d)
+        else:  # (n, el, G C, D): chunk r to rank r, which holds experts r el ...
+            n = e // el
+            got = _all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
+            out = _expert_ffn(got.transpose(0, 1).reshape(el, n * ng * cap, d), w_gate, w_up,
+                              w_down)
+            ye = _all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group).view(n_rows, d)
+        picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1))
+    else:  # this rank's experts only: a zero row for the others' assignments
+        lo, n_mine = e_start * ng * cap, el * ng * cap
+        xe = rows.index_select(0, src[lo:lo + n_mine]).view(el, ng * cap, d)
+        ye = F.pad(_expert_ffn(xe, w_gate, w_up, w_down).view(n_mine, d), (0, 0, 0, 1))
+        mine = keep & (top_i >= e_start) & (top_i < e_start + el)
+        picked = ye.index_select(0, torch.where(mine, row - lo, n_mine).reshape(-1))
+    picked = picked.view(ng, tg, k, d)
     return (torch.einsum("gtkd,gtk->gtd", picked, w), *aux["sums"])
+
+
+def _moe_local(x, router, w_gate, w_up, w_down, *, k: int, cap: int, tg: int,
+               e_start: int = 0, group=None, first: bool = True):
+    """``_experts`` on x (B, S, D) cut into groups of ``tg`` tokens in
+    chunk-major order (G = chunk * B + b, as the JAX module has it), and y
+    back in x's layout.  ``first``: whether this rank reports the routing
+    sums (ranks that hold the same groups report them once)."""
+    b, s, d = x.shape
+    nc = s // tg
+    xg = x.reshape(b, nc, tg, d).transpose(0, 1).reshape(nc * b, tg, d)
+    y, *sums = _experts(xg, router, w_gate, w_up, w_down, k, cap, e_start, group)
+    if not first:
+        sums = [t * 0 for t in sums]
+    return y.reshape(nc, b, tg, d).transpose(0, 1).reshape(b, s, d), *sums
 
 
 def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """x: (B, S, D) -> (y (B, S, D), aux {"lb_loss", "drop_frac"}).
 
-    Under a plan the routing groups are split as the JAX ``moe_groups``
-    constraint splits them (:103), and routing, dispatch and the expert
-    products run on each rank's own groups (``on_local_shards``: they index by
-    position, which ``DTensor`` does not take).  The expert weights are
-    gathered whole into that region, and their gradients come back as the
-    sum of every rank's share; the balance sums add up across ranks before
-    the loss is formed.  The results do not depend on the split."""
+    Under a plan routing, dispatch and the expert products run on each
+    rank's local shard of x (``on_local_shards``: they index by position,
+    which ``DTensor`` does not take): its groups are the (row, chunk) groups
+    its rows hold, the residual stream's layout (batch over 'data', the
+    sequence over 'model'), which is where the JAX ``moe_groups`` constraint
+    puts them when a rank's chunk of the sequence is one group; a sequence
+    split that would cut a group is gathered.  The expert weights stay split
+    as the plan places them (``moe_defs``), the router is gathered whole:
+      * experts split over a mesh dim that splits the sequence too: each
+        rank runs its experts on every rank's capacity rows, sent there and
+        back by ``all_to_all`` (what the JAX ``xe`` constraint lowers to);
+      * experts or their ff columns split over a mesh dim that leaves x
+        whole: each rank runs its share (its experts, or its ff columns,
+        ``w_down``'s partial sum) on the groups, and y is its share of a
+        sum over that dim, which the residual stream's constraint reduces.
+    The balance sums add up across ranks before the loss is formed.  The
+    results do not depend on the split."""
     b, s, d = x.shape
     e, k = spec.n_experts, spec.top_k
     tg = group_size_for(s)
-    nc, ng = s // tg, (b * s) // tg
     cap = expert_capacity(tg, spec)
-    # chunk-major group order, G = chunk * B + b, as the JAX module has it
-    xg = x.reshape(b, nc, tg, d).transpose(0, 1).reshape(ng, tg, d)
-    xg = plan.constrain(xg, ("moe_groups", None, None))
-    fn = functools.partial(_experts, k=k, cap=cap)
     weights = [p[name] for name in ("router", "w_gate", "w_up", "w_down")]
-    y, *sums = on_local_shards(fn, (xg, *weights), (0,), follow=(None,) + ({},) * 4,
-                               out=(None, {}, {}, {}))
+    fn = functools.partial(_moe_local, k=k, cap=cap, tg=tg)
+    keep, own = (0, 1), {2: (0, 2), 3: (0, 2), 4: (0, 1)}
+    if isinstance(x, DTensor):
+        mesh, wg = x.device_mesh, weights[1]
+        split = {i: q.dim for i, q in enumerate(getattr(wg, "placements", ()))
+                 if isinstance(q, Shard) and q.dim in (0, 2)}  # mesh dim -> expert or ff
+        over = {dim: [i for i, q in enumerate(x.placements) if q == Shard(dim)] for dim in keep}
+        n = math.prod(mesh.size(i) for i in over[1])
+        # a split of x stays where each rank's chunk holds whole groups and the
+        # mesh dim splits no ff columns (whose partial sums need every row)
+        keep = tuple(dim for dim in keep if all(split.get(i, 0) == 0 for i in over[dim])
+                     and (dim == 0 or (s % n == 0 and (s // n) % tg == 0)))
+        rows = {i for dim in keep for i in over[dim]}
+        whole = [i for i in split if i not in rows]
+        ep = [i for i in split if i in rows]
+        fn = functools.partial(
+            fn, e_start=shard_extent(wg, 0)[0] if any(split[i] == 0 for i in whole) else 0,
+            group=mesh.get_group(ep[0]) if ep else None,
+            first=all(mesh.get_coordinate()[i] == 0 for i in whole))
+    y, *sums = on_local_shards(fn, (x, *weights), keep, follow=(None,) + ({},) * 4,
+                               out=(None, {}, {}, {}), own=own)
     sums = [replicate(t) for t in sums]
-    y = plan.constrain(y, ("moe_groups", None, None))
-    y = y.reshape(nc, b, tg, d).transpose(0, 1).reshape(b, s, d)
-    return y, balance(sums, ng * tg, e, k)
+    return y, balance(sums, b * s, e, k)

@@ -121,7 +121,7 @@ def write_along(dst: torch.Tensor, src, start: int, dim: int = 1) -> None:
             rows.copy_(src.narrow(dim, first - start, stop - first))
 
 
-def on_local_shards(fn, args, keep, *, lead: int = 0, follow=None, out=None):
+def on_local_shards(fn, args, keep, *, lead: int = 0, follow=None, out=None, own=None):
     """``fn(*args)``, run on each rank's local shards when an arg is a ``DTensor``.
 
     The splits of ``args[lead]`` over its dims ``keep`` stay; every other
@@ -134,30 +134,49 @@ def on_local_shards(fn, args, keep, *, lead: int = 0, follow=None, out=None):
     following arg's dim does not divide by it.  ``out`` maps each result the
     same way: one dict, a tuple of them for a tuple of results, or ``None``
     for one result laid out as the lead; a result whose dict leaves out a
-    split dim is this rank's share of a sum (``Partial``).  Plain tensors
-    among ``args`` are taken as replicated (``lift``).
+    split dim is this rank's share of a sum (``Partial``).  ``own`` (a dict
+    from an arg's index to some of its dims) keeps that arg's own splits of
+    those dims: ``fn`` sees its local shard along them and its gradient stays
+    so split.  Over a mesh dim where the lead is whole, the other args are
+    whole (their gradients summed) and every result is this rank's share of
+    a sum over it (``Partial``: a vocabulary-split table's lookup, say);
+    where the lead is split too, ``fn`` itself exchanges what crosses it (an
+    all-to-all of the MoE's capacity rows, say).  Plain tensors among
+    ``args`` are taken as replicated (``lift``).
     """
     ref = next((a for a in args if isinstance(a, DTensor)), None)
     if ref is None:
         return fn(*args)
     mesh = ref.device_mesh
     args = [lift(a, ref) for a in args]
-    own = {d: d for d in keep}
-    maps = [own if i == lead or f is None else f
+    kept = {d: d for d in keep}
+    maps = [kept if i == lead or f is None else f
             for i, f in enumerate(follow or [None] * len(args))]
     pl = [p if isinstance(p, Shard) and p.dim in keep else R for p in args[lead].placements]
     for d in {p.dim for p in pl if isinstance(p, Shard)}:
         n = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(d))
         if any(d in m and a.shape[m[d]] % n for a, m in zip(args, maps)):
             pl = [R if p == Shard(d) else p for p in pl]
+    owned: dict[int, dict[int, int]] = {}  # mesh dim -> {arg: its dim split there}
+    for j, dims in (own or {}).items():
+        for i, p in enumerate(args[j].placements):
+            if isinstance(p, Shard) and p.dim in dims:
+                owned.setdefault(i, {})[j] = p.dim
 
-    def place(m, share):
-        return tuple(Shard(m[p.dim]) if isinstance(p, Shard) and p.dim in m
-                     else Partial() if share and isinstance(p, Shard) else R for p in pl)
+    def place(m, share, j=None):
+        out = []
+        for i, p in enumerate(pl):
+            if j in owned.get(i, ()):
+                out.append(Shard(owned[i][j]))
+            elif isinstance(p, Shard):
+                out.append(Shard(m[p.dim]) if p.dim in m else Partial() if share else R)
+            else:
+                out.append(Partial() if share and i in owned else R)
+        return tuple(out)
 
-    outs = tuple(place(own if o is None else o, True)
+    outs = tuple(place(kept if o is None else o, True)
                  for o in (out if isinstance(out, tuple) else (out,)))
     return local_map(fn, out_placements=outs if isinstance(out, tuple) else list(outs[0]),
-                     in_placements=tuple(place(m, False) for m in maps),
-                     in_grad_placements=tuple(place(m, True) for m in maps),
+                     in_placements=tuple(place(m, False, j) for j, m in enumerate(maps)),
+                     in_grad_placements=tuple(place(m, True, j) for j, m in enumerate(maps)),
                      device_mesh=mesh, redistribute_inputs=True)(*args)

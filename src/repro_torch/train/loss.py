@@ -1,27 +1,47 @@
 """Losses.  Cross-entropy upcasts to f32 at the logsumexp only.
 
 Counterpart of the JAX package's ``train/loss.py``.  The JAX
-``cross_entropy`` picks the gold logit with an iota-compare masked sum, for
-the sake of XLA's partitioner on vocab-sharded logits; the port gathers it,
-which selects the same value.  Sharded logits (a ``DTensor``) are summed on
-each rank's rows with the vocabulary gathered (``on_local_shards``), and the
-per-rank sums added before the mean is taken.
+``cross_entropy`` picks the gold logit with an iota-compare masked sum, so
+that XLA's partitioner keeps vocab-sharded logits split.  On a plain tensor
+the port gathers it, which selects the same value.  Sharded logits (a
+``DTensor``) are summed on each rank's rows (``on_local_shards``) and the
+per-rank sums added before the mean is taken.  Where the vocabulary is split
+it stays split, with the JAX arithmetic (``VocabShardNLL``): the row max an
+all-reduce of MAX over the ranks that split it, the sum of ``exp`` an
+all-reduce of SUM, the gold logit picked on the shard that holds the label
+(the masked sum's one term) and summed, and the backward
+``softmax - onehot`` on each rank's shard.  No rank holds a row's whole
+vocabulary.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.local_shards import on_local_shards, replicate
+from repro_torch.parallel.local_shards import (on_local_shards, replicate, shard_extent,
+                                               split_along)
 
 
 def _nll_sum(logits, labels, ignore_index: int):
     """Sum of -log p(label) over the valid positions, and their count (f32);
     replicated on the logits' mesh when they are a ``DTensor``."""
-    tot, cnt = on_local_shards(functools.partial(_local_nll_sum, ignore_index=ignore_index),
-                               (logits, labels), range(logits.ndim - 1), out=({}, {}))
+    v = logits.ndim - 1
+    if split_along(logits, v):
+        mesh, pl = logits.device_mesh, logits.placements
+        dims = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == v]
+        fn = functools.partial(_vocab_shard_nll_sum, ignore_index=ignore_index,
+                               start=shard_extent(logits, v)[0],
+                               groups=tuple(mesh.get_group(i) for i in dims),
+                               first=all(mesh.get_coordinate()[i] == 0 for i in dims))
+        tot, cnt = on_local_shards(fn, (logits, labels), range(logits.ndim),
+                                   follow=(None, {d: d for d in range(v)}), out=({}, {}))
+    else:
+        tot, cnt = on_local_shards(functools.partial(_local_nll_sum, ignore_index=ignore_index),
+                                   (logits, labels), range(v), out=({}, {}))
     return replicate(tot), replicate(cnt)
 
 
@@ -31,6 +51,53 @@ def _local_nll_sum(logits, labels, ignore_index: int):
     gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels != ignore_index).float()
     return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _all_reduce(t, op: str, groups):
+    """``t`` reduced over each group in turn (mesh-dim order: the same bits
+    on every rank)."""
+    for g in groups:
+        t = funcol.all_reduce(t, op, g)
+        t = t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+    return t
+
+
+class VocabShardNLL(torch.autograd.Function):
+    """The masked nll sum of the rows of this rank's vocabulary shard
+    (columns from ``start``) of its logits, reduced over ``groups``, the
+    ranks that split the vocabulary: every rank gets each row's log-sum-exp
+    and gold logit, and the ``first`` rank alone returns the sum, so that
+    the sum over the ranks is the rows' sum.  The backward is the gradient
+    of that total on this rank's shard, ``(softmax - onehot) * mask``, from
+    the saved log-sum-exp: no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, start: int, groups, first: bool):
+        lf = logits.float()
+        m = _all_reduce(lf.amax(dim=-1), "max", groups)
+        sumexp = _all_reduce((lf - m[..., None]).exp_().sum(dim=-1), "sum", groups)
+        lse = m + torch.log(sumexp)
+        col = labels.long() - start
+        mine = (col >= 0) & (col < lf.shape[-1])
+        col = col.clamp(0, lf.shape[-1] - 1)
+        gold = _all_reduce(lf.gather(-1, col[..., None])[..., 0] * mine, "sum", groups)
+        ctx.save_for_backward(logits, lse, col, mine, mask)
+        return ((lse - gold) * mask).sum() * float(first)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, col, mine, mask = ctx.saved_tensors
+        grad = logits.float().sub_(lse[..., None]).exp_()
+        grad.scatter_add_(-1, col[..., None], -mine.float()[..., None])
+        return grad.mul_((mask * g)[..., None]).to(logits.dtype), None, None, None, None, None
+
+
+def _vocab_shard_nll_sum(logits, labels, ignore_index: int, start: int, groups, first: bool):
+    """``_local_nll_sum`` on a vocabulary shard (``VocabShardNLL``); the count
+    is the first rank's, as the sum is."""
+    mask = (labels != ignore_index).float()
+    nll = VocabShardNLL.apply(logits, labels.clamp_min(0), mask, start, groups, first)
+    return nll, mask.sum() * float(first)
 
 
 def cross_entropy(logits, labels, ignore_index: int = -1):

@@ -555,6 +555,77 @@ def test_flash_backward_is_deterministic(dev, h, g, hd, window, dtype):
         assert torch.equal(x, y)
 
 
+# The query offset: q holds rows q_offset .. q_offset + S - 1 of a sequence
+# whose keys run from 0 (one rank of a sequence-split attention).
+OFFSET_CASES = [
+    (1, 1024, 4096, 12, 2, 128, 3072, 0),  # qwen2 as the last of 4 'model' ranks sees it
+    (1, 1024, 4096, 12, 2, 128, 3072, 512),
+    (2, 200, 333, 4, 2, 64, 133, 0),        # ragged, T = q_offset + S
+    (2, 200, 700, 4, 2, 64, 37, 0),         # T > q_offset + S, an offset inside a tile
+    (1, 130, 700, 4, 1, 256, 500, 512),     # head_dim 256 at gemma3's window
+    (2, 77, 300, 6, 6, 96, 200, 16),        # a window's edge inside a key tile
+    (1, 1, 64, 2, 1, 32, 63, 0),            # one row, the last position
+]
+
+
+def _offset_inputs(dev, b, s, t, h, g, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, t, g, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,s,t,h,g,hd,off,window", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_with_query_offset_matches_plain(dev, b, s, t, h, g, hd, off, window, dtype):
+    """Forward and backward kernels at a query offset against the plain
+    version at the same offset (autograd through it for the gradients)."""
+    q, k, v, do = _offset_inputs(dev, b, s, t, h, g, hd, dtype, 16)
+    got = fa.flash_attention(q, k, v, window=window, q_offset=off)
+    _close(got, fa.flash_attention_plain(q, k, v, window=window, q_offset=off), dtype)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, window=window, q_offset=off).backward(do)
+        grads.append([x.grad for x in leaves])
+    scale = max(w.float().abs().max().item() for w in grads[1])
+    for x, y in zip(*grads):
+        _close_grad(x, y, dtype, scale)
+
+
+@pytest.mark.parametrize("window", [0, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_query_offset_rows_are_the_full_attentions_bits(dev, window, dtype):
+    """At an offset that is a multiple of the 128-row query tile, each tile
+    meets the same key tiles under the same masks as in the whole-sequence
+    launch: the rows (and their dq) come out bit for bit, and offset 0 is
+    the launch without an offset."""
+    b, t, h, g, hd = 1, 2048, 12, 2, 128
+    q, k, v, do = _offset_inputs(dev, b, t, t, h, g, hd, dtype, 17)
+    whole = fa.flash_attention(q, k, v, window=window)
+    assert torch.equal(fa.flash_attention(q, k, v, window=window, q_offset=0), whole)
+    o, lse = fa._launch(q, k, v, True, window, hd ** -0.5, with_lse=True)
+    dq = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)[0]
+    for off, s in ((1536, 512), (1024, 768), (128, 1)):
+        rows = slice(off, off + s)
+        part = fa.flash_attention(q[:, rows], k, v, window=window, q_offset=off)
+        assert torch.equal(part, whole[:, rows]), off
+        o_p, lse_p = fa._launch(q[:, rows].contiguous(), k, v, True, window, hd ** -0.5,
+                                with_lse=True, q_offset=off)
+        dq_p = fa.flash_attention_bwd(q[:, rows].contiguous(), k, v, o_p, lse_p,
+                                      do[:, rows].contiguous(), window=window, q_offset=off)[0]
+        assert torch.equal(dq_p, dq[:, rows]), off
+
+
+def test_flash_kernel_refuses_keys_short_of_the_offset(dev):
+    q = torch.randn((1, 64, 2, 64), device=dev)
+    k = torch.randn((1, 100, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="offset"):
+        fa.flash_attention(q, k, k, q_offset=37)
+    with pytest.raises(ValueError, match="offset"):
+        fa.flash_attention(q, k, k, q_offset=-1)
+
+
 @pytest.mark.parametrize("rows,d", [(4096, 1536), (37, 8960), (16384, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_is_deterministic(dev, rows, d, dtype):

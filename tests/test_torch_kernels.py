@@ -96,6 +96,79 @@ def test_mha_flash_ragged_length_matches_jax_ref(h, g, window, dtype):
     np.testing.assert_allclose(_np(got), expect, **_tol(dtype))
 
 
+# The query offset: row i of q at position q_offset + i of T keys (one rank
+# of a sequence-split attention), against the JAX flash_attention_ref at
+# positions q_offset + arange(S) and against the rows of the whole attention.
+OFFSET_S, OFFSET_T = 48, 128
+
+
+@pytest.mark.parametrize("q_offset", [0, 37, OFFSET_T - OFFSET_S])
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_plain_query_offset_matches_jax_ref(q_offset, window):
+    import jax
+
+    from repro.models.attention import flash_attention_ref as jflash_ref
+    b, s, t, h, g, hd = 2, OFFSET_S, OFFSET_T, 4, 2, 16
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, b, s, t, h, g, hd, "float32")
+    do = np.random.default_rng(6).standard_normal((b, s, h, hd), dtype=np.float32)
+    positions = q_offset + jnp.arange(s, dtype=jnp.int32)
+    rep = lambda x: jnp.repeat(x, h // g, 2)
+
+    def jloss(q, k, v):
+        o = jflash_ref(q, rep(k), rep(v), positions, window=window, kv_chunk=32)
+        return jnp.sum(o * do), o
+
+    (_, expect), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    got = fa.flash_attention(*leaves, window=window, q_offset=q_offset)
+    got.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(_np(got.detach()), _np(expect), rtol=2e-5, atol=2e-5)
+    for x, want in zip(leaves, jgrads):
+        np.testing.assert_allclose(_np(x.grad), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("q_offset", [0, 37, OFFSET_T - OFFSET_S])
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_plain_query_offset_is_the_whole_attentions_rows(q_offset, window):
+    """The offset rows and their q gradient equal the whole attention's rows
+    (q of all T positions); the keys' gradients of every split of the rows
+    add up to the whole attention's."""
+    b, t, h, g, hd, s = 2, OFFSET_T, 4, 2, 16, OFFSET_S
+    (_, tq), (_, tk), (_, tv) = _qkv(7, b, t, t, h, g, hd, "float32")
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal((b, t, h, hd),
+                                                                   dtype=np.float32))
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    fa.flash_attention(*leaves, window=window).backward(do)
+    rows = slice(q_offset, q_offset + s)
+    part = [tq[:, rows].clone().requires_grad_(), tk.clone().requires_grad_(),
+            tv.clone().requires_grad_()]
+    got = fa.flash_attention(*part, window=window, q_offset=q_offset)
+    got.backward(do[:, rows])
+    whole = fa.flash_attention(tq, tk, tv, window=window)
+    np.testing.assert_allclose(got.detach().numpy(), whole[:, rows].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(part[0].grad.numpy(), leaves[0].grad[:, rows].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    dk, dv = torch.zeros_like(tk), torch.zeros_like(tv)  # four ranks' shares, summed
+    for lo in range(0, t, t // 4):
+        pieces = [tq[:, lo:lo + t // 4].clone().requires_grad_(), tk.clone().requires_grad_(),
+                  tv.clone().requires_grad_()]
+        fa.flash_attention(*pieces, window=window, q_offset=lo).backward(do[:, lo:lo + t // 4])
+        dk, dv = dk + pieces[1].grad, dv + pieces[2].grad
+    for got_g, want in ((dk, leaves[1].grad), (dv, leaves[2].grad)):
+        np.testing.assert_allclose(got_g.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_wrapper_refuses_keys_short_of_the_offset():
+    (_, tq), (_, tk), (_, tv) = _qkv(9, 1, 16, 32, 2, 1, 16, "float32")
+    with pytest.raises(ValueError, match="offset"):
+        fa.flash_attention(tq, tk, tv, q_offset=17)
+    with pytest.raises(ValueError, match="offset"):
+        fa.flash_attention(tq, tk, tv, q_offset=-1)
+    assert fa.flash_attention(tq, tk, tv, q_offset=16).shape == tq.shape
+    assert fa.flash_attention(tq, tk, tv, causal=False, q_offset=17).shape == tq.shape
+
+
 def test_flash_plain_version_is_not_counted_as_a_launch():
     (_, tq), (_, tk), (_, tv) = _qkv(3, 1, 64, 64, 2, 1, 16, "float32")
     before = fa.flash_attention.launches

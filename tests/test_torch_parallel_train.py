@@ -9,9 +9,13 @@ store, a timeout per call); the JAX side runs on one device here, with
 
 Sharded step.  Reduced qwen2, mamba2, gemma3 and granite on a (2, 2)
 ("data", "model") mesh, under remat ``none`` and ``dots`` and with FSDP on
-and off; reduced qwen2 with 6 heads and 2 KV groups on a (1, 4) mesh, where
-the heads do not divide 'model', so flash attention gathers q over the
-sequence; and two microbatches.  Every case starts from the port's
+and off; reduced qwen2 with 6 heads and 2 KV groups, and reduced gemma3
+with 6 heads (its sliding window), on a (1, 4) mesh, where the heads do not
+divide 'model', so q keeps its sequence split and each rank's flash call
+takes its own rows at their offset; two microbatches; and the MoE with its
+experts split over 'model' (reduced granite's 4) or their ff columns (6
+experts on (1, 4), 3 on (2, 2)), at routing groups of 8 tokens, several a
+rank.  Every case starts from the port's
 ``init_train_state`` (seed 0; the ranks place it with ``mesh=``), which
 ``convert.to_jax_state`` hands to the JAX step, and takes two steps of a
 (8, 32) batch.  (The JAX ``init_train_state`` draws a stacked layer
@@ -78,18 +82,30 @@ def _host(tree) -> dict[str, np.ndarray]:
 
 # -- on every rank -------------------------------------------------------------
 
-def _sharded_rank(arch, kw, shape, cases, batches):
+def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
     """For each (remat, fsdp, microbatches): the initial state on the mesh,
     ``STEPS`` sharded steps; losses, grad norms, the final parameters
-    (gathered; kept on rank 0) and the count of parameters a mesh dim splits."""
+    (gathered; kept on rank 0), the count of parameters a mesh dim splits
+    and the (rows, keys, offset) of each flash call.  ``group_size``: the
+    MoE's routing group (``moe.GROUP_SIZE``)."""
     import torch.distributed as dist
 
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
     from repro_torch.parallel.sharding import plan_for_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import RunConfig, init_train_state, make_train_step
     spec = reduced(ARCHS[arch], **kw)
     mesh = make_mesh(shape, AXES[:len(shape)], device="cpu")
+    moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
+    seen, kernel = set(), ops.flash_attention
+
+    def recording(q, k, v, **kwargs):
+        seen.add((q.shape[1], k.shape[1], kwargs["q_offset"]))
+        return kernel(q, k, v, **kwargs)
+
+    ops.flash_attention = recording
     out = []
     for remat, fsdp, micro in cases:
         cfg = RunConfig(remat=remat, microbatches=micro, opt=opt.OptConfig(**OPT))
@@ -105,7 +121,7 @@ def _sharded_rank(arch, kw, shape, cases, batches):
         n_split = sum(any(isinstance(p, Shard) for p in t.placements)
                       for t in opt.leaves(state["params"]))
         out.append(dict(losses=losses, norms=norms, n_split=n_split,
-                        n_leaves=len(opt.leaves(state["params"])),
+                        n_leaves=len(opt.leaves(state["params"])), flash_seen=sorted(seen),
                         params=params if dist.get_rank() == 0 else None))
     return out
 
@@ -115,13 +131,27 @@ def _sharded_rank(arch, kw, shape, cases, batches):
 _REFS: dict = {}
 
 
-def _references(arch, kw, remat, micro):
+def _references(arch, kw, remat, micro, group_size=None):
     """(the batches, the JAX and the port's unsharded losses and final
     parameters, in the port's tree) for ``STEPS`` steps from the port's
-    initial state."""
-    key = (arch, tuple(sorted(kw.items())), remat, micro)
+    initial state; ``group_size``: both MoE modules' routing group."""
+    key = (arch, tuple(sorted(kw.items())), remat, micro, group_size)
     if key in _REFS:
         return _REFS[key]
+    import jax
+
+    import repro.models.moe as jmoe
+    import repro_torch.models.moe as moe
+    saved = jmoe.GROUP_SIZE, moe.GROUP_SIZE
+    jmoe.GROUP_SIZE = moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
+    try:
+        _REFS[key] = _run_references(arch, kw, remat, micro)
+    finally:
+        jmoe.GROUP_SIZE, moe.GROUP_SIZE = saved
+    return _REFS[key]
+
+
+def _run_references(arch, kw, remat, micro):
     import jax
 
     from repro.configs import ARCHS as JARCHS, reduced as jreduced
@@ -146,20 +176,19 @@ def _references(arch, kw, remat, micro):
     for b in batches:
         state, m = step(state, b)
         pl.append(m["loss"].item())
-    _REFS[key] = batches, (jl, jparams), (pl, _host(state["params"]))
-    return _REFS[key]
+    return batches, (jl, jparams), (pl, _host(state["params"]))
 
 
 _RUNS: dict = {}
 
 
-def _sharded(arch, kw, shape, cases):
+def _sharded(arch, kw, shape, cases, group_size=None):
     """The ranks' results for ``cases`` (one spawned call per key)."""
-    key = (arch, tuple(sorted(kw.items())), shape, tuple(cases))
+    key = (arch, tuple(sorted(kw.items())), shape, tuple(cases), group_size)
     if key not in _RUNS:
         batches = _batches(reduced(ARCHS[arch], **kw).vocab_size)
         _RUNS[key] = spawn.run(_sharded_rank, math.prod(shape), arch, kw, shape, list(cases),
-                               batches, timeout=TIMEOUT)
+                               batches, group_size, timeout=TIMEOUT)
     return _RUNS[key]
 
 
@@ -191,10 +220,19 @@ def test_sharded_train_step_matches_unsharded_and_jax(arch, remat, fsdp):
     _check(ranks, _references(arch, {}, remat, 1), CASES.index((remat, fsdp, 1)))
 
 
+def _check_split_q(ranks, s=32, n=4):
+    """Each rank's flash calls took its own s / n rows at its offset against
+    all s keys."""
+    for rank, r in enumerate(ranks):
+        assert r[0]["flash_seen"] == [(s // n, s, rank * (s // n))]
+
+
 def test_sharded_train_step_gathers_q_over_the_sequence():
     """6 heads do not divide a 'model' axis of 4: the JAX plan keeps q split
-    over the sequence, and the port's flash path gathers it (the kernel's
-    causal mask starts at position 0)."""
+    over the sequence and gathers k and v along it.  Since the flash kernels
+    take a query offset, q stays split (the test keeps the name it had when
+    the port gathered q too): each rank's flash calls, forward and backward,
+    take its own rows at their offset against the whole keys."""
     from repro_torch.parallel.sharding import ShardingPlan
     kw = {"n_heads": 6, "n_kv_heads": 2}
     plan = ShardingPlan(axis_sizes={"data": 1, "model": 4})
@@ -202,6 +240,34 @@ def test_sharded_train_step_gathers_q_over_the_sequence():
     assert plan.spec(("batch", "seq", None, None), (8, 32, 6, 16)) == (None, "model")
     ranks = _sharded("qwen2-1.5b", kw, (1, 4), [("none", True, 1)])
     _check(ranks, _references("qwen2-1.5b", kw, "none", 1), 0)
+    _check_split_q(ranks)
+
+
+def test_sharded_train_step_splits_q_over_the_sequence():
+    """Reduced gemma3 with 6 heads on 1 KV group on (1, 4): q split over the
+    sequence under its sliding window (16), remat ``dots``; every rank's
+    rows at their offset, the window's edge crossing the ranks' rows."""
+    kw = {"n_heads": 6}
+    ranks = _sharded("gemma3-1b", kw, (1, 4), [("dots", True, 1)])
+    _check(ranks, _references("gemma3-1b", kw, "dots", 1), 0)
+    _check_split_q(ranks)
+
+
+MOE_GROUP = 8  # tokens a routing group: a (8, 32) batch makes 32 groups
+MOE_MESHES = [((2, 2), {}), ((1, 4), {}), ((1, 4), {"n_experts": 6}), ((2, 2), {"n_experts": 3})]
+
+
+@pytest.mark.parametrize("shape,kw", MOE_MESHES, ids=lambda c: str(c).replace(" ", ""))
+def test_sharded_moe_train_step_matches_unsharded_and_jax(shape, kw):
+    """Reduced granite with its experts split over 'model' (4 experts: the
+    capacity rows exchanged by all-to-all where each rank holds a chunk of
+    the sequence) or their ff columns (6 on a 4-way axis, 3 on a 2-way one:
+    each rank's columns, w_down's partial sum reduced), at routing groups of
+    8 tokens (several groups a rank), against the unsharded step and the
+    JAX step at the same group size."""
+    arch = "granite-moe-3b-a800m"
+    ranks = _sharded(arch, kw, shape, [("dots", True, 1)], MOE_GROUP)
+    _check(ranks, _references(arch, kw, "dots", 1, MOE_GROUP), 0)
 
 
 def test_sharded_train_step_with_microbatches():

@@ -9,7 +9,11 @@ decode steps cross its slot 0 again), granite-moe and jamba, one spawned
 call each; plus reduced qwen2 on a (1, 4) mesh,
 where ``kv_seq`` splits over 'model' (2 KV groups do not divide it): a
 32-slot cache in shards of 8, a 7-token prompt, and decode slots 7 and 8
-on either side of a shard boundary.
+on either side of a shard boundary; and reduced granite-moe at routing
+groups of 4 tokens (a 16-token prompt: four groups a row, one chunk a
+'model' rank of 4), its experts split over 'model' on (1, 4) (prefill
+exchanges the capacity rows by all-to-all, decode runs each rank's own
+experts) or their ff columns (6 experts on (1, 4), 3 on (2, 2)).
 
 Each rank starts from the same parameters (the port's ``init_params``, seed
 0, which ``convert.to_jax_params`` hands to the JAX Engine; the JAX
@@ -42,37 +46,42 @@ RTOL = 1e-5  # logits, relative; atol RTOL * the step's largest |logit|
 CASES = {"qwen2-1.5b": (16, 8, 24), "mamba2-130m": (16, 8, 24), "gemma3-1b": (40, 16, 64),
          "granite-moe-3b-a800m": (16, 8, 24), "jamba-v0.1-52b": (16, 8, 24)}
 BOUNDARY = ("qwen2-1.5b", (1, 4), (7, 4, 32))  # kv_seq over 'model': shards of 8 slots
+MOE_GROUP = 4  # the MoE's routing group in the MOE_CASES
+MOE_CASES = [((1, 4), {}), ((1, 4), {"n_experts": 6}), ((2, 2), {"n_experts": 3})]
 
 
 def _prompts(vocab: int, prompt: int) -> np.ndarray:
     return np.random.default_rng(7).integers(0, vocab, (2, prompt)).astype(np.int32)
 
 
-def _params(arch):
-    return M.init_params(reduced(ARCHS[arch]), 0, device="cpu")
+def _params(arch, kw=None):
+    return M.init_params(reduced(ARCHS[arch], **(kw or {})), 0, device="cpu")
 
 
 # -- on every rank -------------------------------------------------------------
 
-def _serve_rank(shape, runs):
+def _serve_rank(shape, runs, kw=None, group_size=None):
     """For each (arch, params, (prompt, new, max_len)): tokens from the
     unsharded Engine and from ``Engine(plan=)``, and (rank 0) the logits of
     prefill and of each greedy decode step, unsharded and under the plan,
-    with the placements of the first layer's cache k."""
+    with the placements of the first layer's cache k.  ``kw`` reduces the
+    arch further; ``group_size``: the MoE's routing group."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
     from repro_torch.parallel.sharding import distribute_tree, placements, plan_for_mesh
     from repro_torch.parallel.sharding import NULL_PLAN
     from repro_torch.serve.engine import Engine
 
     mesh = make_mesh(shape, AXES, device="cpu")
     plan = plan_for_mesh(mesh)
+    moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
     f32 = torch.float32
     out = []
     for arch, params, (prompt, new, max_len) in runs:
-        spec = reduced(ARCHS[arch])
+        spec = reduced(ARCHS[arch], **(kw or {}))
         prompts = _prompts(spec.vocab_size, prompt)
         dparams = distribute_tree(params, M.param_axes(spec), plan, mesh)
         base, _ = Engine(spec, params, max_len=max_len, device="cpu").generate(prompts, new)
@@ -110,32 +119,38 @@ def _serve_rank(shape, runs):
 _RUNS: dict = {}
 
 
-def _ranks(shape, runs):
-    key = (shape, tuple(arch for arch, _ in runs))
+def _ranks(shape, runs, kw=None, group_size=None):
+    key = (shape, tuple(arch for arch, _ in runs), tuple(sorted((kw or {}).items())), group_size)
     if key not in _RUNS:
         _RUNS[key] = spawn.run(_serve_rank, 4, shape,
-                               [(arch, _params(arch), cfg) for arch, cfg in runs],
-                               timeout=TIMEOUT)
+                               [(arch, _params(arch, kw), cfg) for arch, cfg in runs], kw,
+                               group_size, timeout=TIMEOUT)
     return _RUNS[key]
 
 
-def _jax_tokens(arch, prompt, new):
+def _jax_tokens(arch, prompt, new, kw=None, group_size=None):
+    import repro.models.moe as jmoe
     from repro.configs import ARCHS as JARCHS, reduced as jreduced
     from repro.serve.engine import Engine as JEngine
     from repro_torch.convert import to_jax_params
-    jspec = jreduced(JARCHS[arch])
-    jparams = to_jax_params(_params(arch), reduced(ARCHS[arch]))
-    out, _ = JEngine(jspec, jparams, max_len=256).generate(_prompts(jspec.vocab_size, prompt),
-                                                           max_new=new)
+    jspec = jreduced(JARCHS[arch], **(kw or {}))
+    jparams = to_jax_params(_params(arch, kw), reduced(ARCHS[arch], **(kw or {})))
+    saved = jmoe.GROUP_SIZE
+    jmoe.GROUP_SIZE = group_size or saved
+    try:
+        out, _ = JEngine(jspec, jparams, max_len=256).generate(
+            _prompts(jspec.vocab_size, prompt), max_new=new)
+    finally:
+        jmoe.GROUP_SIZE = saved
     return out
 
 
-def _check(ranks, i, arch, prompt, new):
+def _check(ranks, i, arch, prompt, new, kw=None, group_size=None):
     res = [r[i] for r in ranks]
     for r in res:  # every rank: the plan's tokens are the unsharded Engine's
         np.testing.assert_array_equal(r["got"], r["base"])
         np.testing.assert_array_equal(r["got"], res[0]["got"])
-    np.testing.assert_array_equal(res[0]["got"], _jax_tokens(arch, prompt, new))
+    np.testing.assert_array_equal(res[0]["got"], _jax_tokens(arch, prompt, new, kw, group_size))
     assert len(res[0]["have"]) == new
     for step, (have, want) in enumerate(zip(res[0]["have"], res[0]["want"])):
         np.testing.assert_allclose(have, want, rtol=RTOL, atol=RTOL * np.abs(want).max(),
@@ -159,6 +174,13 @@ def test_decode_slot_crosses_a_kv_seq_shard_boundary():
     r = _check(ranks, 0, arch, prompt, new)
     assert r["k_placements"] == ("S(1)", "S(1)")
     assert prompt < max_len // 4 < prompt + new
+
+
+@pytest.mark.parametrize("shape,kw", MOE_CASES, ids=lambda c: str(c).replace(" ", ""))
+def test_engine_moe_on_its_shards_matches_unsharded_and_jax(shape, kw):
+    arch = "granite-moe-3b-a800m"
+    prompt, new, _ = cfg = CASES[arch]
+    _check(_ranks(shape, [(arch, cfg)], kw, MOE_GROUP), 0, arch, prompt, new, kw, MOE_GROUP)
 
 
 def _jax_layer_axes(tree, spec):

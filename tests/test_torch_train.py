@@ -385,13 +385,14 @@ def test_train_step_matches_jax_step():
 # recompute under checkpointing run on the CPU.
 
 
-def _np_attention(q, k, v, causal, window, scale):
-    """numpy f64 attention in the kernel's layout -> (o, lse (B, H, S))."""
+def _np_attention(q, k, v, causal, window, scale, q_offset=0):
+    """numpy f64 attention in the kernel's layout, query row i at position
+    q_offset + i -> (o, lse (B, H, S))."""
     b, s, h, hd = q.shape
     t, g = k.shape[1], k.shape[2]
     kk, vv = (np.repeat(x, h // g, axis=2) for x in (k, v))
     sc = np.einsum("bshd,bthd->bhst", q, kk) * scale
-    qp, kp = np.arange(s)[:, None], np.arange(t)[None]
+    qp, kp = q_offset + np.arange(s)[:, None], np.arange(t)[None]
     mask = np.ones((s, t), bool)
     if causal:
         mask &= kp <= qp
@@ -403,10 +404,10 @@ def _np_attention(q, k, v, causal, window, scale):
     return np.einsum("bhst,bthd->bshd", p, vv), lse, p
 
 
-def _fake_flash_launch(q, k, v, causal, window, scale, with_lse):
+def _fake_flash_launch(q, k, v, causal, window, scale, with_lse, q_offset):
     from repro_torch.kernels import flash_attention as fa
     o_ref, lse_ref, _ = _np_attention(*(x.detach().double().numpy() for x in (q, k, v)),
-                                      causal, window, scale)
+                                      causal, window, scale, q_offset)
     o = torch.empty(q.shape, dtype=q.dtype)
     o.detach().numpy()[...] = o_ref
     lse = None
@@ -417,11 +418,11 @@ def _fake_flash_launch(q, k, v, causal, window, scale, with_lse):
     return o, lse
 
 
-def _fake_flash_bwd(q, k, v, o, lse, do, *, causal, window, scale):
+def _fake_flash_bwd(q, k, v, o, lse, do, *, causal, window, scale, q_offset):
     qn, kn, vn, on, don = (x.detach().double().numpy() for x in (q, k, v, o, do))
     b, s, h, hd = qn.shape
     g = kn.shape[2]
-    _, _, p = _np_attention(qn, kn, vn, causal, window, scale)
+    _, _, p = _np_attention(qn, kn, vn, causal, window, scale, q_offset)
     kk, vv = (np.repeat(x, h // g, axis=2) for x in (kn, vn))
     dv = np.einsum("bhst,bshd->bthd", p, don)
     dp = np.einsum("bshd,bthd->bhst", don, vv)
@@ -468,8 +469,9 @@ def kernel_functions(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_bwd", _fake_flash_bwd)
     monkeypatch.setattr(rn, "_fwd_op", _fake_rms_forward)
     monkeypatch.setattr(rn, "rmsnorm_bwd", _fake_rms_bwd)
-    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal, window, scale:
-                        fa.FlashAttentionFn.apply(q, k, v, causal, window, scale))
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal, window, scale,
+                        q_offset: fa.FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                                            q_offset))
     monkeypatch.setattr(ops, "rmsnorm", lambda x, w, *, eps: rn.RMSNormFn.apply(x, w, eps))
     for fn in (fa.flash_attention, _fake_flash_bwd, rn.rmsnorm, _fake_rms_bwd):
         monkeypatch.setattr(fn, "launches", 0, raising=False)
