@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Compare this checkout with another on one NVIDIA GPU: the flash kernels'
-outputs bit for bit, and the unsharded serving path's times.
+"""Compare this checkout with another on one NVIDIA GPU: the flash and SSD
+kernels' outputs bit for bit, and the unsharded serving path's times.
 
     python3 chip_ab.py LABEL OUT [AGAINST]
 
-Builds the flash attention (forward and backward) and RMSNorm kernels of
-the checkout it sits in, then:
+Builds the flash attention (forward and backward), RMSNorm and SSD scan
+(forward and backward) kernels of the checkout it sits in, then:
   * flash: ``_launch`` (with the log-sum-exp) and ``flash_attention_bwd``
     at the smoke run's shapes (qwen2, gemma3 global and window 512,
     granite, phi-3's head_dim 96, ragged and windowed cases), f32 and
@@ -13,8 +13,15 @@ the checkout it sits in, then:
     saved to OUT (``torch.save``) and, with AGAINST (another checkout's
     OUT), compared with its bit for bit: the line says which cases differ,
     and any difference exits 1;
-  * serving: qwen2-1.5b (prompt 1000), gemma3-1b (2040) and
-    granite-moe-3b-a800m (1024) at full width and depth, random weights
+  * the SSD scan: ``_launch`` (y, the final state) at the smoke run's
+    forward shapes (mamba2-130m's prefill, ragged, grouped at jamba's
+    widths, reduced mamba2's) and ``ssd_scan_bwd`` (dx, ddt, da, db, dc) at
+    its backward shapes (mamba2-130m's train shape, ragged and grouped),
+    all at head dims of 16 and more, f32 and bf16, inputs from seed 5,
+    compared as flash's are;
+  * serving: qwen2-1.5b (prompt 1000), gemma3-1b (2040),
+    granite-moe-3b-a800m (1024) and mamba2-130m (4096) at full width and
+    depth, random weights
     from seed 0, fp32, greedy, batch 4, through ``Engine.generate``: one
     warm-up call, then three of 32 new tokens; decode ms a step (decode
     seconds over the 32 steps, as ``chip_smoke.py`` takes it) of each and
@@ -26,6 +33,7 @@ only within one call.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import math
 import statistics
 import sys
 import time
@@ -36,7 +44,12 @@ ROOT = Path(__file__).resolve().parent
 FLASH_CASES = ((4, 1000, 12, 2, 128, 0), (4, 1000, 12, 2, 128, 256), (4, 200, 12, 2, 128, 0),
                (4, 2040, 4, 1, 256, 0), (4, 2040, 4, 1, 256, 512), (4, 1024, 24, 8, 64, 0),
                (4, 1024, 32, 32, 96, 0), (2, 333, 6, 6, 64, 37))
-MODELS = (("qwen2-1.5b", 1000), ("gemma3-1b", 2040), ("granite-moe-3b-a800m", 1024))
+# (B, S, H, G, P, N), forward only and forward with the backward
+SSD_CASES = ((4, 4096, 24, 1, 64, 128), (4, 1000, 24, 1, 64, 128), (4, 2048, 8, 2, 64, 16),
+             (2, 1000, 8, 1, 16, 16))
+SSD_BWD_CASES = ((4, 4096, 24, 1, 64, 128), (2, 1000, 8, 2, 64, 16))
+MODELS = (("qwen2-1.5b", 1000), ("gemma3-1b", 2040), ("granite-moe-3b-a800m", 1024),
+          ("mamba2-130m", 4096))
 BATCH, NEW, CALLS = 4, 32, 3
 
 
@@ -56,6 +69,31 @@ def flash_outputs(torch, fa) -> dict:
     return out
 
 
+def ssd_outputs(torch, ss) -> dict:
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES + SSD_BWD_CASES:
+            b, s, h, g, p, n = case
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            x, dy = (torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            u = torch.rand((b, s, h), generator=gen, device="cuda")
+            dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))  # the init's
+            a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device="cuda"))
+            bb, cc = (torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+                      for _ in range(2))
+            y, state, scratch = ss._launch(x, dt, a, bb, cc)
+            key = ("ssd", str(dtype).removeprefix("torch."), *case)
+            if case in SSD_BWD_CASES:
+                dstate = torch.randn((b, h, p, n), generator=gen, device="cuda")
+                grads = ss.ssd_scan_bwd(x, dt, a, bb, cc, scratch, dy, dstate)
+                out[key + ("bwd",)] = [t.cpu() for t in (y, state, *grads)]
+            else:
+                out[key] = [t.cpu() for t in (y, state)]
+            del scratch
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -68,24 +106,26 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import _build, flash_attention as fa
+    from repro_torch.kernels import _build, flash_attention as fa, ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Engine
     card = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm"])
+    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan",
+                  "ssd_scan_bwd"])
     print(f"[ab] {label}: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    got = flash_outputs(torch, fa)
+    got = {**flash_outputs(torch, fa), **ssd_outputs(torch, ss)}
     out_path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(got, out_path)
     if against is not None:
         want = torch.load(against)
         differ = [key for key in got if not all(torch.equal(x, y) for x, y in
                                                 zip(got[key], want[key]))]
-        print(f"[ab] {label} {card}: flash o, lse, dq, dk, dv in {len(got)} cases against "
-              f"{against.name}: bit for bit {not differ}; cases that differ {differ}", flush=True)
+        print(f"[ab] {label} {card}: flash o, lse, dq, dk, dv and SSD y, state, dx, ddt, da, db, "
+              f"dc in {len(got)} cases against {against.name}: bit for bit {not differ}; cases "
+              f"that differ {differ}", flush=True)
         if differ:
             sys.exit(1)
 

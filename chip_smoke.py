@@ -26,7 +26,10 @@ Phases, one or more lines each:
                bytes the row gives), ssd_scan_state_pass (the chain over
                chunks: the state entering each chunk, and the final state)
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
-               and its entering state).  Flash attention at head_dim 96
+               and its entering state); also at mamba2-130m's train shape as
+               one rank of a 16-way 'model' axis scans it, its head_dim
+               split to P = 4 (the kernels' tiles of 16 columns, x read an
+               element at a time), forward and backward.  Flash attention at head_dim 96
                (phi-3-vision-4.2b, 32 heads).  Flash attention at a query
                offset, forward and backward: qwen2's train shape as the last
                of four 'model' ranks of a sequence-split attention sees it
@@ -154,11 +157,15 @@ Phases, one or more lines each:
                shape through its operator (torch.ops.repro_torch) against
                the bare launch
   dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
-               world, at full size with fake tensors labelled cuda, five at
+               world, at full size with fake tensors labelled cuda, eight at
                once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
                multipod, mamba2-130m long_500k pod, granite-moe-3b-a800m
                and moonshot-v1-16b-a3b train_4k pod (the MoE with its ff
-               columns, and its experts, split over 'model'), each ok with
+               columns, and its experts, split over 'model'), mamba2-130m
+               train_4k and decode_32k pod (the SSD scan split over
+               head_dim, the head's vocabulary over an idle 'model') and
+               jamba-v0.1-52b long_500k pod (batch 1: the experts on their
+               FSDP shards), each ok with
                its peak a device within the card's memory, with its peak
                GiB a device, FLOPs a device against model_flops / n_chips,
                collective bytes by kind and seconds; then reduced qwen2-1.5b
@@ -200,6 +207,7 @@ CONSISTENCY_TOL = 1e-3  # fp32 logits; two paths summing in other orders over 24
 PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
+M_MODEL_RANKS = 16  # the pod's 'model' axis: mamba2's 24 heads do not divide it, its head_dim does
 # flash attention at a query offset: qwen2's train_4k sequence as the last of
 # four 'model' ranks sees it under sequence-split attention (its rows
 # 3072..4095 against all 4096 keys)
@@ -217,7 +225,8 @@ MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, rela
 # reduced one run under both labels
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
                 ("mamba2-130m", "long_500k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
-                ("moonshot-v1-16b-a3b", "train_4k", "pod"))
+                ("moonshot-v1-16b-a3b", "train_4k", "pod"), ("mamba2-130m", "train_4k", "pod"),
+                ("mamba2-130m", "decode_32k", "pod"), ("jamba-v0.1-52b", "long_500k", "pod"))
 DRYRUN_REDUCED = ("qwen2-1.5b", "train_4k", "pod")
 DRYRUN_TIMEOUT = 600  # seconds, per subprocess
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
@@ -1823,9 +1832,17 @@ def main() -> None:
                     (BATCH, 2048, 8, 2, 64, 16, 20),         # grouped, jamba's widths
                     (2, 1000, small.ssm_heads, 1, small.ssm_head_dim, small.ssm_state, 20)):
                 ssd_rows.append(check_ssd(torch, ss, b, s, sh, sg, sp, sn, dtype, ranges, iters))
-        # the SSD backward: mamba2-130m's train shape, then ragged and grouped
+            # mamba2-130m's train shape on one of 16 'model' ranks: P = 64 / 16
+            named[name, f"mamba2 train P4 {ranges}"] = check_ssd(
+                torch, ss, TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, mp // M_MODEL_RANKS, mn, dtype,
+                ranges, 10)
+            ssd_rows.append(named[name, f"mamba2 train P4 {ranges}"])
+        # the SSD backward: mamba2-130m's train shape, whole and on one of 16
+        # 'model' ranks, then ragged and grouped
         for key, args, iters in (
                 ("bwd mamba2 train", (TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, mp, mn), 5),
+                ("bwd mamba2 train P4",
+                 (TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, mp // M_MODEL_RANKS, mn), 5),
                 ("bwd ragged grouped", (2, 1000, 8, 2, 64, 16), 10)):
             named[name, key] = check_ssd_bwd(torch, ss, *args, dtype, iters)
             rows.append(named[name, key])
@@ -1957,7 +1974,9 @@ def main() -> None:
              replaces="src/repro/kernels/rmsnorm.py:23",
              case=named["float32", "qwen2 prefill"], more=[named[k] for k in norm_more]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
-             replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0], more=[]),
+             replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0],
+             more=[named[dt_name, f"mamba2 train P4 {ranges}"]
+                   for dt_name in ("float32", "bfloat16") for ranges in ("model", "random")]),
         # the gradients of the first two: the JAX package differentiates jnp
         # attention and normalisation, and has no Pallas backward
         dict(name="flash_attention_bwd", route="cuda",
@@ -1973,7 +1992,8 @@ def main() -> None:
              replaces="src/repro/kernels/ssd_scan.py:71",
              case=named["float32", "bwd mamba2 train"],
              more=[named["bfloat16", "bwd mamba2 train"]] + [
-                 named[dt_name, "bwd ragged grouped"] for dt_name in ("float32", "bfloat16")]),
+                 named[dt_name, key] for key in ("bwd mamba2 train P4", "bwd ragged grouped")
+                 for dt_name in ("float32", "bfloat16")]),
         # the DSE's population evaluation: the JAX package runs it as
         # XLA-jitted jnp (_fused_eval and _sweep_population), not Pallas
         dict(name="dse_class_times", route="cuda", source="src/repro_torch/csrc/dse_sim.cu",

@@ -51,6 +51,13 @@
 // chunk-state product feeds the final state, held at 1e-4 in every dtype, so
 // phase 1 keeps f32 operands on the CUDA cores for bf16 inputs too.
 //
+// Head dims below 16 (the head_dim split over a mesh axis: mamba2's 64 on 16
+// ranks is 4) run on the tiles of P = 16 (`tile_p`, ssd_scan.cuh): x reads as
+// zeros past its Q columns, one element at a time, and y and the final state
+// are stored in those Q columns only; the scratch holds (N, 16) states.  Each
+// kernel takes Q as a template argument beside the tile's P, so the launches
+// at P >= 16 (Q == P) are the code they were.
+//
 // Kept from the serial design: L = 64; exp only of non-positive differences
 // (l >= m, cum_{L-1} - cum, cum <= 0), score tiles wholly above the diagonal
 // skipped; rows past S load as dt = 0, x = B = C = 0 and are never written;
@@ -131,7 +138,7 @@ __device__ __forceinline__ void chunk_weights(const Params& p, const Block& blk,
   if (threadIdx.x == 0) p.chunk_decay[blk.bh(p, h) * p.nc + blk.ch] = expf(last);
 }
 
-template <typename T, int N, int P>
+template <typename T, int N, int P, int Q>
 __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const Params p) {
   constexpr int NT = nt_state(N, P), VT = 16 / sizeof(T);
   constexpr int XV = (L * P / VT + NT - 1) / NT;  // 16-byte loads of x per thread and head
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const 
     for (int j = 0; j < XV; ++j) {
       const int i = tid + j * NT, l = i / (P / VT), q = (i % (P / VT)) * VT, s = blk.s0 + l;
       xr[j] = make_uint4(0, 0, 0, 0);
-      if (i < L * P / VT && s < p.S) xr[j] = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
+      if (i < L * P / VT && s < p.S) xr[j] = load16_cols<Q, P>(xg + s * p.xs[1], q);
     }
   };
   fetch_x(blk.h0);
@@ -207,7 +214,7 @@ __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const 
 constexpr int NT_PASS = 256;
 constexpr int PASS_DEPTH = 8;  // chunks whose loads a thread keeps in flight
 
-template <int N, int P>
+template <int N, int P, int Q>
 __global__ void __launch_bounds__(NT_PASS) ssd_scan_state_pass(const Params p) {
   constexpr int V = N * P / 4;  // float4s per chunk state
   const int e4 = blockIdx.x * NT_PASS + threadIdx.x;
@@ -240,13 +247,13 @@ __global__ void __launch_bounds__(NT_PASS) ssd_scan_state_pass(const Params p) {
 #pragma unroll
     for (int k = 0; k < PASS_DEPTH; ++k) cur[k] = nxt[k], ec[k] = en[k];
   }
-  // the state is (N, P) here and (P, N) in the output
+  // the state is (N, P) here and (Q, N) in the output
   const int n = 4 * e4 / P, q = 4 * e4 % P;
-  float* out = p.state + static_cast<long long>(bh) * P * N + n;
-  out[(q + 0) * N] = h.x;
-  out[(q + 1) * N] = h.y;
-  out[(q + 2) * N] = h.z;
-  out[(q + 3) * N] = h.w;
+  float* out = p.state + static_cast<long long>(bh) * Q * N + n;
+  const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (Q == P || q + j < Q) out[(q + j) * N] = hv[j];
 }
 
 // ---- phase 3, f32: y on the CUDA cores ------------------------------------------------------
@@ -258,7 +265,7 @@ constexpr int smem_output_f32() {
          static_cast<int>(sizeof(float));
 }
 
-template <int N, int P>
+template <int N, int P, int Q>
 __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p) {
   constexpr int NT = NT_OUT, XV = L * P / 4 / NT;  // float4s of x per thread and head
   extern __shared__ float4 smem4[];
@@ -279,8 +286,9 @@ __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p)
 #pragma unroll
     for (int j = 0; j < XV; ++j) {
       const int i = tid + j * NT, l = i / (P / 4), q = (i % (P / 4)) * 4, s = blk.s0 + l;
-      xr[j] = s < p.S ? *reinterpret_cast<const float4*>(xg + s * p.xs[1] + q)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint4 u = s < p.S ? load16_cols<Q, P>(xg + s * p.xs[1], q) : make_uint4(0, 0, 0, 0);
+      xr[j] = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                          __uint_as_float(u.w));
     }
   };
   const auto store_x = [&]() {
@@ -364,9 +372,7 @@ __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p)
 #pragma unroll
     for (int i = 0; i < Tl::TR; ++i) {
       const int s = blk.s0 + t.row(i);
-      if (s < p.S)
-        *reinterpret_cast<float4*>(yg + s * p.ys[1] + t.col0()) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (s < p.S) store4_cols<Q, P>(yg + s * p.ys[1], t.col0(), acc[i]);
     }
     if (more) {
       // the other decay buffer's last readers passed the barrier above
@@ -388,7 +394,7 @@ constexpr int smem_output_bf16() {
   return (2 * L * (N + 8) + L * (P + 8) + N * (P + 8)) * 2 + 2 * 2 * L * static_cast<int>(sizeof(float));
 }
 
-template <int N, int P>
+template <int N, int P, int Q>
 __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p) {
   using bf16 = __nv_bfloat16;
   constexpr int LDN = N + 8, LDP = P + 8;  // rows padded by 16 bytes: ldmatrix is conflict-free
@@ -451,7 +457,7 @@ __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p
     for (int i = tid; i < L * P / 8; i += NT_MMA) {
       const int l = i / (P / 8), q = (i % (P / 8)) * 8, s = blk.s0 + l;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (s < p.S) v = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
+      if (s < p.S) v = load16_cols<Q, P>(xg + s * p.xs[1], q);
       *reinterpret_cast<uint4*>(Xs + l * LDP + q) = v;
     }
     const float* hin = p.chunk_state + (blk.bh(p, h) * p.nc + blk.ch) * N * P;
@@ -513,8 +519,8 @@ __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p
 #pragma unroll
     for (int j = 0; j < P / 8; ++j) {
       const int q = 8 * j + 2 * tq;
-      if (sa < p.S) *reinterpret_cast<uint32_t*>(yg + sa * p.ys[1] + q) = pack_bf16(acc[j][0], acc[j][1]);
-      if (sb < p.S) *reinterpret_cast<uint32_t*>(yg + sb * p.ys[1] + q) = pack_bf16(acc[j][2], acc[j][3]);
+      if (sa < p.S) store_pair_cols<Q, P>(yg + sa * p.ys[1], q, acc[j][0], acc[j][1]);
+      if (sb < p.S) store_pair_cols<Q, P>(yg + sb * p.ys[1], q, acc[j][2], acc[j][3]);
     }
     // the next head's cumsum; the other buffer was last read before the barrier above
     if (tid < 32 && k + 1 < p.kh) {
@@ -537,24 +543,31 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
   return cudaGetLastError();
 }
 
-template <typename T, int N, int P>
+// Q: the call's head dim; the tiles take P = tile_p(Q)
+template <typename T, int N, int Q>
 cudaError_t run(const Params& p, int B, cudaStream_t stream) {
+  constexpr int P = tile_p(Q);
   const dim3 blocks(p.nc, B * p.H / p.kh);
-  cudaError_t err = launch(ssd_scan_chunk_state<T, N, P>, blocks, nt_state(N, P),
+  cudaError_t err = launch(ssd_scan_chunk_state<T, N, P, Q>, blocks, nt_state(N, P),
                            smem_chunk_state<N, P>(), p, stream);
   if (err != cudaSuccess) return err;
-  err = launch(ssd_scan_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
+  err = launch(ssd_scan_state_pass<N, P, Q>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
                NT_PASS, 0, p, stream);
   if (err != cudaSuccess) return err;
   if constexpr (sizeof(T) == 4)
-    return launch(ssd_scan_output_f32<N, P>, blocks, NT_OUT, smem_output_f32<N, P>(), p, stream);
+    return launch(ssd_scan_output_f32<N, P, Q>, blocks, NT_OUT, smem_output_f32<N, P>(), p, stream);
   else
-    return launch(ssd_scan_output_bf16<N, P>, blocks, NT_MMA, smem_output_bf16<N, P>(), p, stream);
+    return launch(ssd_scan_output_bf16<N, P, Q>, blocks, NT_MMA, smem_output_bf16<N, P>(), p,
+                  stream);
 }
 
 template <typename T, int N>
 cudaError_t dispatch_p(const Params& p, int B, int P, cudaStream_t stream) {
   switch (P) {
+    case 1: return run<T, N, 1>(p, B, stream);
+    case 2: return run<T, N, 2>(p, B, stream);
+    case 4: return run<T, N, 4>(p, B, stream);
+    case 8: return run<T, N, 8>(p, B, stream);
     case 16: return run<T, N, 16>(p, B, stream);
     case 32: return run<T, N, 32>(p, B, stream);
     case 64: return run<T, N, 64>(p, B, stream);
@@ -577,13 +590,14 @@ cudaError_t dispatch_n(const Params& p, int B, int P, int N, cudaStream_t stream
 }  // namespace
 
 // x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), y (B,S,H,P), with
-// the last dim of x, b, c, y contiguous and their rows 16-byte aligned; state
-// (B,H,P,N) f32, contiguous; scratch f32 of at least B*H*nc*(N*P + 1) floats,
-// nc = ceil(S / 64), which the three launches use in turn.
+// the last dim of x, b, c, y contiguous and their rows 16-byte aligned (x
+// and y at P >= 16 only); state (B,H,P,N) f32, contiguous; scratch f32 of at
+// least B*H*nc*(N*tile_p(P) + 1) floats, nc = ceil(S / 64), which the three
+// launches use in turn.
 // strides[15] = (batch, seq, head|group) element strides of x, dt, b, c, y.
-// dtype (of x, b, c, y): 0 = float32, 1 = bfloat16.  P and N in
-// {16, 32, 64, 128}.  Returns the first launch's cudaGetLastError() that is
-// not 0, else 0.
+// dtype (of x, b, c, y): 0 = float32, 1 = bfloat16.  P in {1, 2, 4, 8, 16,
+// 32, 64, 128}, N in {16, 32, 64, 128}.  Returns the first launch's
+// cudaGetLastError() that is not 0, else 0.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a, const void* b,
                             const void* c, void* y, float* state, float* scratch,
                             long long scratch_floats, int dtype, int B, int S, int H, int G,
@@ -591,7 +605,7 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a, cons
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + L - 1) / L;
-  const long long chunk_floats = static_cast<long long>(B) * H * nc * N * P;
+  const long long chunk_floats = static_cast<long long>(B) * H * nc * N * tile_p(P);
   if (scratch_floats < chunk_floats + static_cast<long long>(B) * H * nc)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, dt, a, b, c, y, state, scratch, scratch + chunk_floats, S, H, G, nc,

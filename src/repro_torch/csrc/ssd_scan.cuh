@@ -1,5 +1,6 @@
 // Shared by the SSD scan's forward (ssd_scan.cu) and backward (ssd_scan_bwd.cu):
 // the chunk length, the in-chunk cumsum of dt * a, 16-byte loads as floats,
+// the narrow head dims' tile width and column-wise loads and stores,
 // cp.async and bulk copies, ldmatrix and bf16 mma.sync, the rule of heads per block, and the
 // forward's register-tiled f32 product on the CUDA cores.  hopper.cuh brings
 // smem_u32 and the 3xTF32 helpers.
@@ -57,6 +58,74 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* v, __nv_bfloat16
 template <typename T>
 __device__ __forceinline__ void load16(const T* src, float* v) {
   unpack16(*reinterpret_cast<const uint4*>(src), v, T());
+}
+
+// Head dims Q below 16 (a head_dim split over a mesh axis: 64 on 16 ranks is
+// 4) run on the tiles of P = 16, the narrowest the products take: x and dY
+// read as zeros past their Q columns, so every product leaves zeros in the
+// tile's other columns, and y, dx and the final state are stored in their Q
+// columns only.  The chunk states in the scratch are (N, tile_p(Q)).
+__host__ __device__ constexpr int tile_p(int q) { return q < 16 ? 16 : q; }
+
+template <typename T>
+struct RawBits;  // the integer that holds a T's bits
+template <>
+struct RawBits<float> {
+  using type = uint32_t;
+};
+template <>
+struct RawBits<__nv_bfloat16> {
+  using type = uint16_t;
+};
+
+// 16 bytes of a row of x or dY from column c on, as the tile of P columns
+// holds them: the row's own 16 bytes where it has P columns (Q == P), else
+// its elements below Q one at a time (a row of Q < 16 elements need not
+// start on 16 bytes) and zeros past them.
+template <int Q, int P, typename T>
+__device__ __forceinline__ uint4 load16_cols(const T* row, int c) {
+  if constexpr (Q == P) {
+    return *reinterpret_cast<const uint4*>(row + c);
+  } else {
+    using U = typename RawBits<T>::type;
+    constexpr int V = 16 / sizeof(T);
+    union {
+      uint4 v;
+      U e[V];
+    } r;
+    r.v = make_uint4(0, 0, 0, 0);
+    const U* src = reinterpret_cast<const U*>(row);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (c + e < Q) r.e[e] = src[c + e];
+    return r.v;
+  }
+}
+
+// v[0 .. 4) into columns c .. c + 3 of a row of Q columns (Q < 16: those below Q only)
+template <int Q, int P>
+__device__ __forceinline__ void store4_cols(float* row, int c, const float* v) {
+  if constexpr (Q == P) {
+    *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < Q) row[c + e] = v[e];
+  }
+}
+
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+
+// (a, b) into columns c, c + 1 of a row of Q columns (Q < 16: those below Q only)
+template <int Q, int P, typename T>
+__device__ __forceinline__ void store_pair_cols(T* row, int c, float a, float b) {
+  if constexpr (Q == P) {
+    store_pair(row + c, a, b);
+  } else {
+    if (c < Q) store1(row + c, a);
+    if (c + 1 < Q) store1(row + c + 1, b);
+  }
 }
 
 // A register-tiled f32 product on the CUDA cores,

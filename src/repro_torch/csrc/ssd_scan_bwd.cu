@@ -89,6 +89,13 @@
 // (f32, N = P = 128) they share one buffer.  Rows past S load as dt = 0 and
 // x = B = C = dY = 0 and are never written.
 //
+// Head dims Q below 16 run on the tiles of P = 16, as in the forward
+// (`tile_p`, ssd_scan.cuh): x and dY load as zeros past their Q columns, one
+// element at a time (into shared memory directly, not by cp.async), dState
+// reads as zeros there, and dx is stored in its Q columns only.  The zero
+// columns add nothing to dB, dC, ddt or da.  Each kernel takes Q beside P, so
+// the launches at P >= 16 (Q == P) are the code they were.
+//
 // `nvcc -Xptxas -v` (CUDA 12.8, sm_90a) at N = 128, P = 64, f32 / bf16, no
 // spills (spills only at N = P = 128, up to 88 bytes):
 //   ssd_bwd_chunk_grad  127 / 91 registers, 103,424 / 73,728 B shared, 256 threads: 2 blocks/SM
@@ -244,6 +251,23 @@ __device__ __forceinline__ void async_rows(const STile<T, W>& t, const T* src, l
   }
 }
 
+// The same for x or dY with Q columns: by cp.async where Q == P, else an
+// element at a time, zeros past Q (and past S).
+template <int Q, typename T, int P>
+__device__ __forceinline__ void load_rows(const STile<T, P>& t, const T* src, long long rs, int s0,
+                                          int S) {
+  if constexpr (Q == P) {
+    async_rows(t, src, rs, s0, S);
+  } else {
+    using U = typename RawBits<T>::type;
+    const U* bits = reinterpret_cast<const U*>(src);
+    for (int i = threadIdx.x; i < L * P; i += NT) {
+      const int l = i / P, c = i % P, s = s0 + l;
+      reinterpret_cast<U*>(t.p)[t.off(l, c)] = s < S && c < Q ? bits[s * rs + c] : U(0);
+    }
+  }
+}
+
 // A chunk's (N, P) f32 state into t, by cp.async.
 template <int N, int P>
 __device__ __forceinline__ void async_state(const STile<float, P>& t, const float* src) {
@@ -356,7 +380,7 @@ struct GradSmem {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-template <typename T, int N, int P>
+template <typename T, int N, int P, int Q>
 __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
   using SM = GradSmem<T, N, P>;
   constexpr bool EX = STile<T, P>::EXACT;
@@ -383,7 +407,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
   };
 
   async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
-  async_rows(ys(0), at<T>(p.dy, p.dys, k.bi, k.h0), p.dys[1], k.s0, p.S);
+  load_rows<Q>(ys(0), at<T>(p.dy, p.dys, k.bi, k.h0), p.dys[1], k.s0, p.S);
   if (warp == 0) weights(fetch_dt(p, k, k.h0), ew);
   cp_async_wait_all();
   __syncthreads();
@@ -392,7 +416,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
     const bool more = kq + 1 < p.kh;
     HeadDt next{};
     if (more) {  // the next head's dY arrives while this head's product runs
-      async_rows(ys(st ^ 1), at<T>(p.dy, p.dys, k.bi, h + 1), p.dys[1], k.s0, p.S);
+      load_rows<Q>(ys(st ^ 1), at<T>(p.dy, p.dys, k.bi, h + 1), p.dys[1], k.s0, p.S);
       if (warp == 0) next = fetch_dt(p, k, h + 1);
     }
     if (c0 < P) {
@@ -432,7 +456,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
 }
 
 // ---- 2: g <- exp(cum_{L-1}) g + Z_c, chunks in reverse, in place -----------------------------
-template <int N, int P>
+template <int N, int P, int Q>
 __global__ void __launch_bounds__(NT_PASS) ssd_bwd_state_pass(const Params p) {
   constexpr int V = N * P / 4;  // float4s per chunk state
   const int e4 = blockIdx.x * NT_PASS + threadIdx.x;
@@ -440,12 +464,13 @@ __global__ void __launch_bounds__(NT_PASS) ssd_bwd_state_pass(const Params p) {
   const long long bh = blockIdx.y;
   const float* dec = p.decay + bh * p.nc;
   float4* st = reinterpret_cast<float4*>(p.g) + bh * p.nc * V + e4;
-  // dState is (P, N) per head, the scratch (N, P)
+  // dState is (Q, N) per head, the scratch (N, P)
   const int n = 4 * e4 / P, q = 4 * e4 % P;
   float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
   if (p.dstate) {
-    const float* ds = p.dstate + bh * P * N + n;
-    g = make_float4(ds[q * N], ds[(q + 1) * N], ds[(q + 2) * N], ds[(q + 3) * N]);
+    const float* ds = p.dstate + bh * Q * N + n;
+    const auto col = [&](int j) { return Q == P || q + j < Q ? ds[(q + j) * N] : 0.f; };
+    g = make_float4(col(0), col(1), col(2), col(3));
   }
   // step k visits chunk nc-1-k: Z_c is read and the gradient of the state
   // leaving chunk c written in its place; the next PASS_DEPTH chunks' loads
@@ -494,7 +519,7 @@ struct DxbcSmem {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-template <typename T, int N, int P>
+template <typename T, int N, int P, int Q>
 __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
   using SM = DxbcSmem<T, N, P>;
   constexpr int XS = SM::XS, SS = SM::SS;
@@ -528,8 +553,8 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
     return STile<T, P>{reinterpret_cast<T*>(xbase + (XS + st) * SM::X_BYTES)};
   };
   const auto fetch_xy = [&](int st, int h) {
-    async_rows(xs(st), at<T>(p.x, p.xs, k.bi, h), p.xs[1], k.s0, p.S);
-    async_rows(ys(st), at<T>(p.dy, p.dys, k.bi, h), p.dys[1], k.s0, p.S);
+    load_rows<Q>(xs(st), at<T>(p.x, p.xs, k.bi, h), p.xs[1], k.s0, p.S);
+    load_rows<Q>(ys(st), at<T>(p.dy, p.dys, k.bi, h), p.dys[1], k.s0, p.S);
   };
   async_rows(Bs, at<T>(p.b, p.bs, k.bi, k.g), p.bs[1], k.s0, p.S);
   async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
@@ -703,8 +728,10 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
         const int q = cp0 + 8 * j + 2 * tq;
         pa += X.at(ra, q, s1) * dxa[j][0] + X.at(ra, q + 1, s1) * dxa[j][1];
         pb += X.at(rb, q, s1) * dxa[j][2] + X.at(rb, q + 1, s1) * dxa[j][3];
-        if (sa < p.S) store_pair(dxg + (k.row(p, sa) * p.H + h) * P + q, da0 * dxa[j][0], da0 * dxa[j][1]);
-        if (sb < p.S) store_pair(dxg + (k.row(p, sb) * p.H + h) * P + q, db0 * dxa[j][2], db0 * dxa[j][3]);
+        if (sa < p.S)
+          store_pair_cols<Q, P>(dxg + (k.row(p, sa) * p.H + h) * Q, q, da0 * dxa[j][0], da0 * dxa[j][1]);
+        if (sb < p.S)
+          store_pair_cols<Q, P>(dxg + (k.row(p, sb) * p.H + h) * Q, q, db0 * dxa[j][2], db0 * dxa[j][3]);
       }
       pa = quad_sum(pa), pb = quad_sum(pb);
       if (tq == 0) dpart[hc * L + ra] = pa, dpart[hc * L + rb] = pb;
@@ -846,16 +873,18 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
   return cudaGetLastError();
 }
 
-template <typename T, int N, int P>
+// Q: the call's head dim; the tiles take P = tile_p(Q)
+template <typename T, int N, int Q>
 cudaError_t run(const Params& p, cudaStream_t stream) {
+  constexpr int P = tile_p(Q);
   const dim3 blocks(p.nc, p.B * p.H / p.kh);
-  cudaError_t err = launch(ssd_bwd_chunk_grad<T, N, P>, blocks, NT, GradSmem<T, N, P>::BYTES, p,
+  cudaError_t err = launch(ssd_bwd_chunk_grad<T, N, P, Q>, blocks, NT, GradSmem<T, N, P>::BYTES, p,
                            stream);
   if (err == cudaSuccess)
-    err = launch(ssd_bwd_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
+    err = launch(ssd_bwd_state_pass<N, P, Q>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
                  NT_PASS, 0, p, stream);
   if (err == cudaSuccess)
-    err = launch(ssd_bwd_dxbc<T, N, P>, blocks, NT, DxbcSmem<T, N, P>::BYTES, p, stream);
+    err = launch(ssd_bwd_dxbc<T, N, P, Q>, blocks, NT, DxbcSmem<T, N, P>::BYTES, p, stream);
   if (err == cudaSuccess) {
     const long long sums = static_cast<long long>(p.B) * p.S * p.G * (N / 4);
     err = launch(ssd_bwd_group_sum<T, N>, dim3(static_cast<unsigned>((sums + NT_SUM - 1) / NT_SUM)),
@@ -868,6 +897,10 @@ cudaError_t run(const Params& p, cudaStream_t stream) {
 template <typename T, int N>
 cudaError_t dispatch_p(const Params& p, int P, cudaStream_t stream) {
   switch (P) {
+    case 1: return run<T, N, 1>(p, stream);
+    case 2: return run<T, N, 2>(p, stream);
+    case 4: return run<T, N, 4>(p, stream);
+    case 8: return run<T, N, 8>(p, stream);
     case 16: return run<T, N, 16>(p, stream);
     case 32: return run<T, N, 32>(p, stream);
     case 64: return run<T, N, 64>(p, stream);
@@ -889,26 +922,26 @@ cudaError_t dispatch_n(const Params& p, int P, int N, cudaStream_t stream) {
 
 }  // namespace
 
-// The floats of one call's own scratch: B*H*nc*N*P + 2*B*S*(H/kh)*N + B*H*nc,
-// kh = heads_per_block(H/G, B*H*nc).  0 for sizes the entry refuses.
+// The floats of one call's own scratch: B*H*nc*N*tile_p(P) + 2*B*S*(H/kh)*N
+// + B*H*nc, kh = heads_per_block(H/G, B*H*nc).  0 for sizes the entry refuses.
 extern "C" long long ssd_scan_bwd_scratch_floats(int B, int S, int H, int G, int P, int N) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return 0;
   const long long nc = (S + L - 1) / L;
   const int kh = heads_per_block(H / G, B * H * nc);
-  return B * H * nc * (static_cast<long long>(N) * P + 1) +
+  return B * H * nc * (static_cast<long long>(N) * tile_p(P) + 1) +
          2LL * B * S * (H / kh) * N;
 }
 
 // ptrs[14]: x, dt, a, b, c, dy, dstate (0: zero), the forward's scratch (the
-// states entering each chunk, B*H*nc*N*P floats, then each chunk's decay,
+// states entering each chunk, B*H*nc*N*tile_p(P) floats, then each chunk's decay,
 // B*H*nc), this call's scratch (work_floats floats, at least
 // ssd_scan_bwd_scratch_floats), dx, ddt, da, db, dc.  x (B,S,H,P), dt
 // (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), dy (B,S,H,P) read through
 // strides[15] = (batch, seq, head|group) element strides of x, dt, b, c, dy,
-// with the last dim contiguous and rows 16-byte aligned; dstate (B,H,P,N)
-// f32, dx (B,S,H,P), ddt (B,S,H) f32, db/dc (B,S,G,N) contiguous.  dtype (of
-// x, b, c, dy, dx, db, dc): 0 = float32, 1 = bfloat16.  P and N in {16, 32,
-// 64, 128}.  Returns cudaErrorInvalidValue for a scratch too short, else the
+// with the last dim contiguous and rows 16-byte aligned (x and dy at P >= 16
+// only); dstate (B,H,P,N) f32, dx (B,S,H,P), ddt (B,S,H) f32, db/dc
+// (B,S,G,N) contiguous.  dtype (of x, b, c, dy, dx, db, dc): 0 = float32, 1 =
+// bfloat16.  P in {1, 2, 4, 8, 16, 32, 64, 128}, N in {16, 32, 64, 128}.  Returns cudaErrorInvalidValue for a scratch too short, else the
 // first launch's cudaGetLastError() that is not 0, else 0.
 extern "C" int ssd_scan_bwd(const long long* ptrs, const long long* strides,
                             long long work_floats, int dtype, int B, int S, int H, int G, int P,
@@ -918,7 +951,7 @@ extern "C" int ssd_scan_bwd(const long long* ptrs, const long long* strides,
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + L - 1) / L;
   const int kh = heads_per_block(H / G, static_cast<long long>(B) * H * nc);
-  const long long states = static_cast<long long>(B) * H * nc * N * P;
+  const long long states = static_cast<long long>(B) * H * nc * N * tile_p(P);
   const long long per_block = static_cast<long long>(B) * S * (H / kh) * N;
   const auto ptr = [&](int i) { return reinterpret_cast<void*>(ptrs[i]); };
   float* fwd = static_cast<float*>(ptr(7));

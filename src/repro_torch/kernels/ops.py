@@ -16,7 +16,11 @@ whole the dims each kernel needs whole:
     their offset in the sequence (``shard_extent``) against k/v held whole
     along it, and the keys' gradients are each rank's share, summed;
   * the SSD scan: batch and heads may be split (b/c's groups with them, or
-    whole when there is one group); the scan's sequence stays whole;
+    whole when there is one group), or head_dim where the heads do not
+    divide the mesh axis: each rank scans its columns of every head with
+    dt, a, b and c whole, and their gradients are each rank's share,
+    summed; the final state keeps x's splits; the scan's sequence stays
+    whole;
   * RMSNorm: rows may be split; the normalised last dim stays whole.
 """
 from __future__ import annotations
@@ -72,10 +76,10 @@ def ssd(x, dt, a, b, c):
     masks the ragged last one.  Unlike the JAX wrapper, nothing is repeated
     over groups or transposed: the kernel reads the model layout.
     """
-    whole_groups = {0: 0} if b.shape[2] == 1 else None  # one group: every head reads it
-    return on_local_shards(_local_ssd, (x, dt, a, b, c), (0, 2),
-                           follow=(None, None, {2: 0}, whole_groups, whole_groups),
-                           out=(None, {0: 0, 2: 1}))
+    groups = {0: 0} if b.shape[2] == 1 else {0: 0, 2: 2}  # one group: every head reads it
+    return on_local_shards(_local_ssd, (x, dt, a, b, c), (0, 2, 3),
+                           follow=(None, {0: 0, 2: 2}, {2: 0}, groups, groups),
+                           out=(None, {0: 0, 2: 1, 3: 2}))
 
 
 def _rmsnorm_rows(x, w, eps):

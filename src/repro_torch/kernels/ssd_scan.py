@@ -21,7 +21,10 @@ b/c (B, S, G, N), head ``h`` reading group ``h // (H/G)`` through strides,
 and write the final state directly as (B, H, P, N).  Their chunk length (64)
 is their own choice; any S, the ragged last chunk masked.  Rows of x, b and c
 are read 16 bytes at a time, so a view whose rows are not 16-byte aligned is
-copied first.
+copied first.  Head dims below 16 (``DIMS``: 1, 2, 4 and 8, what a head_dim
+split over a mesh axis leaves a rank) run on the tiles of 16 columns
+(``tile_p``), x read an element at a time and zeros past its columns; y,
+the final state and dx keep the call's own head dim.
 
 ``ssd_scan`` takes the kernels for a CUDA tensor and its plain version
 (``ssd_scan_plain``, built on ``ref.ssd_ref``) for a CPU tensor; any other
@@ -64,7 +67,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, _library, ref
 
-DIMS = (16, 32, 64, 128)  # the head dims P and state sizes N the kernel takes
+DIMS = (1, 2, 4, 8, 16, 32, 64, 128)  # the head dims P the kernels take
+STATE_DIMS = (16, 32, 64, 128)  # and the state sizes N
 CHUNK = 64  # the kernels' chunk length, L in csrc/ssd_scan.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,10 +102,16 @@ def _bwd_scratch_entry():
     return fn
 
 
+def tile_p(p: int) -> int:
+    """The columns of the kernels' tiles for head dim ``p``: head dims below
+    16 run on tiles of 16 (``tile_p`` in ``csrc/ssd_scan.cuh``)."""
+    return max(p, 16)
+
+
 def scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
-    """f32 scratch of one call: each chunk's (N, P) state and its decay, per
-    (batch, head)."""
-    return bsz * h * -(-s // CHUNK) * (n * p + 1)
+    """f32 scratch of one call: each chunk's (N, tile_p(P)) state and its
+    decay, per (batch, head)."""
+    return bsz * h * -(-s // CHUNK) * (n * tile_p(p) + 1)
 
 
 def heads_per_block(heads_per_group: int, chunk_heads: int) -> int:
@@ -117,12 +127,13 @@ def heads_per_block(heads_per_group: int, chunk_heads: int) -> int:
 
 
 def bwd_scratch_floats(bsz: int, s: int, h: int, g: int, p: int, n: int) -> int:
-    """f32 scratch of one backward call: per (batch, head) and chunk an (N, P)
-    state gradient and a share of da, and dB and dC of each head-block (the
-    ``heads_per_block`` heads of a group that one block sums)."""
+    """f32 scratch of one backward call: per (batch, head) and chunk an (N,
+    tile_p(P)) state gradient and a share of da, and dB and dC of each
+    head-block (the ``heads_per_block`` heads of a group that one block
+    sums)."""
     nc = -(-s // CHUNK)
     blocks = h // heads_per_block(h // g, bsz * h * nc)
-    return bsz * h * nc * (n * p + 1) + 2 * bsz * s * blocks * n
+    return bsz * h * nc * (n * tile_p(p) + 1) + 2 * bsz * s * blocks * n
 
 
 def _aligned(t) -> bool:
@@ -233,8 +244,9 @@ def _check(x, dt, a, b, c):
 def _check_card(x, b):
     bsz, s, h, p = x.shape
     n = b.shape[3]
-    if p not in DIMS or n not in DIMS:
-        raise ValueError(f"the kernel takes head_dim and state size in {DIMS}, not {p} and {n}")
+    if p not in DIMS or n not in STATE_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {DIMS} and state size in {STATE_DIMS}, "
+                         f"not {p} and {n}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes {sorted(map(str, _DTYPES))}, not {x.dtype}")
     if bsz * s == 0:
@@ -243,10 +255,11 @@ def _check_card(x, b):
         raise ValueError(f"the kernels take at most 65535 batch*heads, not {bsz * h}")
 
 
-def _rows_ready(t):
+def _rows_ready(t, by_element: bool = False):
     """t itself if the kernels can read its rows (last axis contiguous, rows
-    on 16 bytes), else a copy in a fresh contiguous buffer."""
-    if t.stride(-1) == 1 and _aligned(t):
+    on 16 bytes unless they are read ``by_element``: x and dy below 16
+    columns), else a copy in a fresh contiguous buffer."""
+    if (t.stride(-1) == 1 or t.shape[-1] == 1) and (by_element or _aligned(t)):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -302,7 +315,9 @@ def ssd_scan_bwd(x, dt, a, b, c, scratch, dy, dstate=None):
 def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
     """One backward call on checked CUDA tensors, dstate possibly None: the
     CUDA implementation of ``repro_torch::ssd_bwd``."""
-    x, b, c, dy = (_rows_ready(t) for t in (x, b, c, dy))
+    narrow = x.shape[-1] < 16  # x and dy read an element at a time
+    x, dy = (_rows_ready(t, narrow) for t in (x, dy))
+    b, c = _rows_ready(b), _rows_ready(c)
     dstate = None if dstate is None else dstate.contiguous()
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -386,10 +401,10 @@ def ssd_scan(x, dt, a, b, c):
     if x.device.type != "cuda" and not fake:
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
     _check_card(x, b)
-    if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
+    if any(t.stride(-1) != 1 and t.shape[-1] != 1 for t in (x, b, c)) or not a.is_contiguous():
         raise ValueError("the last axis of x, b and c, and a, must be contiguous")
     if not fake:
-        x, b, c = (_rows_ready(t) for t in (x, b, c))
+        x, b, c = _rows_ready(x, x.shape[-1] < 16), _rows_ready(b), _rows_ready(c)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
         return SSDScanFn.apply(x, dt, a, b, c)
     y, state, _ = _fwd_op(x, dt, a, b, c)

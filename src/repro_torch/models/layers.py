@@ -20,9 +20,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch._guards import detect_fake_mode
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.local_shards import (grad_as_input, lift, on_local_shards, shard_extent,
+from repro_torch.parallel.local_shards import (grad_as_input, keep_weight_split, lift,
+                                               mesh_dims_along, on_local_shards, shard_extent,
                                                split_along, whole_along)
 
 
@@ -149,21 +151,73 @@ def _rows_in_shard(table, tokens, start: int):
 
 
 def take_embedding(table, tokens):
-    """The rows of ``table`` at ``tokens``, looked up on each rank's tokens
+    """The rows of ``table`` at ``tokens``, looked up on local shards
     (``on_local_shards``).  A table split over its vocabulary (the JAX
     ``jnp.take`` on the vocab-split table) stays split: each rank looks the
     tokens up in its own rows, zeros for the rest, and the result is its
     share of a sum over the ranks that split the vocabulary (``Partial``,
     which the residual stream's constraint reduce-scatters); the table's
-    gradient stays on each rank's rows.  Any other split of the table is
-    gathered, and its gradient is the sum of every rank's share."""
-    if not split_along(table, 0):
-        return on_local_shards(lambda t, i: t[i], (table, tokens), range(tokens.ndim), lead=1,
-                               follow=({}, None))
-    # the plan splits the vocabulary over mesh dims that leave the tokens whole
-    fn = functools.partial(_rows_in_shard, start=shard_extent(table, 0)[0])
+    gradient stays on each rank's rows.  A table whose columns are split
+    (the FSDP split of 'embed' over 'data') stays split too where the
+    tokens cost fewer bytes to move (``keep_weight_split``: decode's few
+    tokens against the table): each rank looks every token up in its own
+    columns, and the caller's constraint lays the rows out.  Otherwise the
+    lookup runs on each rank's tokens with the table's columns gathered,
+    their gradient the sum of every rank's share."""
+    vocab = split_along(table, 0)
+    fn = functools.partial(_rows_in_shard, start=shard_extent(table, 0)[0]) if vocab \
+        else (lambda t, i: t[i])
+    own = {0: (0,)} if vocab else None  # the vocabulary's split stays
+    fsdp = mesh_dims_along(table, 1)
+    if fsdp:
+        mesh, local = table.device_mesh, table.to_local()
+        cols = table.shape[1] // math.prod(mesh.size(i) for i in fsdp)
+        move = tokens.numel() * (cols * table.element_size() + tokens.element_size())
+        if keep_weight_split(move, local.shape[0] * table.shape[1] * table.element_size()):
+            # every token on every rank, looked up in the rank's own columns
+            return on_local_shards(fn, (table, tokens), (1,), follow=(None, {}),
+                                   out={1: tokens.ndim}, own=own)
     return on_local_shards(fn, (table, tokens), range(tokens.ndim), lead=1, follow=({}, None),
-                           own={0: (0,)})
+                           own=own)
+
+
+def head_product(h, w, plan):
+    """The LM head, ``h (..., D) @ w (D, V)``, keeping split the work that a
+    plain product under the plan would repeat on every rank:
+      * a 'model' axis that splits neither operand (a vocabulary that does
+        not divide it, in decode and prefill, whose rows it leaves whole)
+        splits w's vocabulary columns in ``DTensor``'s ceil-sized pieces,
+        the last one short, as XLA pads the vocabulary and splits the
+        product; each rank computes its columns' logits, which the caller's
+        constraint lays out;
+      * w's FSDP split of D over a mesh dim stays where moving h's rows
+        there costs fewer bytes than gathering w (``keep_weight_split``):
+        h's rows are gathered over that mesh dim with their D split as w's
+        is, and the partial products, a ``Partial`` sum, are reduced into
+        the caller's layout.
+    Under no plan, or where neither applies, ``linear``."""
+    if not isinstance(w, DTensor):
+        return linear(h, w)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" in names:
+        i = names.index("model")
+        if mesh.size(i) > 1 and not plan.can_shard("vocab", w.shape[1]) and all(
+                not isinstance(t, DTensor) or t.placements[i].is_replicate() for t in (h, w)):
+            w = w.redistribute(mesh, tuple(Shard(1) if j == i else q
+                                           for j, q in enumerate(w.placements)))
+    fsdp = [i for i in mesh_dims_along(w, 0) if i not in mesh_dims_along(h, h.ndim - 1)]
+    if fsdp and isinstance(h, DTensor):
+        local = h.to_local()
+        rows = local.numel() // local.shape[-1] * math.prod(
+            mesh.size(i) for i in fsdp if isinstance(h.placements[i], Shard))
+        cols = w.to_local().shape[1]
+        move = rows * (h.shape[-1] // math.prod(mesh.size(i) for i in fsdp) + cols) \
+            * h.element_size()
+        if keep_weight_split(move, w.shape[0] * cols * w.element_size()):
+            h = h.redistribute(mesh, tuple(Shard(h.ndim - 1) if j in fsdp else q
+                                           for j, q in enumerate(h.placements)))
+    return linear(h, w)
 
 
 # ---------------------------------------------------------------------------

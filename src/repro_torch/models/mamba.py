@@ -25,11 +25,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, linear, rmsnorm
-from repro_torch.parallel.local_shards import on_local_shards, whole_along
+from repro_torch.parallel.local_shards import on_local_shards, split_along
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 DEFAULT_CHUNK = 256
@@ -120,11 +121,31 @@ def ssd_chunked(x, dt, a, b, c, chunk: int = DEFAULT_CHUNK, h0=None):
     return torch.cat(ys, dim=1), hprev
 
 
-def _whole_heads(t, nh: int, plan: ShardingPlan, axes):
-    """``t`` (..., d_inner) kept whole along its last dim under a plan whose
-    'model' axis does not split the ``nh`` heads, so that it can be viewed
-    as (heads, head_dim)."""
-    return t if plan.can_shard("ssm_heads", nh) else plan.constrain(t, axes)
+def _heads(t, shape, plan: ShardingPlan, axes):
+    """``t`` (..., d_inner) viewed as ``shape`` (..., heads, head_dim) and
+    laid out by ``axes`` + ("ssm_heads", "ssm_head_dim"): split over 'model'
+    by its heads where they divide it, else by its head_dim where that
+    does (mamba2's 24 heads on 16 ranks: each rank scans 4 of the 64
+    columns of every head, since every product of the scan but those of
+    dt, a, B and C is independent across head_dim, as the JAX plan splits
+    the SSM state), else whole.  A d_inner split that the heads do not
+    follow is gathered first: its pieces need not fall on heads."""
+    nh = shape[-2]
+    if not plan.can_shard("ssm_heads", nh):
+        t = plan.constrain(t, axes + (None,))
+    return plan.constrain(t.view(*shape), axes + ("ssm_heads", "ssm_head_dim"))
+
+
+def _fold_heads(y, shape):
+    """``y`` (..., heads, head_dim) viewed as ``shape`` (..., d_inner).  A
+    ``DTensor`` view may fold the two only where head_dim is not split, so a
+    head_dim split moves first: to the sequence of the scan's (B, S, H, P)
+    (an all-to-all), or away from decode's (B, H, P) (a gather)."""
+    d = y.ndim - 1
+    if split_along(y, d):
+        to = Shard(1) if y.ndim == 4 else Replicate()
+        y = y.redistribute(y.device_mesh, tuple(to if q == Shard(d) else q for q in y.placements))
+    return y.reshape(shape)
 
 
 def _in_proj(p, x):
@@ -146,12 +167,11 @@ def _scan(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     bi = _causal_conv(bi0, p["conv_b"])
     ci = _causal_conv(ci0, p["conv_c"])
     a = -torch.exp(p["a_log"].float())
-    xi = _whole_heads(xi, nh, plan, ("batch", None, None))
-    xh = plan.constrain(xi.view(bsz, s, nh, hd), ("batch", None, "ssm_heads", None))
+    xh = _heads(xi, (bsz, s, nh, hd), plan, ("batch", None))
     dt = plan.constrain(dt, ("batch", None, "ssm_heads"))
     y, hlast = ops.ssd(xh, dt, a, bi.view(bsz, s, g, ds), ci.view(bsz, s, g, ds))
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = plan.constrain(y.reshape(bsz, s, din), ("batch", "seq", "d_inner"))
+    y = plan.constrain(_fold_heads(y, (bsz, s, din)), ("batch", "seq", "d_inner"))
     y = rmsnorm(y * F.silu(z), p["norm"], spec.norm_eps)
     return linear(y, p["w_out"]), (xi0, bi0, ci0), hlast
 
@@ -210,13 +230,13 @@ def mamba_decode(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
 
     a = -torch.exp(p["a_log"].float())                        # (nh,)
     decay = torch.exp(dt * a)                                 # (B, nh)
-    xh = _whole_heads(xi, nh, plan, ("batch", None)).reshape(bsz, nh, hd).float()
+    xh = _heads(xi, (bsz, nh, hd), plan, ("batch",)).float()
     bh = bi.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()  # (B,nh,ds)
     chp = ci.reshape(bsz, g, ds).repeat_interleave(nh // g, dim=1).float()
     h = cache["ssm"].float()
     h = h * decay[..., None, None] + (dt[..., None] * xh)[..., None] * bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", h, chp).to(x.dtype)
     y = y + xh.to(x.dtype) * p["d_skip"].to(x.dtype)[None, :, None]
-    y = rmsnorm(whole_along(y, 2).reshape(bsz, din) * F.silu(z), p["norm"], spec.norm_eps)
+    y = rmsnorm(_fold_heads(y, (bsz, din)) * F.silu(z), p["norm"], spec.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
     return out, _store(cache, plan, conv=window[:, 1:], ssm=h)

@@ -26,8 +26,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import blocks
-from repro_torch.models.layers import (ParamDef, abstract_tree, axes_tree, fake_mode, init_tree,
-                                       linear, map_with_path, rmsnorm, take_embedding)
+from repro_torch.models.layers import (ParamDef, abstract_tree, axes_tree, fake_mode,
+                                       head_product, init_tree, map_with_path, rmsnorm,
+                                       take_embedding)
+from repro_torch.parallel.local_shards import grad_as_input
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
@@ -97,11 +99,21 @@ def cache_axes(spec: ArchSpec, batch: int, seq: int):
 
 # ---------------------------------------------------------------------------
 
+def _table(params, spec: ArchSpec):
+    """The token table.  Tied to the head, it is used twice, and each use's
+    gradient comes back in the table's own layout (``grad_as_input``), so the
+    two add as they are: a gradient split over a mesh dim and one that is a
+    partial sum over it would otherwise meet in the add, which torch 2.11's
+    ``DTensor`` plans as a Shard-to-Partial redistribution it does not have
+    (mamba2-130m's train_4k on the pod)."""
+    return grad_as_input(params["embed"]) if spec.tie_embeddings else params["embed"]
+
+
 def _embed_in(params, inputs, spec: ArchSpec, compute_dtype, plan: ShardingPlan = NULL_PLAN):
     """(B, S) tokens or (B, S, D) embeddings, or in decode (B,) or (B, D),
     constrained as the JAX package constrains each (:72, :144)."""
     if spec.frontend == "tokens":
-        x = take_embedding(params["embed"], inputs).to(compute_dtype)
+        x = take_embedding(_table(params, spec), inputs).to(compute_dtype)
     else:
         x = inputs.to(compute_dtype)  # precomputed embeddings
     return plan.constrain(x, ("batch", "seq", "embed") if x.ndim == 3 else ("batch", "embed"))
@@ -109,9 +121,9 @@ def _embed_in(params, inputs, spec: ArchSpec, compute_dtype, plan: ShardingPlan 
 
 def _project(params, h, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     if spec.frontend == "tokens" and spec.tie_embeddings:
-        logits = linear(h, params["embed"].T)
+        logits = head_product(h, _table(params, spec).T, plan)
     else:
-        logits = linear(h, params["lm_head"])
+        logits = head_product(h, params["lm_head"], plan)
     axes = ("batch", "seq", "vocab") if logits.ndim == 3 else ("batch", "vocab")
     return plan.constrain(logits, axes)
 

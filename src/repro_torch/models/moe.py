@@ -32,7 +32,8 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.layers import ParamDef
-from repro_torch.parallel.local_shards import on_local_shards, replicate, shard_extent
+from repro_torch.parallel.local_shards import (keep_weight_split, mesh_dims_along,
+                                               on_local_shards, replicate, shard_extent, sum_over)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 CAPACITY_FACTOR = 1.25
@@ -98,10 +99,15 @@ def route(logits, k: int, cap: int):
     return top_i, slots, keep, top_w, {**balance(sums, g * t, e, k), "sums": sums}
 
 
-def _expert_ffn(xe, w_gate, w_up, w_down):
-    """SwiGLU of each expert's rows: xe (E, R, D) -> (E, R, D)."""
+def _expert_ffn(xe, w_gate, w_up, w_down, contract=None):
+    """SwiGLU of each expert's rows: xe (E, R, D) -> (E, R, D).  With
+    ``contract`` (the ranks that split D, each holding its columns of xe and
+    its rows of w_gate and w_up, and its columns of w_down), the gate and up
+    products are summed over them, and each rank's output is its D columns."""
     gate = torch.bmm(xe, w_gate.to(xe.dtype))
     up = torch.bmm(xe, w_up.to(xe.dtype))
+    if contract is not None:
+        gate, up = sum_over(gate, contract), sum_over(up, contract)
     return torch.bmm(F.silu(gate) * up, w_down.to(xe.dtype))
 
 
@@ -113,7 +119,7 @@ def _all_to_all(t, group):
 
 
 def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 0,
-             group=None):
+             group=None, contract=None):
     """Route the groups of xg (G, T, D) and run their kept tokens through the
     experts: y (G, T, D) and ``route``'s sums.
 
@@ -122,10 +128,16 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 
     experts from ``e_start`` on.  Those then run on this rank's own rows of
     the buffer (the rest of y is another rank's share), or, with ``group``
     (the ranks that split the experts, each holding its own groups), every
-    rank's rows of them, exchanged by ``all_to_all`` there and back."""
+    rank's rows of them, exchanged by ``all_to_all`` there and back.  With
+    ``contract`` (the ranks that split D, which hold the same groups), xg,
+    the router and the weights are this rank's D columns or rows: the
+    router's and the gate and up products' partial sums are summed over
+    them, and y is this rank's D columns."""
     ng, tg, d = xg.shape
     e, el = router.shape[1], w_gate.shape[0]
     logits = (xg @ router.to(xg.dtype)).float()
+    if contract is not None:
+        logits = sum_over(logits, contract)
     top_i, slots, keep, top_w, aux = route(logits, k, cap)
 
     # row of each assignment in the (E, G, C) buffer; a dropped one goes to a
@@ -142,18 +154,19 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 
     if el == e or group is not None:
         xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
         if group is None:
-            ye = _expert_ffn(xe, w_gate, w_up, w_down).view(n_rows, d)
+            ye = _expert_ffn(xe, w_gate, w_up, w_down, contract).view(n_rows, d)
         else:  # (n, el, G C, D): chunk r to rank r, which holds experts r el ...
             n = e // el
             got = _all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
             out = _expert_ffn(got.transpose(0, 1).reshape(el, n * ng * cap, d), w_gate, w_up,
-                              w_down)
+                              w_down, contract)
             ye = _all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group).view(n_rows, d)
         picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1))
     else:  # this rank's experts only: a zero row for the others' assignments
         lo, n_mine = e_start * ng * cap, el * ng * cap
         xe = rows.index_select(0, src[lo:lo + n_mine]).view(el, ng * cap, d)
-        ye = F.pad(_expert_ffn(xe, w_gate, w_up, w_down).view(n_mine, d), (0, 0, 0, 1))
+        ye = F.pad(_expert_ffn(xe, w_gate, w_up, w_down, contract).view(n_mine, d),
+                   (0, 0, 0, 1))
         mine = keep & (top_i >= e_start) & (top_i < e_start + el)
         picked = ye.index_select(0, torch.where(mine, row - lo, n_mine).reshape(-1))
     picked = picked.view(ng, tg, k, d)
@@ -161,7 +174,7 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 
 
 
 def _moe_local(x, router, w_gate, w_up, w_down, *, k: int, cap: int, tg: int,
-               e_start: int = 0, group=None, first: bool = True):
+               e_start: int = 0, group=None, contract=None, first: bool = True):
     """``_experts`` on x (B, S, D) cut into groups of ``tg`` tokens in
     chunk-major order (G = chunk * B + b, as the JAX module has it), and y
     back in x's layout.  ``first``: whether this rank reports the routing
@@ -169,10 +182,31 @@ def _moe_local(x, router, w_gate, w_up, w_down, *, k: int, cap: int, tg: int,
     b, s, d = x.shape
     nc = s // tg
     xg = x.reshape(b, nc, tg, d).transpose(0, 1).reshape(nc * b, tg, d)
-    y, *sums = _experts(xg, router, w_gate, w_up, w_down, k, cap, e_start, group)
+    y, *sums = _experts(xg, router, w_gate, w_up, w_down, k, cap, e_start, group, contract)
     if not first:
         sums = [t * 0 for t in sums]
     return y.reshape(nc, b, tg, d).transpose(0, 1).reshape(b, s, d), *sums
+
+
+def _fsdp_bytes(x, weights, rows, fsdp, split, ep, tg: int, cap: int):
+    """(the bytes moved to keep the experts' D split over the mesh dims
+    ``fsdp``, the bytes of gathering it): x's rows over those dims and the
+    router's, gate's and up's partial sums, against the router and the three
+    expert weights, each as a rank holds it.  ``rows``: the mesh dims whose
+    split of x's rows stays; ``split``: mesh dim -> the experts' split dim
+    (0 experts, 2 ff); ``ep``: the mesh dims whose all-to-all brings every
+    rank's capacity rows."""
+    mesh, (router, wg) = x.device_mesh, weights[:2]
+    size = lambda dims: math.prod(mesh.size(i) for i in dims)
+    b, s, d = x.shape
+    n_rows = b * s // size(i for i in rows if i not in fsdp)
+    el = wg.shape[0] // size(i for i, dim in split.items() if dim == 0)
+    fl = wg.shape[2] // size(i for i, dim in split.items() if dim == 2)
+    buffer = el * size(ep) * (n_rows // tg) * cap  # the expert rows a rank runs
+    move = n_rows * d * x.element_size() + n_rows * router.shape[1] * 4 \
+        + 2 * buffer * fl * x.element_size()
+    gather = (d * router.shape[1] + 3 * el * d * fl) * wg.element_size()
+    return move, gather
 
 
 def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
@@ -193,6 +227,13 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
         whole: each rank runs its share (its experts, or its ff columns,
         ``w_down``'s partial sum) on the groups, and y is its share of a
         sum over that dim, which the residual stream's constraint reduces.
+    The weights' FSDP split of D over 'data' stays where moving x costs
+    fewer bytes than gathering the experts (``keep_weight_split``: decode's
+    few rows, batch 1 on every 'data' rank): x's rows are gathered over
+    that mesh dim and each rank takes its D columns (at batch 1 the
+    residual stream already holds them), the router's and the gate and up
+    products' partial sums are summed over it, and each rank's y is its D
+    columns.  Elsewhere the split is gathered for use.
     The balance sums add up across ranks before the loss is formed.  The
     results do not depend on the split."""
     b, s, d = x.shape
@@ -201,12 +242,12 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     cap = expert_capacity(tg, spec)
     weights = [p[name] for name in ("router", "w_gate", "w_up", "w_down")]
     fn = functools.partial(_moe_local, k=k, cap=cap, tg=tg)
-    keep, own = (0, 1), {2: (0, 2), 3: (0, 2), 4: (0, 1)}
+    keep, own, follow = (0, 1), {2: (0, 2), 3: (0, 2), 4: (0, 1)}, (None,) + ({},) * 4
     if isinstance(x, DTensor):
         mesh, wg = x.device_mesh, weights[1]
         split = {i: q.dim for i, q in enumerate(getattr(wg, "placements", ()))
                  if isinstance(q, Shard) and q.dim in (0, 2)}  # mesh dim -> expert or ff
-        over = {dim: [i for i, q in enumerate(x.placements) if q == Shard(dim)] for dim in keep}
+        over = {dim: mesh_dims_along(x, dim) for dim in keep}
         n = math.prod(mesh.size(i) for i in over[1])
         # a split of x stays where each rank's chunk holds whole groups and the
         # mesh dim splits no ff columns (whose partial sums need every row)
@@ -215,11 +256,19 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
         rows = {i for dim in keep for i in over[dim]}
         whole = [i for i in split if i not in rows]
         ep = [i for i in split if i in rows]
+        fsdp = mesh_dims_along(wg, 1)
+        contract = None
+        if fsdp and keep_weight_split(*_fsdp_bytes(x, weights, rows, fsdp, split, ep, tg, cap)):
+            x = x.redistribute(mesh, tuple(Shard(2) if i in fsdp else q
+                                           for i, q in enumerate(x.placements)))
+            keep = keep + (2,)
+            follow = (None, {2: 0}, {2: 1}, {2: 1}, {2: 2})  # D split as x's is
+            contract, whole = mesh.get_group(fsdp[0]), whole + fsdp
         fn = functools.partial(
-            fn, e_start=shard_extent(wg, 0)[0] if any(split[i] == 0 for i in whole) else 0,
-            group=mesh.get_group(ep[0]) if ep else None,
+            fn, e_start=shard_extent(wg, 0)[0] if any(split[i] == 0 for i in whole if i in split)
+            else 0, group=mesh.get_group(ep[0]) if ep else None, contract=contract,
             first=all(mesh.get_coordinate()[i] == 0 for i in whole))
-    y, *sums = on_local_shards(fn, (x, *weights), keep, follow=(None,) + ({},) * 4,
+    y, *sums = on_local_shards(fn, (x, *weights), keep, follow=follow,
                                out=(None, {}, {}, {}), own=own)
     sums = [replicate(t) for t in sums]
     return y, balance(sums, b * s, e, k)

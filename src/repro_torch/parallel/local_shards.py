@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -31,10 +32,52 @@ def lift(t: torch.Tensor, like) -> torch.Tensor:
     return DTensor.from_local(t, mesh, [R] * mesh.ndim, run_check=False)
 
 
+def mesh_dims_along(x: torch.Tensor, dim: int) -> list[int]:
+    """The mesh dims that split ``x``'s ``dim`` (none for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return []
+    return [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
+
+
 def split_along(x: torch.Tensor, dim: int) -> bool:
     """Does a mesh dim split ``x``'s ``dim``?  (Never for a plain tensor.)"""
-    return isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == dim
-                                          for p in x.placements)
+    return bool(mesh_dims_along(x, dim))
+
+
+def keep_weight_split(move_bytes: int, gather_bytes: int) -> bool:
+    """The rule for a weight split over a mesh dim along the dim a product
+    contracts (the FSDP split of 'embed' over 'data'): the product runs on
+    the weight's own shard, the activations moved to it (their rows
+    gathered over that mesh dim, or at batch 1 the rank's slice of their
+    contraction columns taken, and the partial products reduced into the
+    output's layout), where that moves fewer bytes, ``move_bytes``, than
+    gathering the weight, ``gather_bytes``; else the weight is gathered.
+    Both are reckoned from the shapes before the product runs."""
+    return move_bytes < gather_bytes
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` summed over ``group`` (each rank's share of a
+    product whose contraction dim that group splits), inside code that runs
+    on local shards.  Its gradient is the same sum of the gradients: what
+    follows runs on each rank's own part of the result, so each rank's
+    gradient is its share."""
+    return _SumOver.apply(t, group)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _wait(funcol.all_reduce(t.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wait(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def _wait(t):
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
 
 
 def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -63,8 +106,12 @@ class _GradAsInput(torch.autograd.Function):
 def grad_as_input(x: torch.Tensor) -> torch.Tensor:
     """``x``, whose gradient is laid out as ``x`` is: ``DTensor`` lays out a
     gradient op by op, and may split a dim that a view in the backward must
-    then unflatten unevenly.  A plain tensor as it is."""
-    return _GradAsInput.apply(x) if isinstance(x, DTensor) else x
+    then unflatten unevenly.  A plain tensor, or any tensor while grad mode
+    is off (serving's ``inference_mode``, where torch 2.11 refuses the view
+    of a tensor made outside it), as it is."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled():
+        return _GradAsInput.apply(x)
+    return x
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:

@@ -19,11 +19,10 @@ import functools
 
 import torch
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.local_shards import (on_local_shards, replicate, shard_extent,
-                                               split_along)
+from repro_torch.parallel.local_shards import (mesh_dims_along, on_local_shards, replicate,
+                                               shard_extent, split_along)
 
 
 def _nll_sum(logits, labels, ignore_index: int):
@@ -31,8 +30,7 @@ def _nll_sum(logits, labels, ignore_index: int):
     replicated on the logits' mesh when they are a ``DTensor``."""
     v = logits.ndim - 1
     if split_along(logits, v):
-        mesh, pl = logits.device_mesh, logits.placements
-        dims = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == v]
+        mesh, dims = logits.device_mesh, mesh_dims_along(logits, v)
         fn = functools.partial(_vocab_shard_nll_sum, ignore_index=ignore_index,
                                start=shard_extent(logits, v)[0],
                                groups=tuple(mesh.get_group(i) for i in dims),

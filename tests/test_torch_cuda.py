@@ -241,6 +241,13 @@ SSD_SHAPES = [
     # one x/dY stage and M^T, W^T in one buffer (f32, P = N = 128); N = 16
     (2, 4096, 8, 1, 128, 128),
     (2, 4096, 16, 2, 64, 16),
+    # head dims below 16 (a head_dim split over a mesh axis): the tiles of 16
+    # columns, x and dY read an element at a time; G 1 and 2, ragged S
+    (2, 1000, 24, 1, 4, 128),    # mamba2-130m's heads on one of 16 'model' ranks
+    (2, 300, 8, 1, 1, 16),       # reduced mamba2's on one of 16
+    (2, 200, 8, 2, 2, 16),
+    (2, 130, 4, 2, 8, 64),
+    (1, 65, 4, 1, 4, 32),
 ]
 
 
@@ -287,6 +294,29 @@ def test_ssd_kernel_reads_strided_inputs(dev):
     ye, he = ss.ssd_scan_plain(x, dt, a, bb, cc)
     _close_rel(y, ye, 1e-4)
     _close_rel(hl, he, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [(0, 1), (4, 8), (12, 16), (2, 4)])
+def test_ssd_narrow_head_dims_read_column_slices(dev, dtype, cols):
+    """A head_dim below 16 as a column slice of a wider x and dy (rows off
+    16 bytes, read an element at a time, not copied): y, the final state and
+    every gradient against the plain version on the same slice."""
+    lo, hi = cols
+    x, dt, a, bb, cc = _ssd_inputs(dev, 2, 150, 4, 2, 16, 32, dtype, "model")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)[..., lo:hi]
+    dstate = torch.randn((2, 4, hi - lo, 32), generator=gen, device=dev)
+    leaves = [t.detach().requires_grad_() for t in (x[..., lo:hi], dt, a, bb, cc)]
+    assert leaves[0].stride(-1) == 1 and leaves[0].stride(2) == 16
+    y, hl = ops.ssd(*leaves)
+    got = torch.autograd.grad((y, hl), leaves, (dy, dstate))
+    ye, he = ss.ssd_scan_plain(*leaves)
+    _close_rel(y, ye, TOL[dtype])
+    _close_rel(hl, he, TOL[torch.float32])
+    for leaf, gv, wv in zip(leaves, got, _ssd_bwd_reference(leaves, dy, dstate)):
+        assert gv.shape == leaf.shape
+        _close_grad(gv, wv, dtype)
 
 
 def test_ssd_kernel_rejects_unsupported_sizes(dev):

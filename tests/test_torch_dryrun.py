@@ -3,8 +3,9 @@ copy, the bridge and the ``SPEC`` modules, on the CPU.
 
 Dry run.  ``repro_torch.launch.dryrun.run_cell`` on reduced qwen2, mamba2,
 gemma3 and granite-moe, each at a small train, prefill and decode shape
-(batch 32, sequence 64) on the 256-rank ``pod`` mesh, gemma3's decode on
-the 512-rank ``multipod`` mesh, reduced granite-moe and moonshot at
+(batch 32, sequence 64) on the 256-rank ``pod`` mesh, reduced mamba2 and
+jamba at a batch-1 decode shape (``d1``: 'data' splits no rows), gemma3's
+decode on the 512-rank ``multipod`` mesh, reduced granite-moe and moonshot at
 train_4k's own shape (batch 256, sequence 4096: several routing groups a
 rank) and full-size qwen2-1.5b train_4k, in a subprocess holding a fake
 world of 512 ranks (labels ``cpu``: this host's PyTorch has no CUDA),
@@ -27,18 +28,24 @@ forced host devices.  Held:
     and counts remat recompute as the port does.  The port keeps split what
     the JAX plan splits (the vocabulary of the embedding and the loss, the
     query sequence of an attention whose heads do not divide 'model', the
-    experts or their ff columns), so no rank does a gathered dim's work.
-    mamba2 sets the top (1.9x): its 24 heads do not divide 'model', and the
-    SSD scan runs every head of a rank's rows on each 'model' rank, where
-    XLA's partitioner splits the scan's products over 'model' anyway.  Two
-    kinds of cell sit below 0.8 because the port's rank 0 does less than
-    XLA counts for a device (``FLOP_FLOORS``): a prefill whose attention
-    splits the query sequence, where rank 0 holds the first rows, the
-    fewest pairs under the causal mask, and XLA counts the dense block of
-    its rows against every key (qwen2 0.78, gemma3 0.50); and MoE, where
-    the port dispatches by index (XLA counts the JAX module's one-hot
-    dispatch and combine contractions) and runs its share of the ff
-    columns, which XLA's partitioner gathers (granite 0.07 to 0.72);
+    experts or their ff columns, the SSD scan's head_dim where its heads do
+    not divide 'model', the FSDP-split weights where moving the activations
+    costs less, an undivided vocabulary of the head over an idle 'model'),
+    so no rank does a gathered dim's work.  Reduced mamba2's batch-1 decode
+    sets the top (1.35x): its products are a few thousand FLOPs a rank, and
+    the decode conv, whose 160 channels do not divide 'model', runs whole
+    on every rank.  Three kinds of cell sit below 0.8 because the port's
+    rank 0 does less than XLA counts for a device (``FLOP_FLOORS``): a
+    prefill whose attention splits the query sequence, where rank 0 holds
+    the first rows, the fewest pairs under the causal mask, and XLA counts
+    the dense block of its rows against every key (qwen2 0.78, gemma3
+    0.50); a Mamba prefill (mamba2 0.78), where the SSD kernels' formula
+    counts the sequential recurrence's 4 S N P, and XLA's chunked jnp also
+    the intra-chunk quadratic, now that each 'model' rank scans its own
+    head_dim columns; and MoE, where the port dispatches by index (XLA
+    counts the JAX module's one-hot dispatch and combine contractions) and
+    runs its share of the ff columns, which XLA's partitioner gathers
+    (granite 0.07 to 0.72, jamba's batch-1 decode 0.61);
   * full-size qwen2-1.5b train_4k: the peak a device within twice XLA's
     (``PEAK_FACTOR``), which a gathered vocabulary (93 GiB against 4.6)
     would break;
@@ -69,13 +76,15 @@ from repro_torch.parallel.sharding import ShardingPlan
 ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT = 600  # seconds, per subprocess: each takes about 150 s here
 SHAPES = {"t": (64, 32, "train"), "p": (64, 32, "prefill"), "d": (64, 32, "decode"),
-          "train_4k": (4096, 256, "train")}
+          "d1": (64, 1, "decode"), "train_4k": (4096, 256, "train")}
 ARCH_CELLS = ("qwen2-1.5b", "mamba2-130m", "gemma3-1b", "granite-moe-3b-a800m")
 FULL_SIZE = ("qwen2-1.5b", "train_4k", "pod")  # the one cell run at full width and depth
 CELLS = [(a, s, "pod") for a in ARCH_CELLS for s in "tpd"] + [("gemma3-1b", "d", "multipod")] + [
+    (a, "d1", "pod") for a in ("mamba2-130m", "jamba-v0.1-52b")] + [
     (a, "train_4k", "pod") for a in ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b")] + [FULL_SIZE]
-FLOP_BAND = (0.8, 2.0)
-FLOP_FLOORS = {"split_attention_prefill": 0.45, "moe": 0.05}  # below FLOP_BAND: see above
+FLOP_BAND = (0.8, 1.4)
+FLOP_FLOORS = {"split_attention_prefill": 0.45, "scan_prefill": 0.7,
+               "moe": 0.05}  # below FLOP_BAND: see above
 PEAK_FACTOR = 2.0
 POD = {"data": 16, "model": 16}
 MULTIPOD = {"pod": 2, "data": 16, "model": 16}
@@ -197,6 +206,7 @@ def test_dryrun_record_matches_jax_run_cell(records, cell):
         "q_heads", spec.n_heads)
     lo = (FLOP_FLOORS["moe"] if spec.n_experts else
           FLOP_FLOORS["split_attention_prefill"] if split_attention and port["kind"] == "prefill"
+          else FLOP_FLOORS["scan_prefill"] if spec.ssm_state and port["kind"] == "prefill"
           else FLOP_BAND[0])
     assert lo <= ratio <= FLOP_BAND[1], ratio
     if cell == FULL_SIZE:

@@ -18,7 +18,11 @@ seeded numpy inputs:
     with their ff columns split (6 experts on a 4-way axis, 3 on a 2-way
     one), at routing groups of 8 tokens (several a rank) and in a decode
     step (S = 1): y, the balance loss, the dropped share and every
-    gradient.
+    gradient; and at batch 1 on (4, 1) and (2, 2), where 'data' splits no
+    rows, with the experts on their FSDP shards of D;
+  * the embedding lookup at batch 1 on the table's FSDP shards of D, and the
+    tied head's product with a 250-word vocabulary over an idle 'model'
+    (``head_product``): each rank's 63 columns, the last 61.
 Each rank also records what its local ops saw (a dispatch mode below
 ``DTensor``): no local tensor holds a row's whole vocabulary, the table's
 whole rows, the whole query sequence, or every expert's whole weights.
@@ -221,6 +225,83 @@ def test_vocab_split_embedding_matches_unsharded_and_jax(shape):
     assert got["rows_widest"][0] < V * D  # no local op held the whole table
 
 
+def _fsdp_rank(shape, x):
+    """At batch 1 on ``shape``: the lookup of a table whose D columns 'data'
+    splits, on those columns, and the tied head's product with a
+    vocabulary of 250 that does not divide 'model', in decode's layout."""
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import head_product, take_embedding
+    mesh, plan = _mesh(shape)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    table = _place(t["table"], ("vocab", "embed"), plan, mesh).requires_grad_()
+    tokens = _place(t["tokens"][:1], ("batch", None), plan, mesh)
+    weight = _place(t["weight"][:1], ("batch", "seq", "embed"), plan, mesh)
+    with _Widest() as mode:
+        rows = plan.constrain(take_embedding(table, tokens), ("batch", "seq", "embed"))
+    (rows * weight).sum().backward()
+    out = dict(rows=rows.full_tensor().detach().numpy(), rows_widest=mode.widest,
+               rows_placements=[str(p) for p in rows.placements],
+               table_grad=table.grad.full_tensor().numpy(),
+               table_grad_placements=[str(p) for p in table.grad.placements])
+    head = _place(t["head250"], ("vocab", "embed"), plan, mesh)
+    h = _place(t["hidden"][:, 0], ("batch", "embed"), plan, mesh)
+    logits = head_product(h, head.T, plan)
+    local = tuple(logits.to_local().shape)
+    placed = [str(p) for p in logits.placements]
+    logits = plan.constrain(logits, ("batch", "vocab"))
+    out.update(logits=logits.full_tensor().numpy(), product_placements=placed)
+    return out if dist.get_rank() == 0 else local
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=str)
+def test_embedding_at_batch_1_looks_up_on_its_fsdp_shard(shape):
+    """One row of tokens: each rank looks every token up in its own D
+    columns of the table (and its own rows where 'model' splits the
+    vocabulary), where gathering the table would move V x D; the rows and
+    the table's gradient against the unsharded port and JAX."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.layers import take_embedding as j_take
+    from repro_torch.models.layers import take_embedding
+    x = _vocab_inputs()
+    x["head250"] = x["table"][:1]  # unused here
+    got = spawn.run(_fsdp_rank, 4, shape, x, timeout=TIMEOUT)[0]
+    table = torch.from_numpy(x["table"]).requires_grad_()
+    tokens, weight = torch.from_numpy(x["tokens"][:1]), torch.from_numpy(x["weight"][:1])
+    rows = take_embedding(table, tokens)
+    (rows * weight).sum().backward()
+    np.testing.assert_array_equal(got["rows"], rows.detach().numpy())
+    jt = jnp.asarray(x["table"])
+    _close(got["rows"], np.asarray(j_take(jt, jnp.asarray(x["tokens"][:1]))), 0)
+    jg = jax.grad(lambda tb: jnp.sum(j_take(tb, jnp.asarray(x["tokens"][:1]))
+                                     * jnp.asarray(x["weight"][:1])))(jt)
+    _close(got["table_grad"], table.grad.numpy(), err_msg="table")
+    _close(got["table_grad"], np.asarray(jg), 2e-5, err_msg="table")
+    nd = shape[0]
+    assert got["table_grad_placements"][0] == "S(1)"  # the gradient stays on D's shards
+    assert got["rows_widest"][3][-1] == D // nd  # the lookup held no row's whole D
+
+
+def test_tied_head_splits_an_undivided_vocabulary_over_an_idle_model():
+    """Decode's rows leave 'model' idle and 250 words do not divide it: the
+    head's vocabulary columns are split over it in pieces of 63 (the last
+    61), each rank computing its own, and the logits laid out with the
+    vocabulary whole, against the unsharded product and JAX."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(3)
+    x = _vocab_inputs()
+    x["head250"] = (rng.standard_normal((250, D)) / np.sqrt(D)).astype(np.float32)
+    got, *locals_ = spawn.run(_fsdp_rank, 4, (1, 4), x, timeout=TIMEOUT)
+    h, w = x["hidden"][:, 0], x["head250"]
+    _close(got["logits"], (torch.from_numpy(h) @ torch.from_numpy(w).T).numpy())
+    _close(got["logits"], np.asarray(jnp.asarray(h) @ jnp.asarray(w).T), 2e-5)
+    assert got["logits"].shape == (B, 250)
+    assert got["product_placements"] == ["R", "S(1)"]  # each rank's own columns
+    assert locals_ == [(B, 63), (B, 63), (B, 61)]
+
+
 # -- attention with q split over the sequence ------------------------------------
 
 def _attention_inputs(t=64, h=6, g=2, hd=16):
@@ -294,13 +375,13 @@ MOE_CASES = [((2, 2), {}, 32), ((1, 4), {}, 32), ((1, 4), {"n_experts": 6}, 32),
              ((2, 2), {"n_experts": 3}, 32), ((1, 4), {}, 1), ((2, 2), {"n_experts": 3}, 1)]
 
 
-def _moe_inputs(spec, s):
+def _moe_inputs(spec, s, b=4):
     from repro_torch.models import moe
     from repro_torch.models.layers import init_tree
     params = init_tree(moe.moe_defs(spec), torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(2)
     return ({k: v.numpy() for k, v in params.items()},
-            rng.standard_normal((4, s, spec.d_model)).astype(np.float32))
+            rng.standard_normal((b, s, spec.d_model)).astype(np.float32))
 
 
 def _moe_rank(shape, kw, p, x):
@@ -316,9 +397,9 @@ def _moe_rank(shape, kw, p, x):
     seen = []
     ffn = moe._expert_ffn
 
-    def recording(xe, w_gate, w_up, w_down):
+    def recording(xe, w_gate, w_up, w_down, contract=None):
         seen.append(tuple(w_gate.shape))
-        return ffn(xe, w_gate, w_up, w_down)
+        return ffn(xe, w_gate, w_up, w_down, contract)
 
     moe._expert_ffn = recording
     params = distribute_tree({k: torch.from_numpy(v) for k, v in p.items()},
@@ -333,7 +414,8 @@ def _moe_rank(shape, kw, p, x):
                aux={k: v.full_tensor().item() for k, v in aux.items()},
                grads={k: t.grad.full_tensor().numpy() for k, t in params.items()},
                x_grad=xd.grad.full_tensor().numpy(),
-               w_placements=[str(p) for p in params["w_gate"].placements])
+               w_placements=[str(p) for p in params["w_gate"].placements],
+               w_grad_placements=[str(p) for p in params["w_gate"].grad.placements])
     return out if dist.get_rank() == 0 else None
 
 
@@ -373,6 +455,9 @@ def _moe_references(kw, p, x):
 
 @pytest.mark.parametrize("shape,kw,s", MOE_CASES, ids=lambda c: str(c).replace(" ", ""))
 def test_moe_on_its_shards_matches_unsharded_and_jax(shape, kw, s):
+    """In the decode step (S = 1, a row a 'data' rank) the experts also keep
+    their FSDP split of D over 'data' (moving the rows costs less than
+    gathering the experts); the prefill-sized cases gather it."""
     from repro_torch.configs import ARCHS, reduced
     spec = reduced(ARCHS["granite-moe-3b-a800m"], **kw)
     p, x = _moe_inputs(spec, s)
@@ -389,5 +474,39 @@ def test_moe_on_its_shards_matches_unsharded_and_jax(shape, kw, s):
     e, f, n = spec.n_experts, spec.d_ff, shape[1]
     split_experts = e % n == 0
     assert got["w_placements"][1] == ("S(0)" if split_experts else "S(2)")
-    want = (e // n, spec.d_model, f) if split_experts else (e, spec.d_model, f // n)
+    d = spec.d_model // shape[0] if s == 1 else spec.d_model
+    want = (e // n, d, f) if split_experts else (e, d, f // n)
     assert got["seen"] and set(got["seen"]) == {want}  # no rank held every expert whole
+
+
+# batch 1 ('data' splits no rows; x's D columns split over it instead) on
+# (4, 1) and (2, 2), a prompt of 32 (four routing groups) and a decode step
+MOE_BATCH1_CASES = [((4, 1), {}, 32), ((2, 2), {}, 32), ((4, 1), {}, 1),
+                    ((2, 2), {"n_experts": 3}, 1)]
+
+
+@pytest.mark.parametrize("shape,kw,s", MOE_BATCH1_CASES, ids=lambda c: str(c).replace(" ", ""))
+def test_moe_at_batch_1_runs_on_its_fsdp_shards(shape, kw, s):
+    """At batch 1 gathering the experts' D split over 'data' would move far
+    more than x does (``moe._fsdp_bytes``), so the router and the experts
+    run on each rank's D rows, their partial sums summed over 'data', and y
+    is each rank's D columns: y, the balance loss, the dropped share and
+    every gradient against the unsharded port and JAX; every expert call
+    saw its D shard, and w_gate's gradient stays on it."""
+    from repro_torch.configs import ARCHS, reduced
+    spec = reduced(ARCHS["granite-moe-3b-a800m"], **kw)
+    p, x = _moe_inputs(spec, s, b=1)
+    got = spawn.run(_moe_rank, 4, shape, kw, p, x, timeout=TIMEOUT)[0]
+    port, jax_out = _moe_references(kw, p, x)
+    for ref in (port, jax_out):
+        tol = 1e-5 if ref is port else 2e-5
+        _close(got["y"], ref["y"], tol)
+        for k in ("lb_loss", "drop_frac"):
+            _close(got["aux"][k], ref["aux"][k], tol, err_msg=k)
+        _close(got["x_grad"], ref["x_grad"], tol, err_msg="x")
+        for k, g in got["grads"].items():
+            _close(g, ref["grads"][k], tol, err_msg=k)
+    e, f, (nd, nm) = spec.n_experts, spec.d_ff, shape
+    el, fl = (e // nm, f) if e % nm == 0 else (e, f // nm)
+    assert got["w_placements"][0] == got["w_grad_placements"][0] == "S(1)"  # D over 'data'
+    assert got["seen"] and set(got["seen"]) == {(el, spec.d_model // nd, fl)}

@@ -15,7 +15,9 @@ divide 'model', so q keeps its sequence split and each rank's flash call
 takes its own rows at their offset; two microbatches; and the MoE with its
 experts split over 'model' (reduced granite's 4) or their ff columns (6
 experts on (1, 4), 3 on (2, 2)), at routing groups of 8 tokens, several a
-rank.  Every case starts from the port's
+rank; and reduced mamba2 at d_model 48 on (1, 4), whose 6 heads do not
+divide 'model' and whose head_dim does: each rank's SSD calls scan 4 of
+every head's 16 columns.  Every case starts from the port's
 ``init_train_state`` (seed 0; the ranks place it with ``mesh=``), which
 ``convert.to_jax_state`` hands to the JAX step, and takes two steps of a
 (8, 32) batch.  (The JAX ``init_train_state`` draws a stacked layer
@@ -85,9 +87,10 @@ def _host(tree) -> dict[str, np.ndarray]:
 def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
     """For each (remat, fsdp, microbatches): the initial state on the mesh,
     ``STEPS`` sharded steps; losses, grad norms, the final parameters
-    (gathered; kept on rank 0), the count of parameters a mesh dim splits
-    and the (rows, keys, offset) of each flash call.  ``group_size``: the
-    MoE's routing group (``moe.GROUP_SIZE``)."""
+    (gathered; kept on rank 0), the count of parameters a mesh dim splits,
+    the (rows, keys, offset) of each flash call and the x shape of each SSD
+    scan call.  ``group_size``: the MoE's routing group
+    (``moe.GROUP_SIZE``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
@@ -99,13 +102,17 @@ def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
     spec = reduced(ARCHS[arch], **kw)
     mesh = make_mesh(shape, AXES[:len(shape)], device="cpu")
     moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
-    seen, kernel = set(), ops.flash_attention
+    seen, kernel, ssd_seen, scan = set(), ops.flash_attention, set(), ops.ssd_scan
 
     def recording(q, k, v, **kwargs):
         seen.add((q.shape[1], k.shape[1], kwargs["q_offset"]))
         return kernel(q, k, v, **kwargs)
 
-    ops.flash_attention = recording
+    def recording_scan(x, *args):
+        ssd_seen.add(tuple(x.shape))
+        return scan(x, *args)
+
+    ops.flash_attention, ops.ssd_scan = recording, recording_scan
     out = []
     for remat, fsdp, micro in cases:
         cfg = RunConfig(remat=remat, microbatches=micro, opt=opt.OptConfig(**OPT))
@@ -122,6 +129,7 @@ def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
                       for t in opt.leaves(state["params"]))
         out.append(dict(losses=losses, norms=norms, n_split=n_split,
                         n_leaves=len(opt.leaves(state["params"])), flash_seen=sorted(seen),
+                        ssd_seen=sorted(ssd_seen),
                         params=params if dist.get_rank() == 0 else None))
     return out
 
@@ -251,6 +259,24 @@ def test_sharded_train_step_splits_q_over_the_sequence():
     ranks = _sharded("gemma3-1b", kw, (1, 4), [("dots", True, 1)])
     _check(ranks, _references("gemma3-1b", kw, "dots", 1), 0)
     _check_split_q(ranks)
+
+
+def test_sharded_train_step_splits_the_ssd_scan_over_head_dim():
+    """Reduced mamba2 at d_model 48: 6 heads of 16 do not divide a 'model'
+    axis of 4, their head_dim does, so each rank scans 4 of every head's 16
+    columns (the SSD kernels at P = 4 on the card) with dt, a, B and C
+    whole, and their gradients are each rank's share, summed; the final
+    state keeps the split, and y moves to the sequence before d_inner."""
+    from repro_torch.parallel.sharding import ShardingPlan
+    kw = {"d_model": 48}
+    spec = reduced(ARCHS["mamba2-130m"], **kw)
+    plan = ShardingPlan(axis_sizes={"data": 1, "model": 4})
+    assert (spec.ssm_heads, spec.ssm_head_dim) == (6, 16)
+    assert not plan.can_shard("ssm_heads", 6) and plan.can_shard("ssm_head_dim", 16)
+    ranks = _sharded("mamba2-130m", kw, (1, 4), [("dots", True, 1)])
+    _check(ranks, _references("mamba2-130m", kw, "dots", 1), 0)
+    for r in ranks:  # every call on the rank's 4 columns of the 6 heads
+        assert r[0]["ssd_seen"] == [(8, 32, 6, 4)]
 
 
 MOE_GROUP = 8  # tokens a routing group: a (8, 32) batch makes 32 groups

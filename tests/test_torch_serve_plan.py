@@ -13,7 +13,13 @@ on either side of a shard boundary; and reduced granite-moe at routing
 groups of 4 tokens (a 16-token prompt: four groups a row, one chunk a
 'model' rank of 4), its experts split over 'model' on (1, 4) (prefill
 exchanges the capacity rows by all-to-all, decode runs each rank's own
-experts) or their ff columns (6 experts on (1, 4), 3 on (2, 2)).
+experts) or their ff columns (6 experts on (1, 4), 3 on (2, 2)); reduced
+mamba2 at d_model 48 on (1, 4), whose 6 heads do not divide 'model' and
+whose head_dim does (the scan split over head_dim); reduced jamba and
+granite-moe at batch 1 on (4, 1) and (2, 2), where 'data' splits no rows
+(the MoE, the lookup and the head on their FSDP shards); and reduced
+mamba2 with a 250-word vocabulary on (1, 4), whose tied head splits it
+over the 'model' axis that decode leaves idle.
 
 Each rank starts from the same parameters (the port's ``init_params``, seed
 0, which ``convert.to_jax_params`` hands to the JAX Engine; the JAX
@@ -50,8 +56,8 @@ MOE_GROUP = 4  # the MoE's routing group in the MOE_CASES
 MOE_CASES = [((1, 4), {}), ((1, 4), {"n_experts": 6}), ((2, 2), {"n_experts": 3})]
 
 
-def _prompts(vocab: int, prompt: int) -> np.ndarray:
-    return np.random.default_rng(7).integers(0, vocab, (2, prompt)).astype(np.int32)
+def _prompts(vocab: int, prompt: int, batch: int = 2) -> np.ndarray:
+    return np.random.default_rng(7).integers(0, vocab, (batch, prompt)).astype(np.int32)
 
 
 def _params(arch, kw=None):
@@ -60,12 +66,13 @@ def _params(arch, kw=None):
 
 # -- on every rank -------------------------------------------------------------
 
-def _serve_rank(shape, runs, kw=None, group_size=None):
+def _serve_rank(shape, runs, kw=None, group_size=None, batch=2):
     """For each (arch, params, (prompt, new, max_len)): tokens from the
     unsharded Engine and from ``Engine(plan=)``, and (rank 0) the logits of
     prefill and of each greedy decode step, unsharded and under the plan,
     with the placements of the first layer's cache k.  ``kw`` reduces the
-    arch further; ``group_size``: the MoE's routing group."""
+    arch further; ``group_size``: the MoE's routing group; ``batch``: the
+    prompts'."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, distribute_tensor
 
@@ -82,7 +89,7 @@ def _serve_rank(shape, runs, kw=None, group_size=None):
     out = []
     for arch, params, (prompt, new, max_len) in runs:
         spec = reduced(ARCHS[arch], **(kw or {}))
-        prompts = _prompts(spec.vocab_size, prompt)
+        prompts = _prompts(spec.vocab_size, prompt, batch)
         dparams = distribute_tree(params, M.param_axes(spec), plan, mesh)
         base, _ = Engine(spec, params, max_len=max_len, device="cpu").generate(prompts, new)
         got, _ = Engine(spec, dparams, plan=plan, max_len=max_len,
@@ -90,10 +97,10 @@ def _serve_rank(shape, runs, kw=None, group_size=None):
 
         @torch.inference_mode()
         def logits(p, pl):
-            caches = M.init_caches(spec, 2, max_len, dtype=f32, device="cpu")
+            caches = M.init_caches(spec, batch, max_len, dtype=f32, device="cpu")
             tok = torch.as_tensor(prompts)
             if pl is not NULL_PLAN:
-                caches = distribute_tree(caches, M.cache_axes(spec, 2, max_len), pl, mesh)
+                caches = distribute_tree(caches, M.cache_axes(spec, batch, max_len), pl, mesh)
                 tok = distribute_tensor(tok, mesh, placements(pl.spec(("batch", None), tok.shape),
                                                               mesh), src_data_rank=None)
             lg, caches = M.prefill(p, tok, caches, spec, pl, compute_dtype=f32)
@@ -119,16 +126,17 @@ def _serve_rank(shape, runs, kw=None, group_size=None):
 _RUNS: dict = {}
 
 
-def _ranks(shape, runs, kw=None, group_size=None):
-    key = (shape, tuple(arch for arch, _ in runs), tuple(sorted((kw or {}).items())), group_size)
+def _ranks(shape, runs, kw=None, group_size=None, batch=2):
+    key = (shape, tuple(arch for arch, _ in runs), tuple(sorted((kw or {}).items())), group_size,
+           batch)
     if key not in _RUNS:
         _RUNS[key] = spawn.run(_serve_rank, 4, shape,
                                [(arch, _params(arch, kw), cfg) for arch, cfg in runs], kw,
-                               group_size, timeout=TIMEOUT)
+                               group_size, batch, timeout=TIMEOUT)
     return _RUNS[key]
 
 
-def _jax_tokens(arch, prompt, new, kw=None, group_size=None):
+def _jax_tokens(arch, prompt, new, kw=None, group_size=None, batch=2):
     import repro.models.moe as jmoe
     from repro.configs import ARCHS as JARCHS, reduced as jreduced
     from repro.serve.engine import Engine as JEngine
@@ -139,18 +147,19 @@ def _jax_tokens(arch, prompt, new, kw=None, group_size=None):
     jmoe.GROUP_SIZE = group_size or saved
     try:
         out, _ = JEngine(jspec, jparams, max_len=256).generate(
-            _prompts(jspec.vocab_size, prompt), max_new=new)
+            _prompts(jspec.vocab_size, prompt, batch), max_new=new)
     finally:
         jmoe.GROUP_SIZE = saved
     return out
 
 
-def _check(ranks, i, arch, prompt, new, kw=None, group_size=None):
+def _check(ranks, i, arch, prompt, new, kw=None, group_size=None, batch=2):
     res = [r[i] for r in ranks]
     for r in res:  # every rank: the plan's tokens are the unsharded Engine's
         np.testing.assert_array_equal(r["got"], r["base"])
         np.testing.assert_array_equal(r["got"], res[0]["got"])
-    np.testing.assert_array_equal(res[0]["got"], _jax_tokens(arch, prompt, new, kw, group_size))
+    np.testing.assert_array_equal(res[0]["got"],
+                                  _jax_tokens(arch, prompt, new, kw, group_size, batch))
     assert len(res[0]["have"]) == new
     for step, (have, want) in enumerate(zip(res[0]["have"], res[0]["want"])):
         np.testing.assert_allclose(have, want, rtol=RTOL, atol=RTOL * np.abs(want).max(),
@@ -181,6 +190,37 @@ def test_engine_moe_on_its_shards_matches_unsharded_and_jax(shape, kw):
     arch = "granite-moe-3b-a800m"
     prompt, new, _ = cfg = CASES[arch]
     _check(_ranks(shape, [(arch, cfg)], kw, MOE_GROUP), 0, arch, prompt, new, kw, MOE_GROUP)
+
+
+def test_engine_mamba_scans_over_head_dim_splits_matches_unsharded_and_jax():
+    """Reduced mamba2 at d_model 48 on (1, 4): 6 heads of 16 do not divide
+    'model', their head_dim does, so prefill scans each rank's 4 columns of
+    every head, the final state lands in the cache's own head_dim split,
+    and decode's recurrence runs on that split."""
+    arch, kw = "mamba2-130m", {"d_model": 48}
+    prompt, new, _ = cfg = CASES[arch]
+    _check(_ranks((1, 4), [(arch, cfg)], kw), 0, arch, prompt, new, kw)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=str)
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-moe-3b-a800m"])
+def test_engine_at_batch_1_keeps_fsdp_weights_on_their_shards(arch, shape):
+    """One prompt: 'data' splits no rows, so the residual stream is split
+    over its D columns there, and the MoE, the embedding lookup and the
+    head run on their weights' FSDP shards (the partial products summed
+    over 'data') where the unsharded Engine and the JAX Engine run whole."""
+    prompt, new, _ = cfg = CASES[arch]
+    _check(_ranks(shape, [(arch, cfg)], batch=1), 0, arch, prompt, new, batch=1)
+
+
+def test_engine_tied_head_splits_an_undivided_vocabulary_in_decode():
+    """Reduced mamba2 with a 250-word vocabulary on (1, 4): 250 does not
+    divide 'model', and decode's rows leave 'model' idle, so the tied head
+    splits its vocabulary columns there (pieces of 63, the last 61) and
+    the logits are gathered whole."""
+    arch, kw = "mamba2-130m", {"vocab_size": 250}
+    prompt, new, _ = cfg = CASES[arch]
+    _check(_ranks((1, 4), [(arch, cfg)], kw), 0, arch, prompt, new, kw)
 
 
 def _jax_layer_axes(tree, spec):

@@ -2,7 +2,9 @@
 algebra of ``csrc/ssd_scan_bwd.cu`` in plain torch) and ``ops.ssd`` under
 grad against autograd through the plain forward and against ``jax.vjp`` of
 the JAX package's ``models/mamba.py`` ``ssd_chunked`` and ``kernels/ref.py``
-``ssd_ref``.
+``ssd_ref``; and the plain versions on head_dim slices of 1 and 4 columns
+(what a head_dim split over a mesh axis leaves a rank), against the JAX
+``ssd_chunked`` on the same slice, stitched back against the whole scan.
 
 Inputs come from seeded numpy, and every case but those of an unused output
 has a nonzero cotangent for the final state as well as for y.  Tolerance:
@@ -186,6 +188,53 @@ def test_bwd_scratch_holds_state_gradients_and_each_heads_db_dc():
     assert ss.bwd_scratch_floats(4, 4096, 24, 1, 64, 128) == (
         4 * 24 * 64 * (128 * 64 + 1) + 2 * 4 * 4096 * 3 * 128)
     assert ss.bwd_scratch_floats(1, 1, 1, 1, 16, 16) == 16 * 16 + 1 + 2 * 16
+
+
+def test_bwd_scratch_of_narrow_head_dims_takes_the_tiles_width():
+    """Head dims below 16 run on the kernels' tiles of 16 columns: the state
+    scratch is (N, 16) a chunk, whatever the call's P."""
+    for p in (1, 2, 4, 8):
+        assert ss.tile_p(p) == 16
+        assert ss.scratch_floats(4, 4096, 24, p, 128) == ss.scratch_floats(4, 4096, 24, 16, 128)
+        assert ss.bwd_scratch_floats(4, 4096, 24, 1, p, 128) == \
+            ss.bwd_scratch_floats(4, 4096, 24, 1, 16, 128)
+    assert ss.tile_p(64) == 64 and ss.DIMS[:4] == (1, 2, 4, 8)
+
+
+def _column_slices(p, width=16):
+    return [slice(i, i + p) for i in range(0, width, p)]
+
+
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_versions_on_a_head_dim_slice_match_jax_and_stitch_back(p, g):
+    """A head_dim of 16 split into slices of ``p`` columns (the head_dim split
+    over a mesh axis: 64 on 16 ranks is 4, reduced mamba2's 16 on 16 is 1):
+    on each slice the plain forward and backward against the JAX
+    ``ssd_chunked`` and ``jax.vjp`` of it on the same slice; the slices'
+    y, final state and dx stitched back, and their dt, a, B and C gradients
+    summed (each rank's share), against the whole scan's."""
+    args, dy, dstate = _inputs(28, 2, 128, 4, g, 16, 16, "model")
+    x, dt, a, bb, cc = args
+    whole_y, whole_state = ss.ssd_scan_plain(*map(torch.from_numpy, args))
+    whole = _plain_bwd(args, dy, dstate)
+    ys, states, dxs, shared = [], [], [], None
+    for sl in _column_slices(p):
+        part = (np.ascontiguousarray(x[..., sl]), dt, a, bb, cc)
+        dy_p, ds_p = np.ascontiguousarray(dy[..., sl]), np.ascontiguousarray(dstate[:, :, sl])
+        y, state = ss.ssd_scan_plain(*map(torch.from_numpy, part))
+        jy, jstate = jssd_chunked(*map(jnp.asarray, part), chunk=64)
+        for got, want in ((y, jy), (state, jstate)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                       atol=TOL * np.abs(np.asarray(want)).max())
+        grads = _plain_bwd(part, dy_p, ds_p)
+        _assert_grads_close(grads, _jax_chunked_vjp(part, dy_p, ds_p, chunk=64))
+        ys.append(y), states.append(state), dxs.append(grads[0])
+        shared = list(grads[1:]) if shared is None else [u + v for u, v in zip(shared, grads[1:])]
+    for got, want in ((torch.cat(ys, -1), whole_y), (torch.cat(states, 2), whole_state)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                                   atol=TOL * want.abs().max().item())
+    _assert_grads_close([torch.cat(dxs, -1), *shared], whole)
 
 
 @pytest.mark.parametrize("b,s,h,g,kh", [
