@@ -157,18 +157,24 @@ Phases, one or more lines each:
                shape through its operator (torch.ops.repro_torch) against
                the bare launch
   dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
-               world, at full size with fake tensors labelled cuda, eight at
-               once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
+               world, at full size with fake tensors labelled cuda, twelve
+               at once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
                multipod, mamba2-130m long_500k pod, granite-moe-3b-a800m
                and moonshot-v1-16b-a3b train_4k pod (the MoE with its ff
                columns, and its experts, split over 'model'), mamba2-130m
                train_4k and decode_32k pod (the SSD scan split over
-               head_dim, the head's vocabulary over an idle 'model') and
+               head_dim, the head's vocabulary over an idle 'model'),
                jamba-v0.1-52b long_500k pod (batch 1: the experts on their
-               FSDP shards), each ok with
+               FSDP shards), musicgen-medium decode_32k and gemma3-1b
+               long_500k pod (decode's softmax on each rank's own kv_seq
+               slots), granite-moe-3b-a800m prefill_32k pod (its ff
+               columns gathered, its token groups split) and yi-9b
+               train_4k pod (microbatches on their rows), each ok with
                its peak a device within the card's memory, with its peak
                GiB a device, FLOPs a device against model_flops / n_chips,
-               collective bytes by kind and seconds; then reduced qwen2-1.5b
+               collective bytes by kind and seconds (the last four also
+               their all-gather bytes beside the count before this
+               change); then reduced qwen2-1.5b
                train_4k pod under --device cpu and --device cuda, whose
                records agree key for key but lower_s
 Then the card's name and power limit, one JSON line with every kernel's
@@ -226,7 +232,16 @@ MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, rela
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
                 ("mamba2-130m", "long_500k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
                 ("moonshot-v1-16b-a3b", "train_4k", "pod"), ("mamba2-130m", "train_4k", "pod"),
-                ("mamba2-130m", "decode_32k", "pod"), ("jamba-v0.1-52b", "long_500k", "pod"))
+                ("mamba2-130m", "decode_32k", "pod"), ("jamba-v0.1-52b", "long_500k", "pod"),
+                ("musicgen-medium", "decode_32k", "pod"), ("gemma3-1b", "long_500k", "pod"),
+                ("granite-moe-3b-a800m", "prefill_32k", "pod"), ("yi-9b", "train_4k", "pod"))
+# all-gather bytes a device of those cells before decode's softmax ran on
+# each rank's own kv_seq slots, the ff-split MoE kept its token groups split
+# and a microbatch kept its rows split: the CPU host's count, labels cpu
+DRYRUN_GATHER_BEFORE = {("musicgen-medium", "decode_32k"): 1.232e9,
+                        ("gemma3-1b", "long_500k"): 3.609e7,
+                        ("granite-moe-3b-a800m", "prefill_32k"): 3.727e10,
+                        ("yi-9b", "train_4k"): 3.900e11}
 DRYRUN_REDUCED = ("qwen2-1.5b", "train_4k", "pod")
 DRYRUN_TIMEOUT = 600  # seconds, per subprocess
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
@@ -938,6 +953,10 @@ def dryrun_phase(card, total_memory: int) -> None:
                   f"{ {k: f'{v:.4e}' for k, v in hlo['collective_bytes'].items()} } by group "
                   f"{ {k: f'{v:.4e}' for k, v in hlo['collective_by_group'].items()} }; "
                   f"{rec['lower_s']} s")
+            if cell[:2] in DRYRUN_GATHER_BEFORE:
+                print(f"[dryrun] {':'.join(cell)} all-gather bytes a device "
+                      f"{hlo['collective_bytes'].get('all-gather', 0):.4e}, before "
+                      f"{DRYRUN_GATHER_BEFORE[cell[:2]]:.4e} (the CPU host's count)")
             keys = ("arch", "shape", "mesh", "n_chips", "model_flops", "memory", "hlo", "lower_s")
             print(f"[dryrun] record {json.dumps({k: rec[k] for k in keys})}")
             if mem["peak_bytes_per_device"] > total_memory:

@@ -65,6 +65,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import sys
 import time
 import traceback
@@ -153,6 +154,30 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+_FRAME = re.compile(r'File "([^"]*)", line (\d+)')
+
+
+def _port_site(filename: str, line: int) -> str:
+    """``file:line`` of a frame of the port past the dry run itself and the
+    local-shard plumbing, else ``""``."""
+    if "repro_torch" in filename and not filename.endswith(
+            ("dryrun.py", "local_shards.py", "sharding.py", "_library.py")):
+        return f"{filename.split('repro_torch/')[-1]}:{line}"
+    return ""
+
+
+def _node_site(node) -> str:
+    """The port's innermost frame of an autograd node's forward traceback
+    (anomaly mode's ``traceback_``), kept in the node's metadata once found;
+    ``""`` without one."""
+    meta = node.metadata
+    if "site_" not in meta:
+        frames = _FRAME.findall("".join(meta.get("traceback_", ())))
+        meta["site_"] = next((s for s in (_port_site(f, int(n)) for f, n in reversed(frames))
+                              if s), "")
+    return meta["site_"]
+
+
 class LocalCost(TorchDispatchMode):
     """Counts rank 0's local work while a ``DTensor`` program runs.
 
@@ -161,11 +186,12 @@ class LocalCost(TorchDispatchMode):
     come back here and are counted: FLOPs by the registered formulas,
     bytes moved by ops that are not views, collectives by kind and group
     size, and the live bytes of every storage an op creates (``track``
-    adds the inputs' own).  With ``attribute``, each storage and each FLOP
-    count is also labelled with its op and the port's innermost source line
-    that called it (``label``), and ``attribution()`` gives the FLOPs and
-    the storages live at the peak by label (the live set is taken each
-    time the peak rises by a 200th)."""
+    adds the inputs' own).  With ``attribute``, each storage, each FLOP
+    count and each collective's bytes are also labelled with its op and the
+    port's source line that called it, or for a backward op the line of its
+    forward (``label``), and ``attribution()`` gives the FLOPs, the
+    storages live at the peak (the live set is taken each time the peak
+    rises by a 200th) and each collective kind's bytes by label."""
 
     def __init__(self, attribute: bool = False):
         super().__init__()
@@ -179,6 +205,7 @@ class LocalCost(TorchDispatchMode):
         self.coll_bytes: dict[str, float] = defaultdict(float)
         self.coll_counts: dict[str, float] = defaultdict(float)
         self.coll_by_group: dict[tuple[str, int], float] = defaultdict(float)
+        self.coll_by_site: dict[str, dict[str, float]] = defaultdict(lambda: defaultdict(float))
         self.live = self.peak = 0
         self._seen: weakref.WeakSet = weakref.WeakSet()
 
@@ -209,19 +236,38 @@ class LocalCost(TorchDispatchMode):
     @staticmethod
     def label(func) -> str:
         """``op@file:line``: the port's innermost frame that called ``func``
-        (past the dry run itself and the local-shard plumbing)."""
+        (past the dry run itself and the local-shard plumbing).  An op that
+        the autograd engine runs for a node, with no frame of the port
+        between it and the engine (a ``DTensor`` op's backward, say), takes
+        the node's forward site instead, ``op@file:line (backward of
+        <node>)``: the port's innermost frame of the traceback that anomaly
+        mode keeps with each node (``run_cell`` turns it on with
+        ``attribute``).  Recompute under remat and a custom Function's own
+        backward run frames of the port, and are labelled by those."""
         op, f = func.name().split("::")[-1], sys._getframe(1)
-        while f is not None:
-            name = f.f_code.co_filename
-            if "repro_torch" in name and not name.endswith(
-                    ("dryrun.py", "local_shards.py", "_library.py")):
-                return f"{op}@{name.split('repro_torch/')[-1]}:{f.f_lineno}"
+        while f is not None and f.f_code.co_name != "_engine_run_backward":
+            site = _port_site(f.f_code.co_filename, f.f_lineno)
+            if site:
+                return f"{op}@{site}"
             f = f.f_back
-        return op
+        node = torch._C._current_autograd_node()  # also an engine thread's, which has no frames
+        site = _node_site(node) if node is not None else ""
+        return f"{op}@{site} (backward of {node.name()})" if site else op
 
     def attribution(self, top: int = 15) -> dict:
+        """The FLOPs and the storages live at the peak by label, and each
+        collective kind's bytes by label: the ``top`` largest, a
+        collective's rest summed under ``other sites`` so that each kind
+        adds up to its ``collective_bytes``."""
         rank = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
-        return {"peak_bytes_by_site": rank(self.peak_by), "flops_by_site": rank(self.flops_by)}
+
+        def with_rest(d):
+            r = rank(d)
+            rest = sum(d.values()) - sum(v for _, v in r)
+            return r + [["other sites", rest]] if len(d) > top else r
+
+        return {"peak_bytes_by_site": rank(self.peak_by), "flops_by_site": rank(self.flops_by),
+                "collective_bytes_by_site": {k: with_rest(d) for k, d in self.coll_by_site.items()}}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -252,6 +298,8 @@ class LocalCost(TorchDispatchMode):
             self.coll_bytes[kind] += b
             self.coll_counts[kind] += 1
             self.coll_by_group[kind, _group_size(func, args)] += b
+            if self.attribute:
+                self.coll_by_site[kind][label] += b
         if not func.is_view:
             ins = [a for a in args if isinstance(a, torch.Tensor)]
             self.bytes += sum(map(_nbytes, ins + outs))
@@ -387,7 +435,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, knobs: dict, out_dir: P
                     run = lambda: fn(params, caches, tok, s - 1)
             for t in _leaves(args):
                 cost.track(t.to_local() if isinstance(t, DTensor) else t)
-            with torch.set_grad_enabled(shape.kind == "train"), cost:
+            # anomaly mode keeps each autograd node's forward traceback for
+            # LocalCost.label; its NaN checks would read fake tensors
+            anomaly = (torch.autograd.set_detect_anomaly(True, check_nan=False) if attribute
+                       else contextlib.nullcontext())
+            with torch.set_grad_enabled(shape.kind == "train"), anomaly, cost:
                 out = run()
             del out
         rec["lower_s"] = round(time.time() - t0, 2)
@@ -473,7 +525,8 @@ def main() -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced() config at the cell's shape")
     ap.add_argument("--attribute", action="store_true",
-                    help="record the FLOPs and the peak's storages by op and source line")
+                    help="record the FLOPs, the peak's storages and the collectives' bytes "
+                         "by op and source line (a backward op by its forward's line)")
     ap.add_argument("--rank", type=int, default=0,
                     help="count this rank's local work (default 0); name the records with --tag")
     ap.add_argument("--compare", default=None, metavar="REF_DIR",

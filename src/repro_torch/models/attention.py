@@ -12,10 +12,11 @@ copy of the whole cache per token) and return.  Under a plan each is a
 'model', or 'model' alone, when the batch and the groups leave them free):
 every write at a position goes through ``local_shards.write_along``, so each
 rank writes the rows that fall in its own shard and the cache is never
-gathered.  Where ``kv_seq`` is split, decode reads the whole cache under
-the JAX mask ``arange(T) <= pos`` (:233-246), as a slice would split
-unevenly; where it is whole (unsharded, or a plan that splits batch or
-groups instead) decode reads the slots ``0..pos`` alone.  A global layer's cache is
+gathered.  Where ``kv_seq`` is split, decode reads each rank's own slots
+under the JAX mask ``arange(T) <= pos`` (:233-246) and splits the softmax
+over the row, as XLA does (``split_softmax``); where it is whole
+(unsharded, or a plan that splits batch or groups instead) decode reads the
+slots ``0..pos`` alone.  A global layer's cache is
 ``{"k", "v"}`` of (B, T, G, hd) with T the serving length.  A
 sliding-window layer keeps a ring buffer of ``t = min(window, T)`` slots,
 the JAX ``attn_cache_defs`` (:170-180): token ``pos`` lives in slot
@@ -25,6 +26,7 @@ package keeps it in the cache dtype, where bf16 rounds 513 to 512.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,8 +34,10 @@ import torch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name, linear
-from repro_torch.parallel.local_shards import grad_as_input, lift, split_along, write_along
+from repro_torch.models.layers import ParamDef, apply_rope, checkpoint_name, linear, linears
+from repro_torch.parallel.local_shards import (grad_as_input, mesh_dims_along, on_local_shards,
+                                               reduce_over, shard_extent, split_along,
+                                               write_along)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
@@ -57,20 +61,20 @@ def _project_qkv(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     product whose heads do not split over 'model' is kept whole along its
     last dim, so that it can be viewed as (heads, hd)."""
     b, s, d = x.shape
-
-    def proj(w, bias, heads):
-        y = linear(x, grad_as_input(w.reshape(d, -1)))  # the gradient views back
-        if not plan.can_shard(heads, w.shape[1]):
+    names = (("wq", "bq", "q_heads"), ("wk", "bk", "kv_heads"), ("wv", "bv", "kv_heads"))
+    # the gradients view back
+    ys = linears(x, *(grad_as_input(p[w].reshape(d, -1)) for w, _, _ in names))
+    out = []
+    for (w, bias, heads), y in zip(names, ys):
+        if not plan.can_shard(heads, p[w].shape[1]):
             y = plan.constrain(y, ("batch", "seq", None))
-        y = y.view(b, s, *w.shape[1:])
-        return y + bias.to(y.dtype) if spec.qkv_bias else y
-
-    return (proj(p["wq"], p.get("bq"), "q_heads"), proj(p["wk"], p.get("bk"), "kv_heads"),
-            proj(p["wv"], p.get("bv"), "kv_heads"))
+        y = y.view(b, s, *p[w].shape[1:])
+        out.append(y + p[bias].to(y.dtype) if spec.qkv_bias else y)
+    return tuple(out)
 
 
 def _out_proj(p, o):
-    """o: (B, S, H, hd) -> (B, S, D)."""
+    """o: (B, S, H, hd), or flat (B, S, H * hd) -> (B, S, D)."""
     h, hd, d = p["wo"].shape
     flat = grad_as_input(o.reshape(*o.shape[:2], h * hd))  # its gradient views back to (H, hd)
     return linear(flat, grad_as_input(p["wo"].reshape(h * hd, d)))
@@ -177,15 +181,53 @@ def constrain_cache(cache, plan: ShardingPlan):
     return out
 
 
+def _ring_valid(kpos, pos: int, t: int):
+    """A ring cache's mask (JAX :241): filled, not after ``pos``, and within
+    the last ``t`` positions."""
+    return (kpos > 0) & (kpos - 1 <= pos) & (kpos - 1 > pos - t)
+
+
+def split_softmax(s, groups):
+    """The softmax over the last dim of a row split over ``groups`` (the
+    ranks of each mesh dim that split it), on this rank's part ``s`` of it,
+    as XLA lowers a softmax over a split dim (the combine step of a split-K
+    decode): the row's max and then the sum of its exps are all-reduced.
+    A part that is all ``NEG_INF`` (masked) comes out 0: its exps are taken
+    against the row's max."""
+    e = torch.exp(s - reduce_over(s.amax(dim=-1, keepdim=True), "max", groups))
+    return e / reduce_over(e.sum(dim=-1, keepdim=True), "sum", groups)
+
+
+def _own_slots(k, v, qg, kpos=None, *, pos: int, t: int, lo: int, groups):
+    """Decode's attention over this rank's slots of a cache split along
+    ``kv_seq`` (the slots ``lo`` onwards): this rank's share of o, (B, 1,
+    H * hd), a sum over ``groups`` (the ranks of each mesh dim that splits
+    ``kv_seq``): its slots' v weighted by their probabilities
+    (``split_softmax``).  A slot past ``pos`` (on a shard that holds none
+    yet, every slot) is masked.  ``kpos``: a ring cache's, its own slots;
+    ``t``: the ring's length."""
+    s = (torch.einsum("bgrk,btgk->bgrt", qg, k.to(qg.dtype)) * (1.0 / math.sqrt(qg.shape[-1]))
+         ).float()
+    valid = (torch.arange(lo, lo + k.shape[1], device=k.device) <= pos) if kpos is None \
+        else _ring_valid(kpos, pos, t)
+    pr = split_softmax(torch.where(valid, s, NEG_INF), groups).to(qg.dtype)
+    o = torch.einsum("bgrt,btgk->bgrk", pr, v.to(qg.dtype))
+    return o.reshape(o.shape[0], 1, -1)
+
+
 def attn_decode(p, x, pos: int, spec: ArchSpec, plan: ShardingPlan, cache, *,
                 window: int = 0):
     """One decode step.  x: (B, D); pos: the new token's position (shared
     across the batch).  A full cache takes its k/v at slot ``min(pos, T-1)``
     in place and attends to slots ``0..pos``; a ring cache takes them at
     ``pos % t`` and attends to every slot under the JAX mask (:241): filled,
-    not after ``pos``, and within the last ``t`` positions.  A full cache
-    whose ``kv_seq`` a plan splits is read whole under the mask
-    ``arange(T) <= pos``, as the JAX module reads it.
+    not after ``pos``, and within the last ``t`` positions.  A cache whose
+    ``kv_seq`` a plan splits stays split: each rank attends to its own
+    slots under the mask (``_own_slots``: the softmax's max and sum
+    all-reduced), and o, the sum of the ranks' shares, goes to the output
+    projection as a ``Partial``, flat: each rank runs the product on its
+    share, as XLA does (a ``Partial`` flattened under ``DTensor`` is
+    reduce-scattered, and the product then splits its contraction).
 
     GQA is computed with grouped einsums (no head-repeat copy).
     """
@@ -201,20 +243,28 @@ def attn_decode(p, x, pos: int, spec: ArchSpec, plan: ShardingPlan, cache, *,
     write_along(cache["k"], k, slot)
     write_along(cache["v"], v, slot)
     cache = constrain_cache(cache, plan)
-    n, valid = t, None
     if window:
         write_along(cache["kpos"], pos + 1, slot, dim=0)
-        kpos = cache["kpos"]
-        valid = (kpos > 0) & (kpos - 1 <= pos) & (kpos - 1 > pos - t)
-    elif split_along(cache["k"], 1):
-        valid = lift(torch.arange(t, device=x.device) <= pos, cache["k"])
-    else:
-        n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
 
     # (B, H, hd) -> (B, G, R, hd): heads split only where the groups split too
     q1 = plan.constrain(q[:, 0], ("batch", "q_heads" if plan.can_shard("kv_heads", g) else None,
                                   None))
     qg = q1.reshape(b, g, h // g, hd)
+    if split_along(cache["k"], 1):
+        kc = cache["k"]
+        fn = functools.partial(_own_slots, pos=pos, t=t, lo=shard_extent(kc, 1)[0],
+                               groups=[kc.device_mesh.get_group(i)
+                                       for i in mesh_dims_along(kc, 1)])
+        args = (kc, cache["v"], qg) + ((cache["kpos"],) if window else ())
+        o = on_local_shards(fn, args, (0, 1, 2),
+                            follow=(None, None, {0: 0, 2: 1}, {1: 0})[:len(args)],
+                            out={0: 0, 2: 2})
+        return _out_proj(p, o)[:, 0], cache
+    n, valid = t, None
+    if window:
+        valid = _ring_valid(cache["kpos"], pos, t)
+    else:
+        n = min(pos + 1, t)  # the slots the JAX mask `arange(T) <= pos` keeps
     kk, vv = (cache[name] if n == t else cache[name][:, :n] for name in ("k", "v"))
     kk, vv = kk.to(q.dtype), vv.to(q.dtype)
     s = (torch.einsum("bgrk,btgk->bgrt", qg, kk) * (1.0 / math.sqrt(hd))).float()

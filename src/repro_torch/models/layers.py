@@ -142,6 +142,16 @@ def linear(x, w, b=None):
     return y
 
 
+def linears(x, *ws):
+    """``linear(x, w)`` for each of ``ws``, in order, as they are taken: a
+    (B, S, K) ``DTensor`` ``x`` split along S is gathered once for all of
+    them (``linear`` alone gathers it for each; XLA gathers it once), and
+    held only as long as they are being taken."""
+    if x.ndim == 3:
+        x = whole_along(x, 1)
+    return (linear(x, w) for w in ws)
+
+
 def _rows_in_shard(table, tokens, start: int):
     """The rows of ``table`` (the table's rows ``start`` onwards) at
     ``tokens``, zeros for a token outside them."""

@@ -29,7 +29,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, linear, rmsnorm
+from repro_torch.models.layers import ParamDef, linear, linears, rmsnorm
 from repro_torch.parallel.local_shards import on_local_shards, split_along
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
@@ -150,8 +150,8 @@ def _fold_heads(y, shape):
 
 def _in_proj(p, x):
     """x: (..., D) -> z, x, b, c (pre-conv) and dt (f32, through softplus)."""
-    z, xi, bi, ci = (linear(x, p[k]) for k in ("w_z", "w_x", "w_b", "w_c"))
-    dt = F.softplus(linear(x, p["w_dt"]).float() + p["dt_bias"].float())
+    z, xi, bi, ci, dt = linears(x, *(p[k] for k in ("w_z", "w_x", "w_b", "w_c", "w_dt")))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
     return z, xi, bi, ci, dt
 
 

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchSpec
-from repro_torch.models.layers import ParamDef, linear
+from repro_torch.models.layers import ParamDef, linear, linears
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
 
@@ -25,10 +25,10 @@ def mlp_defs(spec: ArchSpec) -> dict[str, ParamDef]:
 
 
 def mlp_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN) -> torch.Tensor:
-    up = linear(x, p["w_up"])
     if spec.act == "silu":
-        h = F.silu(linear(x, p["w_gate"])) * up
+        up, gate = linears(x, p["w_up"], p["w_gate"])
+        h = F.silu(gate) * up
     else:
-        h = F.gelu(up, approximate="tanh")
+        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
     h = plan.constrain(h, ("batch", "seq", "ff"))
     return linear(h, p["w_down"])

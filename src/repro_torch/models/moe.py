@@ -209,6 +209,26 @@ def _fsdp_bytes(x, weights, rows, fsdp, split, ep, tg: int, cap: int):
     return move, gather
 
 
+def _ff_bytes(x, wg, over, i, tg: int, cap: int):
+    """The costs of the experts' ff columns split over mesh dim ``i``, which
+    splits x's sequence too, for ``keep_weight_split``: keeping the split,
+    the bytes moved (x's rows gathered over ``i`` and y's partial sums
+    reduced) plus the buffer held (the capacity rows of every group of the
+    rank's rows); gathering the columns, the three weights' bytes moved
+    plus the buffer held (the capacity rows of its own groups, and the
+    gathered weights).  The held bytes count because the two ways hold
+    unlike: the capacity buffer of every row is what outgrows the card.
+    ``over``: x's dim -> the mesh dims that split it."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    rows = b * s // math.prod(mesh.size(j) for dim in (0, 1) for j in over[dim] if j != i)
+    e, f = wg.to_local().shape[0], wg.shape[2]
+    buffer = lambda n: e * (n // tg) * cap * d * x.element_size()
+    gather = 3 * e * d * f * wg.element_size()
+    return (2 * rows * d * x.element_size() + buffer(rows),
+            2 * gather + buffer(rows // mesh.size(i)))
+
+
 def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     """x: (B, S, D) -> (y (B, S, D), aux {"lb_loss", "drop_frac"}).
 
@@ -226,7 +246,14 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
       * experts or their ff columns split over a mesh dim that leaves x
         whole: each rank runs its share (its experts, or its ff columns,
         ``w_down``'s partial sum) on the groups, and y is its share of a
-        sum over that dim, which the residual stream's constraint reduces.
+        sum over that dim, which the residual stream's constraint reduces;
+      * ff columns split over a mesh dim that splits the sequence: x is
+        gathered over it as above, unless gathering the columns for use
+        costs less in bytes moved and the largest buffer held
+        (``keep_weight_split`` on ``_ff_bytes``: prefill and training's
+        many rows, whose capacity buffer outgrows the experts); then x's
+        groups stay split, each rank runs its own groups through whole
+        experts, and the weights' gradients go back to their split.
     The weights' FSDP split of D over 'data' stays where moving x costs
     fewer bytes than gathering the experts (``keep_weight_split``: decode's
     few rows, batch 1 on every 'data' rank): x's rows are gathered over
@@ -249,10 +276,18 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
                  if isinstance(q, Shard) and q.dim in (0, 2)}  # mesh dim -> expert or ff
         over = {dim: mesh_dims_along(x, dim) for dim in keep}
         n = math.prod(mesh.size(i) for i in over[1])
+        groups = s % n == 0 and (s // n) % tg == 0  # each rank's chunk holds whole groups
+        # ff columns split over a mesh dim that splits the sequence: gathered
+        # for use where that costs less than every rank routing every row
+        cols = [i for i in over[1] if groups and split.get(i) == 2
+                and not keep_weight_split(*_ff_bytes(x, wg, over, i, tg, cap))]
+        if cols:
+            split = {i: dim for i, dim in split.items() if i not in cols}
+            own = {2: (0,), 3: (0,), 4: (0,)}  # the experts' own split stays, their ff columns not
         # a split of x stays where each rank's chunk holds whole groups and the
         # mesh dim splits no ff columns (whose partial sums need every row)
         keep = tuple(dim for dim in keep if all(split.get(i, 0) == 0 for i in over[dim])
-                     and (dim == 0 or (s % n == 0 and (s // n) % tg == 0)))
+                     and (dim == 0 or groups))
         rows = {i for dim in keep for i in over[dim]}
         whole = [i for i in split if i not in rows]
         ep = [i for i in split if i in rows]

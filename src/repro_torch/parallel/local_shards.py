@@ -45,14 +45,17 @@ def split_along(x: torch.Tensor, dim: int) -> bool:
 
 
 def keep_weight_split(move_bytes: int, gather_bytes: int) -> bool:
-    """The rule for a weight split over a mesh dim along the dim a product
-    contracts (the FSDP split of 'embed' over 'data'): the product runs on
-    the weight's own shard, the activations moved to it (their rows
+    """The rule for a weight split over a mesh dim (the FSDP split of
+    'embed' over 'data', the experts' ff columns over 'model'): the product
+    runs on the weight's own shard, the activations moved to it (their rows
     gathered over that mesh dim, or at batch 1 the rank's slice of their
     contraction columns taken, and the partial products reduced into the
-    output's layout), where that moves fewer bytes, ``move_bytes``, than
-    gathering the weight, ``gather_bytes``; else the weight is gathered.
-    Both are reckoned from the shapes before the product runs."""
+    output's layout), where that costs less, ``move_bytes``, than gathering
+    the weight for use, each rank then running its own rows,
+    ``gather_bytes``.  Each cost is the bytes that way moves, plus the
+    largest buffer it makes a rank hold where the two ways hold unlike
+    (the MoE's, ``moe._ff_bytes``).  Both are reckoned from the shapes
+    before the product runs."""
     return move_bytes < gather_bytes
 
 
@@ -63,6 +66,15 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     follows runs on each rank's own part of the result, so each rank's
     gradient is its share."""
     return _SumOver.apply(t, group)
+
+
+def reduce_over(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced by ``op`` (``"sum"``, ``"max"``) over each of ``groups``
+    in turn (the ranks of each mesh dim that splits a dim), inside code that
+    runs on local shards and takes no gradient (decode)."""
+    for group in groups:
+        t = _wait(funcol.all_reduce(t.contiguous(), op, group))
+    return t
 
 
 class _SumOver(torch.autograd.Function):

@@ -133,8 +133,14 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
         batch = to_device(batch, some.device)
 
         def placed(b):
-            if not isinstance(some, DTensor) or all(isinstance(t, DTensor) for t in b.values()):
+            """The batch laid out by its batch axes: a microbatch's slice of a
+            batch split over its rows comes back whole on every rank
+            (``DTensor`` slices a split dim whole), and is split again, so
+            each rank runs its own rows as the JAX step's microbatches do."""
+            if not isinstance(some, DTensor):
                 return b
+            if all(isinstance(t, DTensor) for t in b.values()):
+                return {k: plan.constrain(t, batch_axes(spec)[k]) for k, t in b.items()}
             return distribute_tree(b, batch_axes(spec), plan, some.device_mesh)
 
         if cfg.microbatches <= 1:

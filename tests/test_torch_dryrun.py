@@ -1,5 +1,5 @@
-"""The dry run on a fake world, the kernels' fake paths, the cost-analysis
-copy, the bridge and the ``SPEC`` modules, on the CPU.
+"""The dry run on a fake world, its attribution, the kernels' fake paths,
+the cost-analysis copy, the bridge and the ``SPEC`` modules, on the CPU.
 
 Dry run.  ``repro_torch.launch.dryrun.run_cell`` on reduced qwen2, mamba2,
 gemma3 and granite-moe, each at a small train, prefill and decode shape
@@ -44,8 +44,20 @@ forced host devices.  Held:
     the intra-chunk quadratic, now that each 'model' rank scans its own
     head_dim columns; and MoE, where the port dispatches by index (XLA
     counts the JAX module's one-hot dispatch and combine contractions) and
-    runs its share of the ff columns, which XLA's partitioner gathers
-    (granite 0.07 to 0.72, jamba's batch-1 decode 0.61);
+    runs its share of the ff columns, or its own groups through whole
+    experts (granite 0.07 to 0.72, jamba's batch-1 decode 0.61);
+  * the all-gather bytes a device within ``GATHER_BAND`` of XLA's.  A
+    block's input is gathered along the sequence once for its products, a
+    microbatch keeps its rows split, and the MoE gathers its experts' ff
+    columns where that costs less than every rank routing every row: before
+    these, full-size qwen2 train_4k gathered 1.89x XLA's bytes, reduced
+    moonshot and granite train_4k 2.06x and 1.30x.  Full-size qwen2
+    train_4k now sets the top (1.09x), reduced granite's prefill the bottom
+    (0.17x).  At the reduced decode shapes the f32 score row that decode's
+    softmax once gathered is small (those cells sat at 0.24 to 0.79x
+    before), so ``--attribute`` on reduced qwen2 at decode_32k's shape
+    holds the split softmax instead: no all-gather at the lines of
+    decode's attention, the row's max and sum all-reduced there;
   * full-size qwen2-1.5b train_4k: the peak a device within twice XLA's
     (``PEAK_FACTOR``), which a gathered vocabulary (93 GiB against 4.6)
     would break;
@@ -53,9 +65,16 @@ forced host devices.  Held:
     (8192 x 8192) split rows over 'data' and columns over 'model' of a
     (16, 16) mesh is 2 * 256 * 8192 * 512 FLOPs on rank 0, where
     ``FlopCounterMode`` over the ``DTensor`` ops counts the global 256x.
+
+Attribution.  ``--attribute`` on reduced qwen2 at train_4k's shape: a
+backward op is labelled by its node's forward site, and each collective
+kind's bytes by site add up to its total; at decode_32k's shape (its 2 KV
+groups do not divide 'model', so kv_seq splits there) the collectives at
+the lines of decode's attention.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -85,6 +104,7 @@ CELLS = [(a, s, "pod") for a in ARCH_CELLS for s in "tpd"] + [("gemma3-1b", "d",
 FLOP_BAND = (0.8, 1.4)
 FLOP_FLOORS = {"split_attention_prefill": 0.45, "scan_prefill": 0.7,
                "moe": 0.05}  # below FLOP_BAND: see above
+GATHER_BAND = (0.1, 1.1)  # the port's all-gather bytes a device over XLA's
 PEAK_FACTOR = 2.0
 POD = {"data": 16, "model": 16}
 MULTIPOD = {"pod": 2, "data": 16, "model": 16}
@@ -211,6 +231,8 @@ def test_dryrun_record_matches_jax_run_cell(records, cell):
     assert lo <= ratio <= FLOP_BAND[1], ratio
     if cell == FULL_SIZE:
         assert mem["peak_bytes_per_device"] <= PEAK_FACTOR * jmem["peak_bytes_per_device"]
+    gathers = [r["hlo"]["collective_bytes"].get("all-gather", 0) for r in (port, jax_rec)]
+    assert GATHER_BAND[0] * gathers[1] <= gathers[0] <= GATHER_BAND[1] * gathers[1], gathers
     kinds = set(port["hlo"]["collective_bytes"])
     assert kinds and kinds == set(port["hlo"]["collective_counts"])
     assert {k.split("@")[0] for k in port["hlo"]["collective_by_group"]} == kinds
@@ -272,6 +294,76 @@ def test_dryrun_cli_attributes_counts_another_rank_and_compares(tmp_path):
                        text=True, timeout=TIMEOUT)
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.startswith("qwen2-1.5b:prefill_32k:pod ok / ok;") and "(1.00x)" in r.stdout
+
+
+@pytest.fixture(scope="module")
+def train_attribution(tmp_path_factory):
+    """``--attribute`` on reduced qwen2 at train_4k's shape (batch 256,
+    sequence 4096, two microbatches; its tied table)."""
+    out = tmp_path_factory.mktemp("attribute")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-1.5b",
+                        "--shape", "train_4k", "--reduced", "--device", "cpu", "--attribute",
+                        "--out", str(out)], env=env, capture_output=True, text=True,
+                       timeout=TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads((out / "qwen2-1.5b__train_4k__pod.json").read_text())
+
+
+def test_attribute_labels_a_backward_op_with_its_forward_site(train_attribution):
+    """An op the autograd engine runs is labelled by its node's forward
+    site: the products' gradients by the line of the forward product, and
+    the tied embedding table's gradient by the line that hands the table to
+    the lookup and the head (``model._table``), where
+    ``torch.autograd.grad``'s own line labelled them all before."""
+    att = train_attribution["attribution"]
+    flops = dict(att["flops_by_site"])
+    backward = [k for k in flops if k.endswith("(backward of MmBackward0)")]
+    assert backward and all(k.split(" (")[0] in flops for k in backward)
+    table = next(i for i, line in enumerate((ROOT / "src/repro_torch/models/model.py")
+                                            .read_text().splitlines(), 1)
+                 if 'grad_as_input(params["embed"])' in line)
+    labels = [k for kind in att["collective_bytes_by_site"].values() for k, _ in kind]
+    assert f"reduce_scatter_tensor@models/model.py:{table} (backward of _GradAsInputBackward)" \
+        in labels
+    assert not any(k.startswith("mm@train/") for k in flops)  # no product at the grad call
+
+
+def test_decode_softmax_over_a_split_kv_seq_gathers_no_score_row(tmp_path):
+    """Reduced qwen2 at decode_32k's shape (batch 128, 32,768 slots split 16
+    ways over 'model'): each rank attends on its own slots, so no
+    all-gather is labelled at the lines of decode's attention (the f32
+    score row's was, 8 rows x 4 heads x 2048 slots a rank, gathered whole),
+    and the row's max and sum are all-reduced there, a (8, 2, 2, 1) f32
+    each a layer."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-1.5b",
+                        "--shape", "decode_32k", "--reduced", "--device", "cpu", "--attribute",
+                        "--out", str(tmp_path)], env=env, capture_output=True, text=True,
+                       timeout=TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    rec = json.loads((tmp_path / "qwen2-1.5b__decode_32k__pod.json").read_text())
+    by_site = rec["attribution"]["collective_bytes_by_site"]
+    from repro_torch.models import attention
+    decode = set()
+    for fn in (attention.attn_decode, attention._own_slots, attention.split_softmax):
+        lines, first = inspect.getsourcelines(fn)
+        decode |= {f"models/attention.py:{first + i}" for i in range(len(lines))}
+    gathered = {k.split("@")[1] for k, _ in by_site.get("all-gather", [])}
+    assert gathered and not gathered & decode
+    reduced_there = [v for k, v in by_site["all-reduce"] if k.split("@")[1] in decode]
+    layers = len(reduced(ARCHS["qwen2-1.5b"]).layer_defs())
+    assert sum(reduced_there) == 2 * layers * 8 * 2 * 2 * 4
+
+
+def test_attribute_collective_bytes_by_site_add_up(train_attribution):
+    """Each collective kind's bytes by site (the top 15 and the rest under
+    ``other sites``) add up to its ``collective_bytes``."""
+    by_site = train_attribution["attribution"]["collective_bytes_by_site"]
+    total = train_attribution["hlo"]["collective_bytes"]
+    assert set(by_site) == set(total)
+    for kind, sites in by_site.items():
+        assert len(sites) <= 16 and sum(v for _, v in sites) == total[kind], kind
 
 
 # -- the kernels' fake paths ----------------------------------------------------

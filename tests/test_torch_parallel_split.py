@@ -372,7 +372,11 @@ def test_sequence_split_attention_matches_unsharded_and_jax(shape, window):
 # -- MoE --------------------------------------------------------------------------
 
 MOE_CASES = [((2, 2), {}, 32), ((1, 4), {}, 32), ((1, 4), {"n_experts": 6}, 32),
-             ((2, 2), {"n_experts": 3}, 32), ((1, 4), {}, 1), ((2, 2), {"n_experts": 3}, 1)]
+             ((2, 2), {"n_experts": 3}, 32), ((1, 4), {}, 1), ((2, 2), {"n_experts": 3}, 1),
+             ((1, 4), {"n_experts": 6, "d_ff": 32}, 64)]
+# the cases whose ff columns are gathered for use (moe._ff_bytes: every row's
+# capacity buffer and moving the rows cost more than gathering 32 columns)
+FF_GATHERED = [((1, 4), {"n_experts": 6, "d_ff": 32}, 64)]
 
 
 def _moe_inputs(spec, s, b=4):
@@ -457,7 +461,9 @@ def _moe_references(kw, p, x):
 def test_moe_on_its_shards_matches_unsharded_and_jax(shape, kw, s):
     """In the decode step (S = 1, a row a 'data' rank) the experts also keep
     their FSDP split of D over 'data' (moving the rows costs less than
-    gathering the experts); the prefill-sized cases gather it."""
+    gathering the experts); the prefill-sized cases gather it.  Ff columns
+    stay split where every rank routing every row of its 'data' share costs
+    less than gathering them (``FF_GATHERED`` the one case where not)."""
     from repro_torch.configs import ARCHS, reduced
     spec = reduced(ARCHS["granite-moe-3b-a800m"], **kw)
     p, x = _moe_inputs(spec, s)
@@ -474,9 +480,12 @@ def test_moe_on_its_shards_matches_unsharded_and_jax(shape, kw, s):
     e, f, n = spec.n_experts, spec.d_ff, shape[1]
     split_experts = e % n == 0
     assert got["w_placements"][1] == ("S(0)" if split_experts else "S(2)")
+    assert got["w_grad_placements"] == got["w_placements"]  # the gradient back on the split
     d = spec.d_model // shape[0] if s == 1 else spec.d_model
     want = (e // n, d, f) if split_experts else (e, d, f // n)
-    assert got["seen"] and set(got["seen"]) == {want}  # no rank held every expert whole
+    if (shape, kw, s) in FF_GATHERED:  # whole experts on each rank's own groups
+        want = (e, d, f)
+    assert got["seen"] and set(got["seen"]) == {want}  # else no rank held every expert whole
 
 
 # batch 1 ('data' splits no rows; x's D columns split over it instead) on
@@ -510,3 +519,41 @@ def test_moe_at_batch_1_runs_on_its_fsdp_shards(shape, kw, s):
     el, fl = (e // nm, f) if e % nm == 0 else (e, f // nm)
     assert got["w_placements"][0] == got["w_grad_placements"][0] == "S(1)"  # D over 'data'
     assert got["seen"] and set(got["seen"]) == {(el, spec.d_model // nd, fl)}
+
+
+def test_moe_train_step_gathers_ff_columns_matches_unsharded_and_jax():
+    """Reduced granite with 6 experts of 32 ff columns on (1, 4), at routing
+    groups of 8 tokens and a (8, 32) batch: gathering the columns costs less
+    than every rank routing every row and holding its capacity buffer
+    (``moe._ff_bytes``), so each rank runs its own groups through whole
+    experts, forward and backward, and the weights' gradients go back to
+    their ff split; two train steps against the unsharded step and the JAX
+    step (``tests/test_torch_parallel_train.py``'s harness)."""
+    from test_torch_parallel_train import MOE_GROUP, _check, _references, _sharded
+    arch, kw = "granite-moe-3b-a800m", {"n_experts": 6, "d_ff": 32}
+    ranks = _sharded(arch, kw, (1, 4), [("dots", True, 1)], MOE_GROUP)
+    _check(ranks, _references(arch, kw, "dots", 1, MOE_GROUP), 0)
+    assert all(r[0]["ffn_seen"] == [(6, 64, 32)] for r in ranks)
+
+
+# -- the split softmax ------------------------------------------------------------
+
+def _softmax_rank(s):
+    import torch.distributed as dist
+
+    from repro_torch.models.attention import split_softmax
+    part = torch.from_numpy(s).chunk(dist.get_world_size(), dim=-1)[dist.get_rank()]
+    return split_softmax(part, [dist.group.WORLD]).numpy()
+
+
+def test_split_softmax_matches_the_whole_row():
+    """Decode's softmax over a kv_seq split four ways (``split_softmax``):
+    random scores in four shards of a row, the third all ``NEG_INF`` (slots
+    past the position), against ``torch.softmax`` of the whole row; the
+    masked shard comes out 0, nothing NaN."""
+    from repro_torch.kernels.ref import NEG_INF
+    s = np.random.default_rng(3).standard_normal((2, 3, 4, 32)).astype(np.float32) * 4
+    s[..., 16:24] = NEG_INF
+    got = np.concatenate(spawn.run(_softmax_rank, 4, s, timeout=TIMEOUT), axis=-1)
+    _close(got, torch.softmax(torch.from_numpy(s), dim=-1).numpy())
+    assert np.isfinite(got).all() and (got[..., 16:24] == 0).all()

@@ -88,8 +88,8 @@ def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
     """For each (remat, fsdp, microbatches): the initial state on the mesh,
     ``STEPS`` sharded steps; losses, grad norms, the final parameters
     (gathered; kept on rank 0), the count of parameters a mesh dim splits,
-    the (rows, keys, offset) of each flash call and the x shape of each SSD
-    scan call.  ``group_size``: the MoE's routing group
+    the (rows, keys, offset) of each flash call, the x shape of each SSD
+    scan call and the local shape of each MoE expert call's w_gate.  ``group_size``: the MoE's routing group
     (``moe.GROUP_SIZE``)."""
     import torch.distributed as dist
 
@@ -103,6 +103,13 @@ def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
     mesh = make_mesh(shape, AXES[:len(shape)], device="cpu")
     moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
     seen, kernel, ssd_seen, scan = set(), ops.flash_attention, set(), ops.ssd_scan
+    ffn_seen, ffn = set(), moe._expert_ffn
+
+    def recording_ffn(xe, w_gate, *args):
+        ffn_seen.add(tuple(w_gate.shape))
+        return ffn(xe, w_gate, *args)
+
+    moe._expert_ffn = recording_ffn
 
     def recording(q, k, v, **kwargs):
         seen.add((q.shape[1], k.shape[1], kwargs["q_offset"]))
@@ -129,7 +136,7 @@ def _sharded_rank(arch, kw, shape, cases, batches, group_size=None):
                       for t in opt.leaves(state["params"]))
         out.append(dict(losses=losses, norms=norms, n_split=n_split,
                         n_leaves=len(opt.leaves(state["params"])), flash_seen=sorted(seen),
-                        ssd_seen=sorted(ssd_seen),
+                        ssd_seen=sorted(ssd_seen), ffn_seen=sorted(ffn_seen),
                         params=params if dist.get_rank() == 0 else None))
     return out
 

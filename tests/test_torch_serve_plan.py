@@ -1,25 +1,25 @@
-"""Serving under a sharding plan on four gloo ranks, on the CPU.
+"""Serving under a sharding plan on four gloo ranks, on the CPU: every
+arch on (2, 2), and the decode slot and the caches.
 
 ``Engine(plan=)`` and ``M.prefill`` / ``M.decode_step`` under
 ``plan_for_mesh`` of a (2, 2) ("data", "model") mesh, against the port's
 unsharded ``Engine`` and model functions on every rank, and against the JAX
 ``Engine`` with ``NULL_PLAN`` in the test process, for reduced qwen2,
 mamba2, gemma3 (window 16: a 40-token prompt wraps the ring, and 16
-decode steps cross its slot 0 again), granite-moe and jamba, one spawned
-call each; plus reduced qwen2 on a (1, 4) mesh,
-where ``kv_seq`` splits over 'model' (2 KV groups do not divide it): a
-32-slot cache in shards of 8, a 7-token prompt, and decode slots 7 and 8
-on either side of a shard boundary; and reduced granite-moe at routing
-groups of 4 tokens (a 16-token prompt: four groups a row, one chunk a
-'model' rank of 4), its experts split over 'model' on (1, 4) (prefill
-exchanges the capacity rows by all-to-all, decode runs each rank's own
-experts) or their ff columns (6 experts on (1, 4), 3 on (2, 2)); reduced
-mamba2 at d_model 48 on (1, 4), whose 6 heads do not divide 'model' and
-whose head_dim does (the scan split over head_dim); reduced jamba and
-granite-moe at batch 1 on (4, 1) and (2, 2), where 'data' splits no rows
-(the MoE, the lookup and the head on their FSDP shards); and reduced
-mamba2 with a 250-word vocabulary on (1, 4), whose tied head splits it
-over the 'model' axis that decode leaves idle.
+decode steps cross its slot 0 again; 1 KV group, so its caches' kv_seq
+splits over 'model'), granite-moe and jamba, one spawned call each; plus
+reduced qwen2 on a (1, 4) mesh, where ``kv_seq`` splits over 'model' (2 KV
+groups do not divide it): a 32-slot cache in shards of 8, a 7-token
+prompt, decode slots 7 and 8 on either side of a shard boundary, and
+decode on until the last shard fills; decode over a kv_seq split over
+'model' on (1, 4) in reduced jamba with one KV group (its attention
+layer's 24-slot cache in shards of 6; the last shard holds only masked
+slots for the first two steps) and in reduced gemma3 (one KV group; its
+window-16 ring caches in shards of 4 slots, wrapped by a 20-token prompt,
+and its global layers' 32 slots in shards of 8); and the cache axes of
+every arch against the JAX ``cache_axes``.
+``tests/test_torch_serve_plan_shards.py`` holds the MoE, Mamba and FSDP
+cases.
 
 Each rank starts from the same parameters (the port's ``init_params``, seed
 0, which ``convert.to_jax_params`` hands to the JAX Engine; the JAX
@@ -31,9 +31,12 @@ equal to the unsharded Engine's and the JAX Engine's, token for token, on
 every rank; prefill and decode logits within rtol 1e-5 of the unsharded
 ones, with an atol of 1e-5 of the step's largest logit (the same f32 sums,
 some of them partial sums added across ranks, so rounding shows against
-the logits' scale; where kv_seq is split, decode reads the whole cache
-under a mask where the unsharded path reads a slice).  The ranks import
-the port only; JAX is imported in the test process alone.
+the logits' scale; where kv_seq is split, decode attends on each rank's own
+slots and splits the softmax, where the unsharded path reads a slice).
+Each rank records what the plan's Engine took: the (position, first slot,
+slots) of each decode attention on its own slots, and the local shapes of
+the MoE's expert weights.  The ranks import the port only; JAX is
+imported in the test process alone.
 """
 from __future__ import annotations
 
@@ -51,9 +54,10 @@ RTOL = 1e-5  # logits, relative; atol RTOL * the step's largest |logit|
 # arch -> (prompt, new tokens, cache length)
 CASES = {"qwen2-1.5b": (16, 8, 24), "mamba2-130m": (16, 8, 24), "gemma3-1b": (40, 16, 64),
          "granite-moe-3b-a800m": (16, 8, 24), "jamba-v0.1-52b": (16, 8, 24)}
-BOUNDARY = ("qwen2-1.5b", (1, 4), (7, 4, 32))  # kv_seq over 'model': shards of 8 slots
-MOE_GROUP = 4  # the MoE's routing group in the MOE_CASES
-MOE_CASES = [((1, 4), {}), ((1, 4), {"n_experts": 6}), ((2, 2), {"n_experts": 3})]
+BOUNDARY = ("qwen2-1.5b", (1, 4), (7, 25, 32))  # kv_seq over 'model': shards of 8 slots
+# arch -> (mesh, arch overrides, (prompt, new tokens, cache length)): kv_seq split
+KV_SEQ_SPLIT = {"jamba-v0.1-52b": ((1, 4), {"n_kv_heads": 1}, (16, 4, 24)),
+                "gemma3-1b": ((1, 4), {}, (20, 6, 32))}
 
 
 def _prompts(vocab: int, prompt: int, batch: int = 2) -> np.ndarray:
@@ -77,7 +81,7 @@ def _serve_rank(shape, runs, kw=None, group_size=None, batch=2):
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import moe
+    from repro_torch.models import attention, moe
     from repro_torch.parallel.sharding import distribute_tree, placements, plan_for_mesh
     from repro_torch.parallel.sharding import NULL_PLAN
     from repro_torch.serve.engine import Engine
@@ -87,13 +91,29 @@ def _serve_rank(shape, runs, kw=None, group_size=None, batch=2):
     moe.GROUP_SIZE = group_size or moe.GROUP_SIZE
     f32 = torch.float32
     out = []
+    seen = {"slots": [], "ffn": set(), "on": False}  # what the plan's runs took
+    own_slots, expert_ffn = attention._own_slots, moe._expert_ffn
+
+    def recording_slots(k, v, qg, kpos=None, **kwargs):
+        if seen["on"]:
+            seen["slots"].append((kwargs["pos"], kwargs["lo"], k.shape[1]))
+        return own_slots(k, v, qg, kpos, **kwargs)
+
+    def recording_ffn(xe, w_gate, *args):
+        if seen["on"]:
+            seen["ffn"].add(tuple(w_gate.shape))
+        return expert_ffn(xe, w_gate, *args)
+
+    attention._own_slots, moe._expert_ffn = recording_slots, recording_ffn
     for arch, params, (prompt, new, max_len) in runs:
         spec = reduced(ARCHS[arch], **(kw or {}))
         prompts = _prompts(spec.vocab_size, prompt, batch)
         dparams = distribute_tree(params, M.param_axes(spec), plan, mesh)
         base, _ = Engine(spec, params, max_len=max_len, device="cpu").generate(prompts, new)
+        seen.update(slots=[], ffn=set(), on=True)
         got, _ = Engine(spec, dparams, plan=plan, max_len=max_len,
                         device="cpu").generate(prompts, new)
+        seen["on"] = False
 
         @torch.inference_mode()
         def logits(p, pl):
@@ -115,7 +135,8 @@ def _serve_rank(shape, runs, kw=None, group_size=None, batch=2):
 
         want, _ = logits(params, NULL_PLAN)
         have, k_placements = logits(dparams, plan)
-        out.append(dict(base=base, got=got, k_placements=k_placements,
+        out.append(dict(base=base, got=got, k_placements=k_placements, slots=seen["slots"],
+                        ffn=seen["ffn"],
                         want=want if dist.get_rank() == 0 else None,
                         have=have if dist.get_rank() == 0 else None))
     return out
@@ -127,8 +148,7 @@ _RUNS: dict = {}
 
 
 def _ranks(shape, runs, kw=None, group_size=None, batch=2):
-    key = (shape, tuple(arch for arch, _ in runs), tuple(sorted((kw or {}).items())), group_size,
-           batch)
+    key = (shape, tuple(runs), tuple(sorted((kw or {}).items())), group_size, batch)
     if key not in _RUNS:
         _RUNS[key] = spawn.run(_serve_rank, 4, shape,
                                [(arch, _params(arch, kw), cfg) for arch, cfg in runs], kw,
@@ -177,50 +197,41 @@ def test_decode_slot_crosses_a_kv_seq_shard_boundary():
     """On a (1, 4) mesh qwen2's 2 KV groups do not divide 'model', so the
     cache's kv_seq splits over ('data', 'model'): a 32-slot cache in four
     shards of 8; the 7-token prompt leaves decode writing slot 7 on rank 0's
-    shard and slot 8 on rank 1's."""
+    shard and slot 8 on rank 1's, and 25 decode steps go on until slot 31
+    fills the last shard.  Every decode step attends on each rank's own
+    slots (the split softmax): at the first, ranks 1 to 3 hold only masked
+    slots."""
     arch, shape, (prompt, new, max_len) = BOUNDARY
     ranks = _ranks(shape, [(arch, (prompt, new, max_len))])
     r = _check(ranks, 0, arch, prompt, new)
     assert r["k_placements"] == ("S(1)", "S(1)")
-    assert prompt < max_len // 4 < prompt + new
+    assert prompt < max_len // 4 < prompt + new and prompt + new == max_len
+    layers = len(reduced(ARCHS[arch]).layer_defs())
+    for rank, res in enumerate(ranks):
+        slots = res[0]["slots"]  # (pos, first slot, slots) of each call on this rank
+        assert sorted({c[0] for c in slots}) == list(range(prompt, prompt + new))
+        assert len(slots) == new * layers and {c[1:] for c in slots} == {(8 * rank, 8)}
+        assert (slots[0][1] > slots[0][0]) == (rank > 0)  # all masked at the first step
 
 
-@pytest.mark.parametrize("shape,kw", MOE_CASES, ids=lambda c: str(c).replace(" ", ""))
-def test_engine_moe_on_its_shards_matches_unsharded_and_jax(shape, kw):
-    arch = "granite-moe-3b-a800m"
-    prompt, new, _ = cfg = CASES[arch]
-    _check(_ranks(shape, [(arch, cfg)], kw, MOE_GROUP), 0, arch, prompt, new, kw, MOE_GROUP)
-
-
-def test_engine_mamba_scans_over_head_dim_splits_matches_unsharded_and_jax():
-    """Reduced mamba2 at d_model 48 on (1, 4): 6 heads of 16 do not divide
-    'model', their head_dim does, so prefill scans each rank's 4 columns of
-    every head, the final state lands in the cache's own head_dim split,
-    and decode's recurrence runs on that split."""
-    arch, kw = "mamba2-130m", {"d_model": 48}
-    prompt, new, _ = cfg = CASES[arch]
-    _check(_ranks((1, 4), [(arch, cfg)], kw), 0, arch, prompt, new, kw)
-
-
-@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=str)
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-moe-3b-a800m"])
-def test_engine_at_batch_1_keeps_fsdp_weights_on_their_shards(arch, shape):
-    """One prompt: 'data' splits no rows, so the residual stream is split
-    over its D columns there, and the MoE, the embedding lookup and the
-    head run on their weights' FSDP shards (the partial products summed
-    over 'data') where the unsharded Engine and the JAX Engine run whole."""
-    prompt, new, _ = cfg = CASES[arch]
-    _check(_ranks(shape, [(arch, cfg)], batch=1), 0, arch, prompt, new, batch=1)
-
-
-def test_engine_tied_head_splits_an_undivided_vocabulary_in_decode():
-    """Reduced mamba2 with a 250-word vocabulary on (1, 4): 250 does not
-    divide 'model', and decode's rows leave 'model' idle, so the tied head
-    splits its vocabulary columns there (pieces of 63, the last 61) and
-    the logits are gathered whole."""
-    arch, kw = "mamba2-130m", {"vocab_size": 250}
-    prompt, new, _ = cfg = CASES[arch]
-    _check(_ranks((1, 4), [(arch, cfg)], kw), 0, arch, prompt, new, kw)
+@pytest.mark.parametrize("arch", list(KV_SEQ_SPLIT))
+def test_engine_decodes_on_its_own_kv_seq_slots(arch):
+    """One KV group on (1, 4): kv_seq splits over 'model', so every decode
+    step of every attention layer attends on each rank's own slots (the
+    split softmax), a full cache's and a ring's; a shard past the position
+    holds only masked slots."""
+    shape, kw, (prompt, new, max_len) = KV_SEQ_SPLIT[arch]
+    ranks = _ranks(shape, [(arch, (prompt, new, max_len))], kw)
+    _check(ranks, 0, arch, prompt, new, kw)
+    spec = reduced(ARCHS[arch], **kw)
+    attn = sum(ld.mixer != "mamba" for ld in spec.layer_defs())
+    masked = []
+    for rank, res in enumerate(ranks):
+        slots = res[0]["slots"]  # (pos, first slot, slots) of each call on this rank
+        assert len(slots) == new * attn
+        assert {c[0] for c in slots} == set(range(prompt, prompt + new))
+        masked += [pos < lo for pos, lo, n in slots if n == max_len // shape[1]]
+    assert any(masked) and not all(masked)
 
 
 def _jax_layer_axes(tree, spec):
