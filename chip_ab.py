@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Compare this checkout with another on one NVIDIA GPU: the flash and SSD
-kernels' outputs bit for bit, and the unsharded serving path's times.
+"""Compare this checkout with another on one NVIDIA GPU: the flash, SSD and
+whole-row RMSNorm kernels' outputs bit for bit, the unsharded serving
+path's times, and the unsharded train steps' losses, gradients, peak
+memory and times.
 
     python3 chip_ab.py LABEL OUT [AGAINST]
 
@@ -19,13 +21,25 @@ Builds the flash attention (forward and backward), RMSNorm and SSD scan
     its backward shapes (mamba2-130m's train shape, ragged and grouped),
     all at head dims of 16 and more, f32 and bf16, inputs from seed 5,
     compared as flash's are;
+  * whole-row RMSNorm: the forward launch (``rmsnorm._forward``) and
+    ``rmsnorm_bwd`` (dx, dw) at the smoke run's rows and widths (qwen2's,
+    gemma3's, mamba2-130m's d_model and gated d_inner, a decode step's 4
+    rows), f32 and bf16, compared as flash's are;
   * serving: qwen2-1.5b (prompt 1000), gemma3-1b (2040),
     granite-moe-3b-a800m (1024) and mamba2-130m (4096) at full width and
     depth, random weights
     from seed 0, fp32, greedy, batch 4, through ``Engine.generate``: one
     warm-up call, then three of 32 new tokens; decode ms a step (decode
     seconds over the 32 steps, as ``chip_smoke.py`` takes it) of each and
-    their median, and the prefill ms median.
+    their median, and the prefill ms median;
+  * training: qwen2-1.5b (B=4, S=1024) and mamba2-130m (B=4, S=4096) at full
+    width and depth, f32, remat "dots", AdamW, SyntheticLM batches from seed
+    0: the first batch's gradients from the fresh state (every leaf of
+    mamba2's; qwen2's tied table, first and last layers and final norm),
+    then ``TRAIN_STEPS`` steps, with each step's loss, ms and the peak memory
+    (``max_memory_allocated`` over the steps); with AGAINST, the losses
+    compared bit for bit and each saved gradient within ``GRAD_RTOL`` of
+    the other's (max |diff| over the leaf's max |value|).
 To compare two commits, copy this script into an unpacked checkout of the
 other (``git archive``) and run both in one chip call in turns: A, B, B, A.
 Decode is host-bound, so its wall moves with the host: compare medians
@@ -51,6 +65,12 @@ SSD_BWD_CASES = ((4, 4096, 24, 1, 64, 128), (2, 1000, 8, 2, 64, 16))
 MODELS = (("qwen2-1.5b", 1000), ("gemma3-1b", 2040), ("granite-moe-3b-a800m", 1024),
           ("mamba2-130m", 4096))
 BATCH, NEW, CALLS = 4, 32, 3
+# (rows, d): whole-row RMSNorm forward and backward
+RMSNORM_CASES = ((4000, 1536), (4096, 1536), (8160, 1152), (16384, 768), (16384, 1536),
+                 (4, 1536))
+TRAINS = (("qwen2-1.5b", 1024), ("mamba2-130m", 4096))  # (arch, S) at B = 4
+TRAIN_STEPS = 4
+GRAD_RTOL = 1e-3  # the card-vs-CPU gradient tolerance of chip_smoke.py
 
 
 def flash_outputs(torch, fa) -> dict:
@@ -94,6 +114,70 @@ def ssd_outputs(torch, ss) -> dict:
     return out
 
 
+def rmsnorm_outputs(torch, rn) -> dict:
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in RMSNORM_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            x, g = ((torch.randn((rows, d), generator=gen, device="cuda") * 3).to(dtype)
+                    for _ in range(2))
+            w = (torch.randn((d,), generator=gen, device="cuda") * 0.1).to(dtype)
+            y = rn._forward(x, w, 1e-5)
+            dx, dw = rn.rmsnorm_bwd(x, w, g)
+            out[("rmsnorm", str(dtype).removeprefix("torch."), rows, d)] = [
+                t.cpu() for t in (y, dx, dw)]
+    return out
+
+
+def train_outputs(torch, label, card) -> dict:
+    """Per TRAINS path: the fresh state's gradients on the first batch (kept
+    leaves), the losses and step ms of TRAIN_STEPS steps, and their peak."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
+                                              make_train_step, to_device)
+    out = {}
+    for arch, seq in TRAINS:
+        spec = get_arch(arch)
+        cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=2))
+        state = init_train_state(spec, cfg, seed=0, device="cuda")
+        data = SyntheticLM(spec, DataConfig(BATCH, seq, seed=0))
+        batches = [to_device(data.batch_at(i), "cuda") for i in range(TRAIN_STEPS)]
+        leaves = opt.leaves(state["params"])
+        n = len(leaves)
+        keep = range(n) if arch.startswith("mamba2") else sorted(
+            {0, 1, 2, n - 1} | {i for i, t in enumerate(leaves) if t.shape[0] > 1e5})
+        for t in leaves:
+            t.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = make_loss_fn(spec, cfg=cfg)(state["params"], batches[0])
+        grads = torch.autograd.grad(loss, leaves)
+        grad_peak = torch.cuda.max_memory_allocated()
+        kept = {i: grads[i].cpu() for i in keep}
+        del grads, loss
+        step = make_train_step(spec, cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[ab] {label} {card} train {arch} B={BATCH} S={seq} f32 remat=dots: losses "
+              f"{losses}; step ms {[round(x, 3) for x in ms]}; peak memory {peak / 2**30:.3f} "
+              f"GiB over the steps, {grad_peak / 2**30:.3f} GiB in the first batch's gradient",
+              flush=True)
+        out[arch] = dict(losses=losses, ms=ms, peak=peak, grads=kept)
+        del state, step, batches
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -106,27 +190,46 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import _build, flash_attention as fa, ssd_scan as ss
+    from repro_torch.kernels import _build, flash_attention as fa, rmsnorm as rn, ssd_scan as ss
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Engine
     card = torch.cuda.get_device_name(0)
+    import subprocess
+    limit = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    print(f"[ab] {label}: {limit}", flush=True)
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm", "ssd_scan",
                   "ssd_scan_bwd"])
     print(f"[ab] {label}: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    got = {**flash_outputs(torch, fa), **ssd_outputs(torch, ss)}
+    got = {**flash_outputs(torch, fa), **ssd_outputs(torch, ss), **rmsnorm_outputs(torch, rn)}
+    train = train_outputs(torch, label, card)
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(got, out_path)
+    torch.save({"bits": got, "train": train}, out_path)
     if against is not None:
-        want = torch.load(against)
+        other = torch.load(against)
+        want = other["bits"]
         differ = [key for key in got if not all(torch.equal(x, y) for x, y in
                                                 zip(got[key], want[key]))]
-        print(f"[ab] {label} {card}: flash o, lse, dq, dk, dv and SSD y, state, dx, ddt, da, db, "
-              f"dc in {len(got)} cases against {against.name}: bit for bit {not differ}; cases "
-              f"that differ {differ}", flush=True)
-        if differ:
+        print(f"[ab] {label} {card}: flash o, lse, dq, dk, dv, SSD y, state, dx, ddt, da, db, "
+              f"dc and RMSNorm y, dx, dw in {len(got)} cases against {against.name}: bit for "
+              f"bit {not differ}; cases that differ {differ}", flush=True)
+        bad = bool(differ)
+        for arch, r in train.items():
+            o = other["train"][arch]
+            rel = {i: ((g - o["grads"][i]).abs().max() / o["grads"][i].abs().max()
+                       .clamp_min(1e-30)).item() for i, g in r["grads"].items()}
+            worst = max(rel, key=rel.get)
+            same_loss = r["losses"] == o["losses"]
+            print(f"[ab] {label} train {arch} against {against.name}: losses bit for bit "
+                  f"{same_loss}; first batch's gradients, {len(rel)} leaves: largest max |diff| "
+                  f"/ max |value| {rel[worst]:.3e} (leaf {worst}; tol {GRAD_RTOL}), "
+                  f"{sum(v == 0 for v in rel.values())} leaves bit for bit; peak "
+                  f"{r['peak'] / 2**30:.3f} GiB against {o['peak'] / 2**30:.3f}", flush=True)
+            bad |= not same_loss or rel[worst] > GRAD_RTOL
+        if bad:
             sys.exit(1)
 
     for arch, prompt in MODELS:

@@ -61,7 +61,18 @@ Phases, one or more lines each:
                CUDA cores) and the scratch's bytes; every backward row also run twice on
                the same inputs, which must give the same gradients bit for
                bit; and ops.ssd under grad on the card: one forward and one
-               backward call, gradients against the plain version's
+               backward call, gradients against the plain version's.  The
+               RMSNorm kernels' split-row mode (a row whose columns several
+               ranks hold: mamba2-130m's gated norm on one of 16 'model'
+               ranks, 96 of its 1536 columns, at its train rows and at
+               decode's 4, and a ragged piece of 40): rmsnorm_part_kernel
+               (a row's partial sum), rmsnorm_apply_kernel (the scale from
+               the reduced sum), and backward the partial sum of
+               g (1 + w) x and rmsnorm_split_bwd_kernel with rmsnorm_bwd_dw,
+               the other 15 ranks' sums standing in as fixed tensors the
+               all-reduce would add; against the plain twins, the backward
+               twice for the same bits, and through RMSNormSplitFn on the
+               card (no library call computes a split row)
   dse          the design-space explorer's main path: the JAX package's
                backend benchmark population (benchmarks/fig10_agents.py:
                49-107, rebuilt here: 32 seeded collective/network design
@@ -114,8 +125,9 @@ Phases, one or more lines each:
                busy share and device ms by kernel class (torch.profiler, one
                step); from one state and batch, loss and grad norm under
                remat "none" and "full" against "dots" (rtol 1e-5); the
-               trained full-width state (params, m, v, step: 18.5 GB)
-               through repro_torch.ckpt save and restore, exactly; then a
+               trained state's first 2 layers at full width (params, m, v,
+               step: 3.9 GB of the 18.5) through repro_torch.ckpt save and
+               restore, exactly; then a
                reduced qwen2 step on the card against the CPU, and a reduced
                bf16 state's round trip (bf16 params with their f32 master);
                then all of that again for mamba2-130m at B=4, S=4096 (the
@@ -143,7 +155,7 @@ Phases, one or more lines each:
                ("data", "model") mesh of the world-1 NCCL group: parameters
                and caches DTensors, the kernels reached through local_map;
                Engine(plan=) from the same weights and prompts generates
-               the serve phase's first 8 tokens (MESH_NEW: DTensor's host
+               the serve phase's first 4 tokens (MESH_NEW: DTensor's host
                dispatch makes each step slow) with its launch counts a
                token (counts set to 0 just before it), prefill logits bit
                for bit against the unsharded prefill and MESH_DECODE_STEPS
@@ -157,8 +169,13 @@ Phases, one or more lines each:
                shape through its operator (torch.ops.repro_torch) against
                the bare launch
   dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
-               world, at full size with fake tensors labelled cuda, twelve
-               at once: qwen2-1.5b train_4k pod, gemma3-1b decode_32k
+               world, at full size with fake tensors labelled cuda: deepseek-
+               67b train_4k pod (95 layers, 8 microbatches: minutes on one
+               core, so started before the kernels phase and collected
+               here; each weight's gradient reduce-scattered as autograd
+               makes it), then thirteen at once: mamba2-130m prefill_32k
+               pod (d_inner kept split through the gated norm and the head
+               view), qwen2-1.5b train_4k pod, gemma3-1b decode_32k
                multipod, mamba2-130m long_500k pod, granite-moe-3b-a800m
                and moonshot-v1-16b-a3b train_4k pod (the MoE with its ff
                columns, and its experts, split over 'model'), mamba2-130m
@@ -172,9 +189,10 @@ Phases, one or more lines each:
                train_4k pod (microbatches on their rows), each ok with
                its peak a device within the card's memory, with its peak
                GiB a device, FLOPs a device against model_flops / n_chips,
-               collective bytes by kind and seconds (the last four also
-               their all-gather bytes beside the count before this
-               change); then reduced qwen2-1.5b
+               collective bytes by kind and seconds (seven also their
+               all-gather bytes and peak beside the CPU host's counts
+               before the byte repairs of the last two changes); then
+               reduced qwen2-1.5b
                train_4k pod under --device cpu and --device cuda, whose
                records agree key for key but lower_s
 Then the card's name and power limit, one JSON line with every kernel's
@@ -214,6 +232,7 @@ PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
 M_MODEL_RANKS = 16  # the pod's 'model' axis: mamba2's 24 heads do not divide it, its head_dim does
+SPLIT_RAGGED = 40  # a ragged width of the RMSNorm kernels' split-row mode (mamba2's piece: 96)
 # flash attention at a query offset: qwen2's train_4k sequence as the last of
 # four 'model' ranks sees it under sequence-split attention (its rows
 # 3072..4095 against all 4096 keys)
@@ -222,14 +241,19 @@ REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
 MESH_STEPS = 6  # train steps of the mesh phase, unsharded and under a (1, 1) plan
 MESH_RTOL = 1e-6  # the (1, 1) plan vs unsharded, where some op breaks bit equality
 MESH_MAMBA_LAYERS = 4  # mamba2-130m's depth in the mesh phase (of 24)
-MESH_DECODE_STEPS = 4  # greedy decode steps whose logits serve_mesh holds
+MESH_DECODE_STEPS = 2  # greedy decode steps whose logits serve_mesh holds
+MESH_DECODE_PROFILED = 3  # decode steps serve_mesh traces for its device time
 # serve_mesh's new tokens, the serve phase's first MESH_NEW: a decode step
 # under the (1, 1) plan costs about 27x the unsharded one in host dispatch
-MESH_NEW = 8
+MESH_NEW = 4
+ROUND_TRIP_LAYERS = 2  # layers of the trained full-width state saved and restored
 MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, relative
 # the dry run's full-size cells (each must fit the card's memory), and the
 # reduced one run under both labels
-DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
+# started before the kernels phase, run beside the card's phases on one core
+DRYRUN_EARLY = (("deepseek-67b", "train_4k", "pod"),)
+DRYRUN_CELLS = (("mamba2-130m", "prefill_32k", "pod"),
+                ("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
                 ("mamba2-130m", "long_500k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
                 ("moonshot-v1-16b-a3b", "train_4k", "pod"), ("mamba2-130m", "train_4k", "pod"),
                 ("mamba2-130m", "decode_32k", "pod"), ("jamba-v0.1-52b", "long_500k", "pod"),
@@ -237,11 +261,17 @@ DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "
                 ("granite-moe-3b-a800m", "prefill_32k", "pod"), ("yi-9b", "train_4k", "pod"))
 # all-gather bytes a device of those cells before decode's softmax ran on
 # each rank's own kv_seq slots, the ff-split MoE kept its token groups split
-# and a microbatch kept its rows split: the CPU host's count, labels cpu
+# and a microbatch kept its rows split: the CPU host's count, labels cpu;
+# and (all-gather bytes, peak GiB) before mamba2's gated norm and head view
+# kept d_inner split, the unsplit vocabulary's loss took the fused NLL and
+# each gradient was reduce-scattered as autograd made it
 DRYRUN_GATHER_BEFORE = {("musicgen-medium", "decode_32k"): 1.232e9,
                         ("gemma3-1b", "long_500k"): 3.609e7,
                         ("granite-moe-3b-a800m", "prefill_32k"): 3.727e10,
                         ("yi-9b", "train_4k"): 3.900e11}
+DRYRUN_BEFORE = {("mamba2-130m", "prefill_32k"): (1.3279e10, 0.6675),
+                 ("mamba2-130m", "train_4k"): (3.8659e10, 4.1173),
+                 ("deepseek-67b", "train_4k"): (1.0774e12, 13.7661)}
 DRYRUN_REDUCED = ("qwen2-1.5b", "train_4k", "pod")
 DRYRUN_TIMEOUT = 600  # seconds, per subprocess
 # the reduced train step, card vs CPU: loss rtol, grads rtol / atol
@@ -560,6 +590,88 @@ def rmsnorm_bwd_blocks(torch, rn, rows, d, dtype, iters):
           f"at its occupancy): {json.dumps(out)}")
 
 
+class PieceSums:
+    """The split-row mode's ``reduce`` on one card: a rank's partial sums
+    plus the other ranks' (fixed tensors), as the all-reduce over the ranks
+    that split the row adds them: the sum of squares first, then the sum of
+    g (1 + w) x."""
+
+    def __init__(self, others):
+        self.others, self.calls = others, 0
+
+    def __call__(self, t):
+        self.calls += 1
+        return t + self.others[self.calls - 1]
+
+
+def check_rmsnorm_split(torch, rn, ref, rows, d, d_full, dtype, iters):
+    """The RMSNorm kernels' split-row mode on one rank's ``d`` columns of rows
+    ``d_full`` wide, the other ranks' sums (of squares, and of g (1 + w) x)
+    standing in as fixed tensors: each launch against its plain twin on the
+    same inputs (the partial sums; the apply and the backward from the same
+    reduced sums), the backward twice for the same bits, and forward and
+    backward through ``rmsnorm_split`` (RMSNormSplitFn) against the plain
+    chain.  Returns the forward's row (the partial sum and the apply) and
+    the backward's (the partial sum of g (1 + w) x, then the gradient:
+    rows, then dw).  No PyTorch call computes a split row (F.rms_norm takes
+    the whole row), so neither has a library time."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(dtype)
+    w = (torch.randn((d,), generator=gen, device="cuda") * 0.1).to(dtype)
+    g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    rest = d_full - d
+    others = [(torch.randn((rows, rest), generator=gen, device="cuda") * 3).square().sum(-1),
+              torch.randn((rows,), generator=gen, device="cuda") * rest ** 0.5]
+    name = dtype_name(dtype)
+    ss_p = ref.rmsnorm_part_ref(x) + others[0]
+    st_p = ref.rmsnorm_part_ref(x, w, g) + others[1]
+    sums = [rel_close(torch, rn.rmsnorm_part(x) + others[0], ss_p, 1e-5),
+            rel_close(torch, rn.rmsnorm_part(x, w, g) + others[1], st_p, 1e-5)]
+    y = rn.rmsnorm_apply(x, w, ss_p, d_full=d_full)
+    y_p = ref.rmsnorm_apply_ref(x, w, ss_p, d_full=d_full)
+    bwd = lambda: rn.rmsnorm_split_bwd(x, w, g, ss_p, st_p, d_full=d_full)
+    got = bwd()
+    deterministic = same_bits(torch, got, bwd())
+    want = ref.rmsnorm_split_bwd_ref(x, w, g, ss_p, st_p, d_full=d_full)
+    leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+    fn_y = rn.rmsnorm_split(*leaves, d_full=d_full, reduce=PieceSums(others))
+    fn_grads = torch.autograd.grad(fn_y, leaves, g)
+    torch.cuda.synchronize()
+    tol = RMS_TOL[name]
+    fwd_errs = sums[:1] + [rel_close(torch, y, y_p, tol), rel_close(torch, fn_y, y_p, tol)]
+    bwd_errs = sums[1:] + [rel_close(torch, a, b, tol) for a, b in zip(got, want)] + [
+        rel_close(torch, a, b, tol) for a, b in zip(fn_grads, want)]
+    elt = x.element_size()
+    out = []
+    for case, errs, kernel, plain, nbytes, flops, extra in (
+            (f"rmsnorm_split {name} rows={rows} d={d} of {d_full}", fwd_errs,
+             lambda: rn.rmsnorm_apply(x, w, rn.rmsnorm_part(x) + others[0], d_full=d_full),
+             lambda: ref.rmsnorm_apply_ref(x, w, ref.rmsnorm_part_ref(x) + others[0],
+                                           d_full=d_full),
+             # x read, y written, w; the f32 row sums written and read
+             (2 * x.numel() + w.numel()) * elt + 2 * rows * 4, 4.0 * rows * d, {}),
+            (f"rmsnorm_split_bwd {name} rows={rows} d={d} of {d_full}", bwd_errs,
+             lambda: rn.rmsnorm_split_bwd(x, w, g, ss_p, rn.rmsnorm_part(x, w, g) + others[1],
+                                          d_full=d_full),
+             lambda: ref.rmsnorm_split_bwd_ref(x, w, g, ss_p, ref.rmsnorm_part_ref(x, w, g)
+                                               + others[1], d_full=d_full),
+             # x, g read, dx written; w, dw; the two row sums read, T written
+             (3 * x.numel() + 2 * w.numel()) * elt + 3 * rows * 4, 8.0 * rows * d,
+             {"deterministic": deterministic})):
+        phases = {k: v for k, v in device_ms_split(kernel, iters, "rmsnorm").items()
+                  if k.startswith("rmsnorm")}
+        bound_ms, bound_by = bound(nbytes, flops, name)
+        row = dict(case=case, max_abs_err=max(e[0] for e in errs),
+                   rel_err=[e[1] for e in errs], tol=tol,
+                   ok=all(e[2] for e in errs) and extra.get("deterministic", True),
+                   ms=cuda_ms(kernel, iters), device_ms=sum(phases.values()) or None,
+                   device_ms_by_kernel=phases, plain_ms=cuda_ms(plain, iters),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by, **extra)
+        print(f"[kernels] {json.dumps(row)}")
+        out.append(row)
+    return out
+
+
 def ssd_inputs(torch, b, s, h, g, p, n, dtype, ranges):
     """``model``: dt in [1e-3, 1e-1] and a in [-16, -1], the init kinds'
     ranges, whose memory spans many chunks.  ``random``: the JAX tests' dt =
@@ -850,7 +962,8 @@ def serve_mesh(torch, np, M, Engine, counted, card, spec, params, prompts, want,
     pre = device_by_kernel(lambda: M.prefill(dparams, tok, caches, spec, plan,
                                              compute_dtype=f32), 2)
     step = device_by_kernel(lambda: M.decode_step(dparams, caches, tok.full_tensor()[:, -1], s,
-                                                  spec, plan, compute_dtype=f32), 8)
+                                                  spec, plan, compute_dtype=f32),
+                            MESH_DECODE_PROFILED)
     pre_ms, step_ms = sum(pre.values()) or None, sum(step.values()) or None
 
     def busy(dev_ms, wall_ms):
@@ -900,43 +1013,63 @@ def rmsnorm_dispatch_cost(torch, rn, d):
     return med
 
 
-def dryrun_phase(card, total_memory: int) -> None:
-    """The dry run in subprocesses on fake worlds: DRYRUN_CELLS at full size
-    (fake tensors labelled cuda, all at once), each ok with a peak a device
-    within the card's ``total_memory``; then the reduced DRYRUN_REDUCED cell
-    labelled cpu and cuda, whose records agree key for key but lower_s.
-    Every process is stopped before it returns."""
+def dryrun_start(cells, out: Path, *extra, threads: int | None = None) -> list:
+    """One ``python -m repro_torch.launch.dryrun`` subprocess per cell, writing
+    its record under ``out``; ``threads``: the intra-op threads each may use
+    (one, for a cell run beside the card's phases)."""
     import os
-    import shutil
-    import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                              "--shape", shape, "--mesh", mesh, "--out", str(out), *extra],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape, mesh in cells]
+
+
+def dryrun_finish(procs, timeout: float) -> list[str]:
+    """The subprocesses' output, each waited for at most ``timeout`` seconds;
+    every one is stopped before this returns."""
+    logs = []
     try:
-        def start(arch, shape, mesh, out, *extra):
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                   shape, "--mesh", mesh, "--out", str(out), *extra]
-            return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        dryrun_stop(procs)
+    return logs
 
-        def finish(procs):
-            logs = []
-            try:
-                for p in procs:
-                    logs.append(p.communicate(timeout=DRYRUN_TIMEOUT)[0])
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            return logs
 
+def dryrun_stop(procs) -> None:
+    """Stop every subprocess of ``procs`` still running (at exit too: a failed
+    phase leaves the early cells running)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_phase(card, total_memory: int, early, tmp: Path) -> None:
+    """The dry run in subprocesses on fake worlds: DRYRUN_EARLY (``early``,
+    started before the kernels phase) and DRYRUN_CELLS at full size (fake
+    tensors labelled cuda, all at once), each ok with a peak a device within
+    the card's ``total_memory``; then the reduced DRYRUN_REDUCED cell
+    labelled cpu and cuda, whose records agree key for key but lower_s.
+    Every process is stopped before it returns, and ``tmp`` removed."""
+    import shutil
+    try:
         def record(out, arch, shape, mesh):
             path = out / f"{arch}__{shape}__{mesh}.json"
             return json.loads(path.read_text()) if path.exists() else None
 
         t0 = time.perf_counter()
-        logs = finish([start(*cell, tmp / "full") for cell in DRYRUN_CELLS])
-        for cell, log in zip(DRYRUN_CELLS, logs):
+        logs = dryrun_finish(dryrun_start(DRYRUN_CELLS, tmp / "full"), DRYRUN_TIMEOUT)
+        print(f"[dryrun] {len(DRYRUN_CELLS)} full-size cells in {time.perf_counter() - t0:.3f} s "
+              f"wall")
+        t0 = time.perf_counter()
+        logs += dryrun_finish(early, DRYRUN_TIMEOUT)
+        print(f"[dryrun] waited {time.perf_counter() - t0:.3f} s for {len(DRYRUN_EARLY)} cell(s) "
+              f"started before the kernels phase")
+        for cell, log in zip(DRYRUN_CELLS + DRYRUN_EARLY, logs):
             rec = record(tmp / "full", *cell)
             if rec is None or rec["status"] != "ok":
                 fail(f"dryrun {':'.join(cell)}: {(rec or {}).get('error') or log[-2000:]}")
@@ -953,20 +1086,26 @@ def dryrun_phase(card, total_memory: int) -> None:
                   f"{ {k: f'{v:.4e}' for k, v in hlo['collective_bytes'].items()} } by group "
                   f"{ {k: f'{v:.4e}' for k, v in hlo['collective_by_group'].items()} }; "
                   f"{rec['lower_s']} s")
+            gathered = hlo["collective_bytes"].get("all-gather", 0)
             if cell[:2] in DRYRUN_GATHER_BEFORE:
-                print(f"[dryrun] {':'.join(cell)} all-gather bytes a device "
-                      f"{hlo['collective_bytes'].get('all-gather', 0):.4e}, before "
-                      f"{DRYRUN_GATHER_BEFORE[cell[:2]]:.4e} (the CPU host's count)")
+                print(f"[dryrun] {':'.join(cell)} all-gather bytes a device {gathered:.4e}, "
+                      f"before {DRYRUN_GATHER_BEFORE[cell[:2]]:.4e} (the CPU host's count)")
+            if cell[:2] in DRYRUN_BEFORE:
+                g0, p0 = DRYRUN_BEFORE[cell[:2]]
+                print(f"[dryrun] {':'.join(cell)} all-gather bytes a device {gathered:.4e} and "
+                      f"peak {mem['peak_bytes_per_device'] / 2**30:.4f} GiB, before the split "
+                      f"gated norm and head view, the fused NLL and the hooked gradients "
+                      f"{g0:.4e} and {p0:.4f} GiB (the CPU host's counts)")
             keys = ("arch", "shape", "mesh", "n_chips", "model_flops", "memory", "hlo", "lower_s")
             print(f"[dryrun] record {json.dumps({k: rec[k] for k in keys})}")
             if mem["peak_bytes_per_device"] > total_memory:
                 fail(f"dryrun {':'.join(cell)}: a device's peak {mem['peak_bytes_per_device']} "
                      f"bytes exceeds the card's {total_memory}")
-        print(f"[dryrun] {len(DRYRUN_CELLS)} full-size cells in {time.perf_counter() - t0:.3f} s "
-              f"wall, each peak within the card's {total_memory / 2**30:.3f} GiB")
+        print(f"[dryrun] {len(DRYRUN_CELLS) + len(DRYRUN_EARLY)} full-size cells, each peak "
+              f"within the card's {total_memory / 2**30:.3f} GiB")
         arch, shape, mesh = DRYRUN_REDUCED
-        finish([start(arch, shape, mesh, tmp / dev, "--reduced", "--device", dev)
-                for dev in ("cpu", "cuda")])
+        dryrun_finish([p for dev in ("cpu", "cuda") for p in dryrun_start(
+            [DRYRUN_REDUCED], tmp / dev, "--reduced", "--device", dev)], DRYRUN_TIMEOUT)
         cpu, cuda = (record(tmp / dev, arch, shape, mesh) for dev in ("cpu", "cuda"))
         if not cpu or not cuda or cpu["status"] != "ok" or cuda["status"] != "ok":
             fail(f"dryrun reduced {arch}:{shape}: {(cpu or {}).get('error')} / "
@@ -999,7 +1138,7 @@ def train_counts(spec, remat: str) -> dict[str, int]:
     return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
             "rmsnorm": again * norms + 1, "rmsnorm_bwd": norms + 1,
             "ssd_scan": again * n_mamba, "ssd_scan_bwd": n_mamba,
-            "dse_class_times": 0, "dse_sweep": 0}
+            "dse_class_times": 0, "dse_sweep": 0, "rmsnorm_split": 0, "rmsnorm_split_bwd": 0}
 
 
 def train(torch, counted, card, spec, seq):
@@ -1087,8 +1226,17 @@ def train(torch, counted, card, spec, seq):
     print(f"[train] {spec.name} remat policies from one state and batch: (loss, grad norm) "
           f"{got}; every one of {len(leaves)} parameters has a finite gradient that is not all "
           f"zero; none and full within {REMAT_TOL} of dots")
-    round_trip(torch, state, f"{spec.name} full-width trained f32")
+    round_trip(torch, first_layers(state, ROUND_TRIP_LAYERS),
+               f"{spec.name} full-width trained f32, first {ROUND_TRIP_LAYERS} layers,")
     return launches
+
+
+def first_layers(tree, n: int):
+    """``tree`` (a train state) with each layer stack cut to its first ``n``
+    layers: the same tensors, trained values and all."""
+    if isinstance(tree, dict):
+        return {k: v[:n] if k == "stack" else first_layers(v, n) for k, v in tree.items()}
+    return tree
 
 
 def round_trip(torch, state, name: str) -> None:
@@ -1779,6 +1927,13 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] nvcc {sorted(logs) or 'cached'}: {time.perf_counter() - t0:.3f} s")
 
+    # -- dryrun's long cells, beside the card's phases on one core -----------------
+    import atexit
+    import tempfile
+    dry_tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    early = dryrun_start(DRYRUN_EARLY, dry_tmp / "full", threads=1)
+    atexit.register(dryrun_stop, early)
+
     # -- kernels ---------------------------------------------------------------
     spec, mspec, gspec, rspec = get_arch(ARCH), get_arch(MAMBA), get_arch(GEMMA), get_arch(GRANITE)
     pspec = get_arch(PHI3)
@@ -1844,6 +1999,14 @@ def main() -> None:
                 ("mamba2 decode", (BATCH, mspec.d_model), 200)):
             named[name, key] = check_rmsnorm(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
+        # the split-row mode: mamba2's gated norm on one of 16 'model' ranks, and a ragged piece
+        for key, (n_rows, width), iters in (
+                ("mamba2 train split", (m_rows, mspec.d_inner // M_MODEL_RANKS), 100),
+                ("mamba2 decode split", (BATCH, mspec.d_inner // M_MODEL_RANKS), 200),
+                ("ragged split", (m_rows, SPLIT_RAGGED), 100)):
+            named[name, key], named[name, "bwd " + key] = check_rmsnorm_split(
+                torch, rn, ref, n_rows, width, mspec.d_inner, dtype, iters)
+            rows += [named[name, key], named[name, "bwd " + key]]
         for ranges in ("model", "random"):
             for b, s, sh, sg, sp, sn, iters in (
                     (BATCH, M_PROMPT, mh, mg, mp, mn, 10),   # mamba2-130m prefill
@@ -1889,8 +2052,10 @@ def main() -> None:
     counted = {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
                "ssd_scan": ss.ssd_scan, "flash_attention_bwd": fa.flash_attention_bwd,
                "rmsnorm_bwd": rn.rmsnorm_bwd, "ssd_scan_bwd": ss.ssd_scan_bwd,
-               "dse_class_times": dse_sim.dse_class_times, "dse_sweep": dse_sim.dse_sweep}
-    no_dse = {"dse_class_times": 0, "dse_sweep": 0}  # the model paths launch no DSE kernel
+               "dse_class_times": dse_sim.dse_class_times, "dse_sweep": dse_sim.dse_sweep,
+               "rmsnorm_split": rn.rmsnorm_split, "rmsnorm_split_bwd": rn.rmsnorm_split_bwd}
+    # the model paths launch no DSE kernel, and on one card no plan splits a row
+    no_dse = {"dse_class_times": 0, "dse_sweep": 0, "rmsnorm_split": 0, "rmsnorm_split_bwd": 0}
 
     # -- dse -----------------------------------------------------------------------
     by_path = {}
@@ -1949,7 +2114,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- dryrun: the program on fake worlds of 256 and 512 ranks --------------------
-    dryrun_phase(card, torch.cuda.get_device_properties(0).total_memory)
+    dryrun_phase(card, torch.cuda.get_device_properties(0).total_memory, early, dry_tmp)
 
     # -- report ------------------------------------------------------------------
     print(f"[device] {card}")
@@ -1977,14 +2142,16 @@ def main() -> None:
         (name, key) for key in ("bwd qwen2 ragged 1000", "bwd gemma3 global",
                                 f"bwd gemma3 window {gw}", "bwd granite", "bwd phi3 hd96")
         for name in ("float32", "bfloat16")]
+    split_keys = ("mamba2 train split", "mamba2 decode split", "ragged split")
     norm_bwd_more = [("bfloat16", "bwd qwen2 train")] + [
         (name, key) for key in ("bwd 4000x1536", "bwd gemma3 8160x1152", "bwd mamba2 train",
-                                "bwd mamba2 train gated")
+                                "bwd mamba2 train gated") + tuple("bwd " + k for k in split_keys)
         for name in ("float32", "bfloat16")]
     norm_more = [("float32", key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
                                               "granite prefill", "mamba2 prefill",
                                               "mamba2 prefill gated", "mamba2 decode")] + [
-        ("bfloat16", key) for key in ("mamba2 prefill", "mamba2 prefill gated")]
+        ("bfloat16", key) for key in ("mamba2 prefill", "mamba2 prefill gated")] + [
+        (name, key) for key in split_keys for name in ("float32", "bfloat16")]
     kernels = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",

@@ -583,6 +583,246 @@ cudaError_t launch_bwd(const BwdArgs& a) {
   return vec ? launch_bwd_vec<T, TW, VEC>(a) : launch_bwd_vec<T, TW, 1>(a);
 }
 
+
+// ---------------------------------------------------------------------------
+// split rows: a row whose columns several ranks hold (mamba2's gated norm on
+// its d_inner split over 'model').  Each of the two sums the row needs
+// crosses ranks, so each direction is two calls with an all-reduce of one
+// f32 a row between them (outside the kernels):
+//   * `rmsnorm_part_kernel`: a row's sum over this rank's columns, of x^2
+//     (S, forward) or of g * (1 + w) * x (T, backward);
+//   * `rmsnorm_apply_kernel`: y = x * rsqrt(S / d_full + eps) * (1 + w), from
+//     the reduced S, d_full being the whole row's width;
+//   * `rmsnorm_split_bwd_kernel`: dx = r * g * (1 + w) - x * r^3 * T / d_full
+//     from the reduced S and T, and each block's dw column sums (g * x * r)
+//     into the (parts, d) scratch, which `rmsnorm_bwd_dw` adds up in a fixed
+//     order, as the whole-row backward does.
+// Bound by device-memory bytes, as the whole-row kernels.  With the row's
+// sums given, the apply and the backward read each element once, so they
+// hold nothing of the row in registers: TPR threads a row (the whole-row
+// kernels' choice for the local width), each walking its vectors.  The
+// backward keeps its dw partial sums in shared memory (one row of d floats
+// a row of the block), as the whole-row wide kernel does.
+
+template <typename T, typename TW, int VEC, int TPR, bool DOT>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_part_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                        const T* __restrict__ g, float* __restrict__ out, long long xs,
+                        long long gs, long long rows, int d) {
+  constexpr int WPR = TPR / 32;
+  __shared__ float part[THREADS / 32];
+  const int sub = threadIdx.x / TPR, tid = threadIdx.x % TPR;
+  const long long row = static_cast<long long>(blockIdx.x) * (THREADS / TPR) + sub;
+  const bool live = row < rows;
+  const T* xr = x + (live ? row : 0) * xs;
+  const int nvec = live ? d / VEC : 0;
+  float s = 0.f;
+  for (int c = tid; c < nvec; c += TPR) {
+    float xv[VEC];
+    load_vec<VEC>(xr + c * VEC, xv);
+    if constexpr (DOT) {
+      float gv[VEC], wv[VEC];
+      load_vec<VEC>(g + row * gs + c * VEC, gv);
+      load_vec<VEC>(w + c * VEC, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s = fmaf(gv[e] * (1.f + wv[e]), xv[e], s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s = fmaf(xv[e], xv[e], s);
+    }
+  }
+  s = warp_sum(s);
+  if constexpr (WPR > 1) {
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = s;
+    __syncthreads();
+    s = 0.f;
+#pragma unroll
+    for (int j = 0; j < WPR; ++j) s += part[sub * WPR + j];
+  }
+  if (live && tid == 0) out[row] = s;
+}
+
+template <typename T, typename TW, int VEC, int TPR>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_apply_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                         const float* __restrict__ ss, T* __restrict__ o, long long xs,
+                         long long rows, int d, float d_full, float eps) {
+  const int sub = threadIdx.x / TPR, tid = threadIdx.x % TPR;
+  const long long row = static_cast<long long>(blockIdx.x) * (THREADS / TPR) + sub;
+  if (row >= rows) return;
+  const float r = rsqrtf(ss[row] / d_full + eps);
+  const T* xr = x + row * xs;
+  T* orow = o + row * d;
+  for (int c = tid; c < d / VEC; c += TPR) {
+    float v[VEC], y[VEC];
+    load_vec<VEC>(xr + c * VEC, v);
+    scale_store<VEC>(v, w + c * VEC, r, y);
+    store_vec<VEC>(orow + c * VEC, y);
+  }
+}
+
+template <typename T, typename TW, int VEC, int TPR>
+__global__ void __launch_bounds__(THREADS)
+    rmsnorm_split_bwd_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                             const T* __restrict__ g, const float* __restrict__ ss,
+                             const float* __restrict__ st, T* __restrict__ dx,
+                             float* __restrict__ dw_part, long long xs, long long gs,
+                             long long rows, int d, float d_full, float eps) {
+  constexpr int RPB = THREADS / TPR;
+  extern __shared__ float cols[];  // RPB rows of d column sums
+  const int sub = threadIdx.x / TPR, tid = threadIdx.x % TPR;
+  const int nvec = d / VEC;
+  float* mine = cols + sub * d;  // a column is always the same thread's
+  for (int c = tid; c < nvec; c += TPR)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) mine[c * VEC + e] = 0.f;
+  for (long long row0 = static_cast<long long>(blockIdx.x) * RPB; row0 < rows;
+       row0 += static_cast<long long>(gridDim.x) * RPB) {
+    const long long row = row0 + sub;
+    if (row >= rows) continue;
+    const float r = rsqrtf(ss[row] / d_full + eps);
+    const float coef = r * r * r * (st[row] / d_full);
+    const T* xr = x + row * xs;
+    const T* gr = g + row * gs;
+    T* dxr = dx + row * d;
+    for (int c = tid; c < nvec; c += TPR) {
+      float xv[VEC], gv[VEC], wv[VEC], y[VEC];
+      load_vec<VEC>(xr + c * VEC, xv);
+      load_vec<VEC>(gr + c * VEC, gv);
+      load_vec<VEC>(w + c * VEC, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        y[e] = r * (gv[e] * (1.f + wv[e])) - xv[e] * coef;
+        mine[c * VEC + e] = fmaf(gv[e] * xv[e], r, mine[c * VEC + e]);
+      }
+      store_vec<VEC>(dxr + c * VEC, y);
+    }
+  }
+  __syncthreads();
+  float* out = dw_part + static_cast<long long>(blockIdx.x) * d;
+  for (int c = threadIdx.x; c < d; c += THREADS) {  // the block's rows added in row order
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < RPB; ++j) s += cols[j * d + c];
+    out[c] = s;
+  }
+}
+
+struct SplitArgs {
+  const void *x, *w, *g;
+  const float *ss, *st;
+  void *o, *dw;
+  float *sum, *part;
+  long long rows, xs, gs;
+  int d, parts;
+  float d_full, eps;
+  cudaStream_t stream;
+};
+
+// The whole-row kernels' threads a row for a local width of nvec vectors:
+// the fewest of 32 to 256 that hold it at NV vectors a thread.
+inline int split_tpr(int nvec) {
+  return nvec <= 32 * NV ? 32 : nvec <= 64 * NV ? 64 : nvec <= 128 * NV ? 128 : 256;
+}
+
+// mode 0: S = the rows' local sums of x^2; 1: T = those of g * (1 + w) * x;
+// 2: the forward's apply; 3: the backward (dx, then dw over the blocks).
+template <typename T, typename TW, int VEC, int TPR>
+cudaError_t launch_split_tpr(const SplitArgs& a, int mode) {
+  constexpr int RPB = THREADS / TPR;
+  const T* x = static_cast<const T*>(a.x);
+  const TW* w = static_cast<const TW*>(a.w);
+  const T* g = static_cast<const T*>(a.g);
+  const long long grid = (a.rows + RPB - 1) / RPB;
+  if (mode == 0) {
+    rmsnorm_part_kernel<T, TW, VEC, TPR, false><<<static_cast<unsigned>(grid), THREADS, 0,
+                                                  a.stream>>>(x, w, g, a.sum, a.xs, a.gs,
+                                                              a.rows, a.d);
+  } else if (mode == 1) {
+    rmsnorm_part_kernel<T, TW, VEC, TPR, true><<<static_cast<unsigned>(grid), THREADS, 0,
+                                                 a.stream>>>(x, w, g, a.sum, a.xs, a.gs,
+                                                             a.rows, a.d);
+  } else if (mode == 2) {
+    rmsnorm_apply_kernel<T, TW, VEC, TPR><<<static_cast<unsigned>(grid), THREADS, 0, a.stream>>>(
+        x, w, a.ss, static_cast<T*>(a.o), a.xs, a.rows, a.d, a.d_full, a.eps);
+  } else {
+    const int smem = RPB * a.d * 4;
+    if (smem > 48 * 1024) {
+      const cudaError_t attr =
+          cudaFuncSetAttribute(rmsnorm_split_bwd_kernel<T, TW, VEC, TPR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return attr;
+    }
+    const int blocks =
+        fewest(grid, a.parts, one_wave(rmsnorm_split_bwd_kernel<T, TW, VEC, TPR>, smem));
+    rmsnorm_split_bwd_kernel<T, TW, VEC, TPR><<<blocks, THREADS, smem, a.stream>>>(
+        x, w, g, a.ss, a.st, static_cast<T*>(a.o), a.part, a.xs, a.gs, a.rows, a.d, a.d_full,
+        a.eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    rmsnorm_bwd_dw<TW><<<(a.d + DW_COLS - 1) / DW_COLS, THREADS, 0, a.stream>>>(
+        a.part, static_cast<TW*>(a.dw), blocks, a.d);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, typename TW, int VEC>
+cudaError_t launch_split_vec(const SplitArgs& a, int mode) {
+  switch (split_tpr(a.d / VEC)) {
+    case 32: return launch_split_tpr<T, TW, VEC, 32>(a, mode);
+    case 64: return launch_split_tpr<T, TW, VEC, 64>(a, mode);
+    case 128: return launch_split_tpr<T, TW, VEC, 128>(a, mode);
+    default: return launch_split_tpr<T, TW, VEC, 256>(a, mode);
+  }
+}
+
+template <typename T, typename TW>
+cudaError_t launch_split(const SplitArgs& a, int mode) {
+  constexpr int VEC = 16 / sizeof(T);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                         reinterpret_cast<uintptr_t>(a.g) | reinterpret_cast<uintptr_t>(a.o);
+  const bool vec = addr % 16 == 0 && a.d % VEC == 0 && a.xs % VEC == 0 && a.gs % VEC == 0;
+  return vec ? launch_split_vec<T, TW, VEC>(a, mode) : launch_split_vec<T, TW, 1>(a, mode);
+}
+
+int split_entry(const long long* args, int mode, float d_full, float eps) {
+  // args: as the C entries below say; the pointers a mode does not read are 0
+  const long long code = args[9], rows = args[10], d = args[11], parts = args[15];
+  if (rows <= 0 || rows > 0x7fffffffLL || d <= 0 || code < 0 || code > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode >= 2 && !(d_full >= static_cast<float>(d)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 3 && (parts < 1 || parts > rows || d * 4 > 232448))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a;
+  a.x = reinterpret_cast<const void*>(args[0]);
+  a.w = reinterpret_cast<const void*>(args[1]);
+  a.g = reinterpret_cast<const void*>(args[2]);
+  a.ss = reinterpret_cast<const float*>(args[3]);
+  a.st = reinterpret_cast<const float*>(args[4]);
+  a.o = reinterpret_cast<void*>(args[5]);
+  a.dw = reinterpret_cast<void*>(args[6]);
+  a.sum = reinterpret_cast<float*>(args[7]);
+  a.part = reinterpret_cast<float*>(args[8]);
+  a.rows = rows;
+  a.d = static_cast<int>(d);
+  a.xs = args[12];
+  a.gs = args[13];
+  a.stream = reinterpret_cast<cudaStream_t>(args[14]);
+  a.parts = static_cast<int>(mode == 3 ? parts : 1);
+  a.d_full = d_full;
+  a.eps = eps;
+  const int x_dtype = static_cast<int>(code % 2), w_dtype = static_cast<int>(code / 2);
+  cudaError_t err;
+  if (x_dtype == 0)
+    err = w_dtype == 0 ? launch_split<float, float>(a, mode)
+                       : launch_split<float, __nv_bfloat16>(a, mode);
+  else
+    err = w_dtype == 0 ? launch_split<__nv_bfloat16, float>(a, mode)
+                       : launch_split<__nv_bfloat16, __nv_bfloat16>(a, mode);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // args[13] = {x, w, g, dx, dw, scratch, dtypes, rows, d, xs, gs, stream,
@@ -643,4 +883,29 @@ extern "C" int rmsnorm_fwd(const long long* args, float eps) {
                               ? dispatch_w<float>(x, w, o, w_dtype, rows, d, xs, d, eps, st)
                               : dispatch_w<__nv_bfloat16>(x, w, o, w_dtype, rows, d, xs, d, eps, st);
   return static_cast<int>(err);
+}
+
+
+// The split-row mode (see above).  args[16] = {x, w, g, ss, st, o, dw, sum,
+// scratch, dtypes, rows, d, xs, gs, stream, parts}: x (rows, d) this rank's
+// columns of rows d_full wide, with row stride xs and contiguous rows; w (d,)
+// its columns, contiguous; g (x's dtype) with row stride gs; ss and st the
+// rows' reduced sums of x^2 and of g * (1 + w) * x, f32 (rows,); o (rows, d)
+// contiguous (y, or dx); dw (d,) in w's dtype; sum f32 (rows,); scratch f32 of
+// parts * d floats (1 <= parts <= rows); dtypes as for rmsnorm_fwd.  A call
+// reads and writes only its own arguments, the others being 0:
+//   rmsnorm_split_sum:  mode 0 (x; sum = S) or 1 (x, w, g; sum = T);
+//   rmsnorm_split_fwd:  x, w, ss; o = y;
+//   rmsnorm_split_bwd:  x, w, g, ss, st; o = dx, dw (two launches; scratch).
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int rmsnorm_split_sum(const long long* args, int dot) {
+  return split_entry(args, dot ? 1 : 0, 0.f, 0.f);
+}
+
+extern "C" int rmsnorm_split_fwd(const long long* args, float d_full, float eps) {
+  return split_entry(args, 2, d_full, eps);
+}
+
+extern "C" int rmsnorm_split_bwd(const long long* args, float d_full, float eps) {
+  return split_entry(args, 3, d_full, eps);
 }

@@ -21,18 +21,25 @@ whole the dims each kernel needs whole:
     dt, a, b and c whole, and their gradients are each rank's share,
     summed; the final state keeps x's splits; the scan's sequence stays
     whole;
-  * RMSNorm: rows may be split; the normalised last dim stays whole.
+  * RMSNorm: rows may be split, and the normalised last dim too (mamba2's
+    gated norm on its d_inner split over 'model', as XLA keeps it): each
+    rank sums its columns' squares, the sums are all-reduced over the ranks
+    that split the row, and each rank normalises its own columns
+    (``rmsnorm_split``, the kernels' split-row mode); a row held whole takes
+    the whole-row kernel.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_split
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.parallel.local_shards import on_local_shards, shard_extent, split_along
+from repro_torch.parallel.local_shards import (mesh_dims_along, on_local_shards, reduce_over,
+                                               shard_extent, split_along)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -87,7 +94,23 @@ def _rmsnorm_rows(x, w, eps):
     return rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps).reshape(shape)
 
 
+def _rmsnorm_split_rows(x, w, eps, d_full, groups):
+    shape = x.shape
+    reduce = functools.partial(reduce_over, op="sum", groups=groups)
+    return rmsnorm_split(x.reshape(-1, shape[-1]), w, eps=eps, d_full=d_full,
+                         reduce=reduce).reshape(shape)
+
+
 def fused_rmsnorm(x, w, *, eps: float = 1e-5):
-    """x: (..., d) any leading shape."""
-    fn = functools.partial(_rmsnorm_rows, eps=eps)
-    return on_local_shards(fn, (x, w), range(x.ndim - 1), follow=(None, {}))
+    """x: (..., d) any leading shape.  Where a plan splits d, the split stays
+    (w and its gradient split as d is): the rows' sums of squares are
+    all-reduced over the mesh dims that split it, in mesh-dim order."""
+    last = x.ndim - 1
+    dims = mesh_dims_along(x, last)
+    if not dims or x.shape[-1] % math.prod(x.device_mesh.size(i) for i in dims):
+        # whole rows (a ragged split of d is gathered, as ``on_local_shards`` does)
+        fn = functools.partial(_rmsnorm_rows, eps=eps)
+        return on_local_shards(fn, (x, w), range(last), follow=(None, {}))
+    groups = tuple(x.device_mesh.get_group(i) for i in dims)
+    fn = functools.partial(_rmsnorm_split_rows, eps=eps, d_full=x.shape[-1], groups=groups)
+    return on_local_shards(fn, (x, w), range(x.ndim), follow=(None, {last: 0}))

@@ -56,3 +56,33 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def rmsnorm_part_ref(x, w=None, g=None):
+    """A row's sum over the columns ``x`` holds (rows, d), in f32: of ``x^2``,
+    or with ``w`` and ``g`` of ``g * (1 + w) * x`` (the split-row mode's
+    partial sums, S forward and T backward)."""
+    xf = x.float()
+    if g is None:
+        return (xf * xf).sum(dim=-1)
+    return (g.float() * (1.0 + w.float()) * xf).sum(dim=-1)
+
+
+def rmsnorm_apply_ref(x, w, ss, *, d_full: int, eps: float = 1e-5):
+    """``rmsnorm_ref`` of a row's columns from its sum of squares over the
+    whole row ``ss`` (rows,), ``d_full`` wide."""
+    r = torch.rsqrt(ss / d_full + eps)[:, None]
+    return (x.float() * r * (1.0 + w.float())).to(x.dtype)
+
+
+def rmsnorm_split_bwd_ref(x, w, g, ss, st, *, d_full: int, eps: float = 1e-5):
+    """The gradient of ``rmsnorm_apply_ref`` on a row's columns, from the
+    whole row's sums ``ss`` (of x^2) and ``st`` (of g * (1 + w) * x):
+    dx = r g (1 + w) - x r^3 st / d_full with r = rsqrt(ss / d_full + eps),
+    and dw summed over these rows.  Returns dx (x.dtype), dw (w.dtype)."""
+    xf, gf, w1 = x.float(), g.float(), 1.0 + w.float()
+    r = torch.rsqrt(ss / d_full + eps)[:, None]
+    coef = r * r * r * (st / d_full)[:, None]
+    dx = r * (gf * w1) - xf * coef
+    dw = (gf * xf * r).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)

@@ -32,6 +32,16 @@ fixed order; ``rmsnorm_bwd.launches`` counts calls).
 Otherwise the call takes the lean path below, as serving always does.  A
 CPU call differentiates through the plain version.
 
+Split rows.  ``rmsnorm_split`` normalises a rank's columns of rows whose
+other columns other ranks hold (a plan that splits the normalised dim:
+mamba2's gated norm on its d_inner split over 'model'): the row's sum of
+squares is a partial-sum launch, the caller's all-reduce, then an apply
+launch; the backward the same for the sum of g * (1 + w) * x, then a
+launch for dx and the blocks' dw column sums, added in a fixed order
+(``RMSNormSplitFn``; counters ``rmsnorm_split.launches`` and
+``rmsnorm_split_bwd.launches``, one a launch or call).  Whole rows never
+take it.
+
 The JAX model's ``layers.rmsnorm`` (:81-85) casts to the working dtype
 *before* the ``(1 + w)`` multiply, while the kernel (and ``rmsnorm_ref``)
 multiply in f32 and cast once.  The two agree exactly in fp32, the serving
@@ -219,3 +229,175 @@ class RMSNormFn(torch.autograd.Function):
 
 
 rmsnorm_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Split rows: the columns of each row spread over several ranks (mamba2's
+# gated norm on its d_inner split over 'model', ``ops.fused_rmsnorm``).  The
+# row's sum of squares, and in the backward its sum of g * (1 + w) * x,
+# cross ranks, so each direction is a partial-sum launch, an all-reduce of
+# one f32 a row (the caller's ``reduce``), and a launch that reads the
+# reduced sum (``csrc/rmsnorm.cu``'s split-row kernels).  Each launch is an
+# operator: ``torch.ops.repro_torch.rmsnorm_part``, ``rmsnorm_apply`` and
+# ``rmsnorm_split_bwd``; a CPU tensor takes the plain twins in ``ref``.
+
+def _plain(x, *others) -> bool:
+    """Does this call take the plain twins (a CPU tensor)?  A CUDA or fake
+    one takes the operators; any other device raises."""
+    if x.is_cuda or _library.is_fake(x):
+        return False
+    if x.device.type != "cpu" or any(t.device != x.device for t in others):
+        raise ValueError(f"the split-row RMSNorm runs on CUDA or CPU tensors on one device, "
+                         f"not {[str(t.device) for t in (x, *others)]}")
+    return True
+
+
+def _split_check(x, w, d_full):
+    if x.ndim != 2 or w.shape != (x.shape[1],) or (x.dtype, w.dtype) not in _CODES:
+        raise ValueError(f"want x (rows, d) and w (d,) in float32 or bfloat16; got {x.dtype} "
+                         f"{tuple(x.shape)}, {w.dtype} {tuple(w.shape)}")
+    if not 0 < x.shape[1] <= min(d_full, BWD_MAX_D) or not x.shape[0]:
+        raise ValueError(f"the split-row kernels take rows > 0 and 0 < d <= d_full and "
+                         f"d <= {BWD_MAX_D}, not {tuple(x.shape)} of rows {d_full} wide")
+
+
+def rmsnorm_split(x, w, *, eps: float = 1e-5, d_full: int, reduce):
+    """x: (rows, d), this rank's d columns of rows ``d_full`` wide; w: (d,),
+    its columns of the weight; ``reduce(t)`` sums a (rows,) f32 tensor over
+    the ranks that hold the rows' other columns.  Returns (rows, d) of
+    x.dtype: those columns of the whole rows' ``rmsnorm``.  Differentiable
+    (``RMSNormSplitFn``): dw is this rank's columns, summed over its rows."""
+    _split_check(x, w, d_full)
+    return RMSNormSplitFn.apply(x, w, eps, d_full, reduce)
+
+
+rmsnorm_split.launches = 0
+
+
+def rmsnorm_part(x, w=None, g=None):
+    """Each row's sum over x's columns (f32, (rows,)): of x^2, or with w and
+    g of g * (1 + w) * x."""
+    if _plain(x, *(t for t in (w, g) if t is not None)):
+        return ref.rmsnorm_part_ref(x, w, g)
+    return _part_op(x, w, g)
+
+
+def rmsnorm_apply(x, w, ss, *, d_full: int, eps: float = 1e-5):
+    """x's columns normalised by the rows' sums of squares ``ss`` over
+    ``d_full`` columns, times (1 + w)."""
+    if _plain(x, w, ss):
+        return ref.rmsnorm_apply_ref(x, w, ss, d_full=d_full, eps=eps)
+    return _apply_op(x, w, ss, d_full, eps)
+
+
+def rmsnorm_split_bwd(x, w, g, ss, st, *, d_full: int, eps: float = 1e-5):
+    """dx (rows, d) of x.dtype and dw (d,) of w.dtype from the whole rows'
+    sums ``ss`` (of x^2) and ``st`` (of g * (1 + w) * x)."""
+    if _plain(x, w, g, ss, st):
+        return ref.rmsnorm_split_bwd_ref(x, w, g, ss, st, d_full=d_full, eps=eps)
+    return _split_bwd_op(x, w, g, ss, st, d_full, eps)
+
+
+rmsnorm_split_bwd.launches = 0
+
+
+def _split_call(entry: str, x, w, g, ss, st, o, dw, out_sum, parts, *extra):
+    """One split-row C call on checked CUDA tensors (0 for an absent one)."""
+    rows, d = x.shape
+    code = _CODES.get((x.dtype, w.dtype if w is not None else x.dtype))
+    ts = [t for t in (x, w, g, ss, st, o, dw, out_sum) if t is not None]
+    if code is None or any(t.device != x.device for t in ts) or x.stride(1) != 1 or (
+            g is not None and (g.dtype != x.dtype or g.shape != x.shape or g.stride(1) != 1)):
+        raise ValueError(f"the split-row kernels take CUDA float32 or bfloat16 x (and g, of x's "
+                         f"dtype and shape) with contiguous rows on one device; got x {x.dtype} "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    for t in (w, ss, st):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("w and the row sums must be contiguous")
+    if (ss is not None and ss.shape != (rows,)) or (st is not None and st.shape != (rows,)) or \
+            any(t is not None and t.dtype != torch.float32 for t in (ss, st)):
+        raise ValueError(f"the row sums must be float32 ({rows},)")
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    scratch = None
+    if parts:
+        scratch = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    args = (ctypes.c_longlong * 16)(
+        ptr(x), ptr(w), ptr(g), ptr(ss), ptr(st), ptr(o), ptr(dw), ptr(out_sum), ptr(scratch),
+        code, rows, d, x.stride(0), g.stride(0) if g is not None else 0,
+        torch.cuda.current_stream(x.device).cuda_stream, parts or 1)
+    with torch.cuda.device(x.device):
+        err = _split_entry(entry)(args, *extra)
+    if err:
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
+
+
+@functools.cache
+def _split_entry(name: str):
+    fn = getattr(_build.load("rmsnorm"), name)
+    tail = [ctypes.c_int] if name == "rmsnorm_split_sum" else [ctypes.c_float, ctypes.c_float]
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), *tail]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_part(x, w, g):
+    out = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    w = None if g is None else w
+    _split_call("rmsnorm_split_sum", x, w, g, None, None, None, None, out, 0,
+                ctypes.c_int(g is not None))
+    (rmsnorm_split if g is None else rmsnorm_split_bwd).launches += 1
+    return out
+
+
+def _launch_apply(x, w, ss, d_full, eps):
+    o = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _split_call("rmsnorm_split_fwd", x, w, None, ss, None, o, None, None, 0,
+                ctypes.c_float(d_full), ctypes.c_float(eps))
+    rmsnorm_split.launches += 1
+    return o
+
+
+def _launch_split_bwd(x, w, g, ss, st, d_full, eps):
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=x.device)
+    _split_call("rmsnorm_split_bwd", x, w, g, ss, st, dx, dw, None, min(x.shape[0], BWD_BLOCKS),
+                ctypes.c_float(d_full), ctypes.c_float(eps))
+    rmsnorm_split_bwd.launches += 1
+    return dx, dw
+
+
+_part_op = _library.define(
+    "rmsnorm_part(Tensor x, Tensor? w, Tensor? g) -> Tensor", _launch_part,
+    lambda x, w, g: x.new_empty((x.shape[0],), dtype=torch.float32),
+    lambda x, w, g, **_: (2 if g is None else 3) * x[0] * x[1])
+_apply_op = _library.define(
+    "rmsnorm_apply(Tensor x, Tensor w, Tensor ss, int d_full, float eps) -> Tensor", _launch_apply,
+    lambda x, w, ss, d_full, eps: x.new_empty(x.shape),
+    lambda x, w, ss, d_full, eps, **_: 2 * x[0] * x[1])
+_split_bwd_op = _library.define(
+    "rmsnorm_split_bwd(Tensor x, Tensor w, Tensor g, Tensor ss, Tensor st, int d_full, "
+    "float eps) -> (Tensor, Tensor)", _launch_split_bwd,
+    lambda x, w, g, ss, st, d_full, eps: (x.new_empty(x.shape), w.new_empty(w.shape)),
+    lambda x, w, g, ss, st, d_full, eps, **_: 5 * x[0] * x[1])
+
+
+class RMSNormSplitFn(torch.autograd.Function):
+    """The split-row mode with its gradient: the forward keeps x, w and the
+    rows' reduced sum of squares; the backward reduces T the same way and
+    launches ``rmsnorm_split_bwd``.  ``reduce`` takes no gradient: the
+    backward does its own reduction."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, d_full, reduce):
+        ss = reduce(rmsnorm_part(x))
+        ctx.save_for_backward(x, w, ss)
+        ctx.eps, ctx.d_full, ctx.reduce = eps, d_full, reduce
+        return rmsnorm_apply(x, w, ss, d_full=d_full, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, ss = ctx.saved_tensors
+        g = g.contiguous()
+        st = ctx.reduce(rmsnorm_part(x, w, g))
+        dx, dw = rmsnorm_split_bwd(x, w, g, ss, st, d_full=ctx.d_full, eps=ctx.eps)
+        return dx, dw, None, None, None

@@ -52,10 +52,15 @@ Each call is an operator (``kernels/_library.py``):
 ``cuda``) takes the operator before any device branch: its fake
 implementation gives the shapes (the scratch's too) and nothing is launched
 or counted; the plain version's loop over S is never reached.  The FLOP
-formulas count the sequential recurrence's work per (batch, head): 4 S N P
-forward (a multiply-add per state element to add B (x dt) in and one to
-read y = C h out) and 8 S N P backward, the counts behind
-``chip_smoke.py``'s bounds.
+formulas count the chunked decomposition's products, the algorithm of the
+kernels and of the JAX ``ssd_chunked`` whose work XLA counts: per (batch,
+head) 4 S N P (the chunk states and C h_in) and 2 P L S (the masked
+scores times x, chunks of L = 64), per (batch, group) 2 N L S (the scores
+C B^T, shared by the group's heads), and twice that backward.  Neither the
+score tiles the kernels skip above the diagonal nor the tiles of 16
+columns they run a head dim below 16 on are counted.  ``chip_smoke.py``'s
+bounds take the sequential recurrence's work, 4 S N P forward and 8 S N P
+backward, the least any form of the scan does.
 """
 from __future__ import annotations
 
@@ -353,13 +358,19 @@ def _bwd_fake(x, dt, a, b, c, scratch, dy, dstate):
 
 
 def _fwd_flops(x, dt, a, b, c, **_):
+    """The chunked decomposition's products at the kernels' chunk length L:
+    per (batch, head) 4 S N P (the chunk states B^T x and C h_in) and
+    2 P sum(L_c^2) (the masked scores times x), and per (batch, group)
+    2 N sum(L_c^2) (the scores C B^T, which a group's heads share)."""
     bsz, s, h, p = x
-    return 4 * s * b[3] * p * bsz * h
+    g, n = b[2], b[3]
+    squares = (s // CHUNK) * CHUNK ** 2 + (s % CHUNK) ** 2  # sum over chunks of L_c^2
+    return bsz * (h * (4 * s * n * p + 2 * squares * p) + g * 2 * squares * n)
 
 
 def _bwd_flops(x, dt, a, b, c, scratch, dy, dstate, **_):
-    bsz, s, h, p = x
-    return 8 * s * b[3] * p * bsz * h
+    """Twice the forward's: each product's two gradient products."""
+    return 2 * _fwd_flops(x, dt, a, b, c)
 
 
 _fwd_op = _library.define(

@@ -23,15 +23,18 @@ its own shard.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, linear, linears, rmsnorm
-from repro_torch.parallel.local_shards import on_local_shards, split_along
-from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
+from repro_torch.parallel.local_shards import (all_to_all, mesh_dims_along, on_local_shards,
+                                               split_along)
+from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan, placements
 
 DEFAULT_CHUNK = 256
 
@@ -129,23 +132,116 @@ def _heads(t, shape, plan: ShardingPlan, axes):
     columns of every head, since every product of the scan but those of
     dt, a, B and C is independent across head_dim, as the JAX plan splits
     the SSM state), else whole.  A d_inner split that the heads do not
-    follow is gathered first: its pieces need not fall on heads."""
+    follow moves to the head_dim split by one all-to-all of each rank's
+    share (``_to_head_dim``), as XLA moves it; any other such split is
+    gathered first: its pieces need not fall on heads."""
     nh = shape[-2]
+    want = axes + ("ssm_heads", "ssm_head_dim")
     if not plan.can_shard("ssm_heads", nh):
+        moved = _to_head_dim(t, shape, plan, want)
+        if moved is not None:
+            return moved
         t = plan.constrain(t, axes + (None,))
-    return plan.constrain(t.view(*shape), axes + ("ssm_heads", "ssm_head_dim"))
+    return plan.constrain(t.view(*shape), want)
 
 
-def _fold_heads(y, shape):
+def _fold_heads(y, shape, plan: ShardingPlan, axes):
     """``y`` (..., heads, head_dim) viewed as ``shape`` (..., d_inner).  A
-    ``DTensor`` view may fold the two only where head_dim is not split, so a
-    head_dim split moves first: to the sequence of the scan's (B, S, H, P)
-    (an all-to-all), or away from decode's (B, H, P) (a gather)."""
+    head_dim split moves to the d_inner split of ``axes`` + ("d_inner",) by
+    one all-to-all where the plan splits d_inner over the same mesh dim
+    (``_from_head_dim``).  Otherwise, as a ``DTensor`` view may fold the two
+    only where head_dim is not split, the split moves first: to the
+    sequence of the scan's (B, S, H, P) (an all-to-all), or away from
+    decode's (B, H, P) (a gather)."""
+    moved = _from_head_dim(y, shape, plan, axes + ("d_inner",))
+    if moved is not None:
+        return moved
     d = y.ndim - 1
     if split_along(y, d):
         to = Shard(1) if y.ndim == 4 else Replicate()
         y = y.redistribute(y.device_mesh, tuple(to if q == Shard(d) else q for q in y.placements))
     return y.reshape(shape)
+
+
+@functools.cache
+def _head_dim_moves(din: int, hd: int, n: int, k: int):
+    """Rank ``k`` of ``n`` holds d_inner's columns [k piece, (k + 1) piece)
+    (piece = din / n) under the d_inner split, and the columns c with
+    (c % hd) // (hd / n) = k, the k-th share of every head, under the
+    head_dim split.  Returns (order, send, recv): its d_inner columns in the
+    order they leave (by the rank whose head_dim share holds them, then by
+    column), how many go to each rank, and how many come from each.  A
+    rank's head_dim columns arrive in column order, that is (head, column
+    of its share), so the counts differ by rank (mamba2: 8 or 4 of a
+    rank's 96 columns to each of 16) and no gather pads them."""
+    piece, share = din // n, hd // n
+    owner = lambda c: (c % hd) // share
+    order = sorted(range(piece), key=lambda i: (owner(k * piece + i), i))
+    send = [sum(owner(k * piece + i) == q for i in range(piece)) for q in range(n)]
+    recv = [sum(owner(r * piece + i) == k for i in range(piece)) for r in range(n)]
+    return order, send, recv
+
+
+def _one_mesh_dim(x, dim: int, target, d_target: int):
+    """The one mesh dim that splits ``x``'s ``dim``, where ``target`` (the
+    placements of the layout to move to) splits its ``d_target`` over that
+    mesh dim; else None."""
+    dims = mesh_dims_along(x, dim)
+    if len(dims) != 1 or target[dims[0]] != Shard(d_target):
+        return None
+    return dims[0]
+
+
+def _to_head_dim(t, shape, plan: ShardingPlan, want):
+    """``t`` (..., d_inner), split over its last dim by one mesh dim, as the
+    (..., heads, head_dim) view laid out by ``want``, which splits head_dim
+    over that mesh dim: each rank sends each other its columns of that
+    rank's head_dim share (``_head_dim_moves``), by one all-to-all.  None
+    where the layouts do not fit that."""
+    if not isinstance(t, DTensor):
+        return None
+    mesh, target = t.device_mesh, placements(plan.spec(want, shape), t.device_mesh)
+    i = _one_mesh_dim(t, t.ndim - 1, target, len(shape) - 1)
+    n = mesh.size(i) if i is not None else 0
+    heads_split = any(p == Shard(len(shape) - 2) for p in target)
+    if not n or t.shape[-1] % n or shape[-1] % n or heads_split:
+        return None
+    t = _laid_out(t, tuple(Shard(t.ndim - 1) if j == i else p for j, p in enumerate(target)))
+    order, send, recv = _head_dim_moves(t.shape[-1], shape[-1], n, mesh.get_coordinate()[i])
+    local = t.to_local()
+    rows, nh = local.shape[:-1], shape[-2]
+    index = torch.tensor(order, device=local.device)
+    out = all_to_all(local.reshape(-1, local.shape[-1]).t().index_select(0, index),
+                     mesh.get_group(i), recv, send)
+    out = out.view(nh, shape[-1] // n, -1).permute(2, 0, 1).reshape(*rows, nh, shape[-1] // n)
+    return DTensor.from_local(out.contiguous(), mesh, target, run_check=False)
+
+
+def _from_head_dim(y, shape, plan: ShardingPlan, want):
+    """The reverse of ``_to_head_dim``: ``y`` (..., heads, head_dim), split
+    over head_dim by one mesh dim, as (..., d_inner) laid out by ``want``,
+    which splits d_inner over that mesh dim.  None where the layouts do not
+    fit that."""
+    if not isinstance(y, DTensor):
+        return None
+    mesh, target = y.device_mesh, placements(plan.spec(want, shape), y.device_mesh)
+    i = _one_mesh_dim(y, y.ndim - 1, target, len(shape) - 1)
+    n = mesh.size(i) if i is not None else 0
+    if not n or shape[-1] % n or y.shape[-1] % n or split_along(y, y.ndim - 2):
+        return None
+    y = _laid_out(y, tuple(Shard(y.ndim - 1) if j == i else p for j, p in enumerate(target)))
+    order, send, recv = _head_dim_moves(shape[-1], y.shape[-1], n, mesh.get_coordinate()[i])
+    local = y.to_local()
+    rows = local.shape[:-2]
+    flat = local.reshape(-1, local.shape[-2] * local.shape[-1]).t()  # columns in order
+    got = all_to_all(flat, mesh.get_group(i), send, recv)  # this rank's columns, in `order`
+    back = torch.tensor(sorted(range(len(order)), key=order.__getitem__), device=got.device)
+    out = got.index_select(0, back).t().reshape(*rows, -1)
+    return DTensor.from_local(out.contiguous(), mesh, target, run_check=False)
+
+
+def _laid_out(x, want):
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
 def _in_proj(p, x):
@@ -171,7 +267,8 @@ def _scan(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     dt = plan.constrain(dt, ("batch", None, "ssm_heads"))
     y, hlast = ops.ssd(xh, dt, a, bi.view(bsz, s, g, ds), ci.view(bsz, s, g, ds))
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = plan.constrain(_fold_heads(y, (bsz, s, din)), ("batch", "seq", "d_inner"))
+    y = plan.constrain(_fold_heads(y, (bsz, s, din), plan, ("batch", "seq")),
+                       ("batch", "seq", "d_inner"))
     y = rmsnorm(y * F.silu(z), p["norm"], spec.norm_eps)
     return linear(y, p["w_out"]), (xi0, bi0, ci0), hlast
 
@@ -237,6 +334,7 @@ def mamba_decode(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
     h = h * decay[..., None, None] + (dt[..., None] * xh)[..., None] * bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", h, chp).to(x.dtype)
     y = y + xh.to(x.dtype) * p["d_skip"].to(x.dtype)[None, :, None]
-    y = rmsnorm(_fold_heads(y, (bsz, din)) * F.silu(z), p["norm"], spec.norm_eps)
+    y = rmsnorm(_fold_heads(y, (bsz, din), plan, ("batch",)) * F.silu(z), p["norm"],
+                spec.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
     return out, _store(cache, plan, conv=window[:, 1:], ssm=h)

@@ -26,13 +26,12 @@ import functools
 import math
 
 import torch
-import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.layers import ParamDef
-from repro_torch.parallel.local_shards import (keep_weight_split, mesh_dims_along,
+from repro_torch.parallel.local_shards import (all_to_all, keep_weight_split, mesh_dims_along,
                                                on_local_shards, replicate, shard_extent, sum_over)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
 
@@ -111,13 +110,6 @@ def _expert_ffn(xe, w_gate, w_up, w_down, contract=None):
     return torch.bmm(F.silu(gate) * up, w_down.to(xe.dtype))
 
 
-def _all_to_all(t, group):
-    """``t``'s dim-0 chunks, one to each rank of ``group``, in rank order;
-    the chunks received in the same order (autograd: the reverse exchange)."""
-    out = funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
-    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
-
-
 def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 0,
              group=None, contract=None):
     """Route the groups of xg (G, T, D) and run their kept tokens through the
@@ -157,10 +149,10 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 
             ye = _expert_ffn(xe, w_gate, w_up, w_down, contract).view(n_rows, d)
         else:  # (n, el, G C, D): chunk r to rank r, which holds experts r el ...
             n = e // el
-            got = _all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
+            got = all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
             out = _expert_ffn(got.transpose(0, 1).reshape(el, n * ng * cap, d), w_gate, w_up,
                               w_down, contract)
-            ye = _all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group).view(n_rows, d)
+            ye = all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group).view(n_rows, d)
         picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1))
     else:  # this rank's experts only: a zero row for the others' assignments
         lo, n_mine = e_start * ng * cap, el * ng * cap

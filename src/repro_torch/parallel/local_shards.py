@@ -71,7 +71,8 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
 def reduce_over(t: torch.Tensor, op: str, groups) -> torch.Tensor:
     """``t`` reduced by ``op`` (``"sum"``, ``"max"``) over each of ``groups``
     in turn (the ranks of each mesh dim that splits a dim), inside code that
-    runs on local shards and takes no gradient (decode)."""
+    runs on local shards and takes no gradient (decode, or an autograd
+    Function that reduces its own gradient: the split-row RMSNorm)."""
     for group in groups:
         t = _wait(funcol.all_reduce(t.contiguous(), op, group))
     return t
@@ -90,6 +91,18 @@ class _SumOver(torch.autograd.Function):
 
 def _wait(t):
     return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def all_to_all(t: torch.Tensor, group, out_sizes=None, in_sizes=None) -> torch.Tensor:
+    """``t``'s dim-0 chunks, one to each rank of ``group`` in rank order
+    (``in_sizes`` rows each, or equal chunks), and the chunks received in
+    the same order (``out_sizes`` rows each), inside code that runs on local
+    shards.  Its gradient is the reverse exchange.  Without grad mode
+    (serving's ``inference_mode``, where torch 2.11 has no kernel for the
+    autograd variant) the plain collective."""
+    fn = funcol.all_to_all_single_autograd if torch.is_grad_enabled() else \
+        funcol.all_to_all_single
+    return _wait(fn(t.contiguous(), out_sizes, in_sizes, group))
 
 
 def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -44,11 +44,9 @@ def _nll_sum(logits, labels, ignore_index: int):
 
 
 def _local_nll_sum(logits, labels, ignore_index: int):
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
-    mask = (labels != ignore_index).float()
-    return ((lse - gold) * mask).sum(), mask.sum()
+    """The masked nll sum and count of rows whose whole vocabulary this rank
+    holds: ``VocabShardNLL`` with no group to reduce over."""
+    return _vocab_shard_nll_sum(logits, labels, ignore_index, start=0, groups=(), first=True)
 
 
 def _all_reduce(t, op: str, groups):
@@ -60,14 +58,24 @@ def _all_reduce(t, op: str, groups):
     return t
 
 
+# rows of bf16 logits whose f32 gradient the backward works on at once: at
+# most this many elements (64 MiB), the result cast into the one buffer
+NLL_BLOCK = 1 << 24
+
+
 class VocabShardNLL(torch.autograd.Function):
     """The masked nll sum of the rows of this rank's vocabulary shard
     (columns from ``start``) of its logits, reduced over ``groups``, the
-    ranks that split the vocabulary: every rank gets each row's log-sum-exp
-    and gold logit, and the ``first`` rank alone returns the sum, so that
-    the sum over the ranks is the rows' sum.  The backward is the gradient
-    of that total on this rank's shard, ``(softmax - onehot) * mask``, from
-    the saved log-sum-exp: no collective."""
+    ranks that split the vocabulary (none where the rank holds the whole
+    vocabulary): every rank gets each row's log-sum-exp and gold logit, and
+    the ``first`` rank alone returns the sum, so that the sum over the ranks
+    is the rows' sum.  The forward's arithmetic is ``torch.logsumexp``'s
+    (the max, the sum of ``exp`` of the shifted row, its log plus the max).
+    The backward is the gradient of that total on this rank's shard,
+    ``(softmax - onehot) * mask * g``, from the saved logits and log-sum-exp,
+    written into one buffer of the logits' dtype (computed in f32, by
+    blocks of rows for bf16 logits): no collective, and no f32 copy of the
+    logits held, where autograd of the plain version keeps several."""
 
     @staticmethod
     def forward(ctx, logits, labels, mask, start: int, groups, first: bool):
@@ -85,9 +93,27 @@ class VocabShardNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         logits, lse, col, mine, mask = ctx.saved_tensors
-        grad = logits.float().sub_(lse[..., None]).exp_()
-        grad.scatter_add_(-1, col[..., None], -mine.float()[..., None])
-        return grad.mul_((mask * g)[..., None]).to(logits.dtype), None, None, None, None, None
+        scale, onehot = mask * g, -mine.float()
+        grad = torch.empty_like(logits, memory_format=torch.contiguous_format)
+        if logits.dtype == torch.float32:
+            _nll_grad(torch.sub(logits, lse[..., None], out=grad), col, onehot, scale)
+        else:
+            v = logits.shape[-1]
+            flat, out = logits.reshape(-1, v), grad.view(-1, v)
+            lse, col, onehot, scale = (t.reshape(-1) for t in (lse, col, onehot, scale))
+            step = max(1, NLL_BLOCK // v)
+            for i in range(0, flat.shape[0], step):
+                rows = slice(i, i + step)
+                out[rows] = _nll_grad(flat[rows].float().sub_(lse[rows, None]), col[rows],
+                                      onehot[rows], scale[rows])
+        return grad, None, None, None, None, None
+
+
+def _nll_grad(shifted, col, onehot, scale):
+    """``(exp(shifted) - onehot) * scale``, in place in ``shifted`` (the
+    logits minus their log-sum-exp): the nll's gradient."""
+    shifted.exp_().scatter_add_(-1, col[..., None], onehot[..., None])
+    return shifted.mul_(scale[..., None])
 
 
 def _vocab_shard_nll_sum(logits, labels, ignore_index: int, start: int, groups, first: bool):

@@ -16,8 +16,9 @@ Under a plan (``init_train_state(..., mesh=)`` distributes the state by
 ``train_state_axes``) every parameter and optimizer leaf is a ``DTensor``
 on the mesh; each step distributes the batch over the plan's ``batch``
 axes, and each gradient is brought to its parameter's layout (or to
-``opt_plan``'s, the JAX ``shard_grads``) before it is accumulated: partial
-sums over the data split are reduced there.
+``opt_plan``'s, the JAX ``shard_grads``) as autograd makes it
+(``grads_laid_out``), before it is accumulated: partial sums over the data
+split are reduced there.
 """
 from __future__ import annotations
 
@@ -109,23 +110,13 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
     loss_fn = make_loss_fn(spec, plan, cfg)
     axes = opt.leaves(M.param_axes(spec))
 
-    def shard_grads(grads, ps):
-        out = []
-        for g, p, ax in zip(grads, ps, axes):
-            if isinstance(p, DTensor):
-                want = (p.placements if opt_plan is None else
-                        placements(opt_plan.spec(ax, tuple(p.shape)), p.device_mesh))
-                g = g.redistribute(p.device_mesh, want)
-            out.append(g)
-        return out
-
     def grads_of(params, batch):
         ps = opt.leaves(params)
         for p in ps:
             p.requires_grad_(True)
         loss, metrics = loss_fn(params, batch)
         return local(loss.detach()), {k: local(v.detach()) for k, v in metrics.items()}, \
-            shard_grads(torch.autograd.grad(loss, ps), ps)
+            grads_laid_out(loss, ps, axes, opt_plan)
 
     def train_step(state, batch):
         params = state["params"]
@@ -166,6 +157,29 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
         return state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+def grads_laid_out(loss, ps, axes, opt_plan: ShardingPlan | None = None) -> list:
+    """``torch.autograd.grad(loss, ps)``, each ``DTensor`` gradient brought to
+    its parameter's layout, or to ``opt_plan``'s for its logical ``axes``
+    (the JAX ``shard_grads``, :83-90: partial sums over the data split
+    reduce-scattered into the optimizer's shards), as autograd makes it: a
+    hook on each leaf redistributes the gradient the moment it is whole, so
+    no rank holds a layer's unreduced gradient while the backward goes on
+    (XLA reduces each as it is made).  The engine hands ``autograd.grad``
+    what a leaf's hook returns."""
+    hooks = []
+    for p, ax in zip(ps, axes):
+        if isinstance(p, DTensor):
+            want = (p.placements if opt_plan is None else
+                    placements(opt_plan.spec(ax, tuple(p.shape)), p.device_mesh))
+            hooks.append(p.register_hook(
+                lambda g, mesh=p.device_mesh, want=tuple(want): g.redistribute(mesh, want)))
+    try:
+        return list(torch.autograd.grad(loss, ps))
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def init_train_state(spec: ArchSpec, cfg: RunConfig = RunConfig(), *, seed: int = 0,

@@ -1169,3 +1169,80 @@ def test_operators_launch_on_the_card_and_stand_ins_do_not(dev):
     assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1]
     for r, f in zip(real, fake):
         assert f.shape == r.shape and f.dtype == r.dtype and f.device.type == "cuda"
+
+
+class _PieceSums:
+    """The split-row mode's ``reduce`` on one card: this piece's partial sums
+    plus the other pieces' (fixed tensors): the sum of squares, then the sum
+    of g (1 + w) x."""
+
+    def __init__(self, others):
+        self.others, self.calls = others, 0
+
+    def __call__(self, t):
+        self.calls += 1
+        return t + self.others[self.calls - 1]
+
+
+@pytest.mark.parametrize("rows,d,d_full", [
+    (16384, 96, 1536),   # mamba2-130m's gated norm on one of 16 'model' ranks: train rows
+    (4, 96, 1536),       # and a decode step's
+    (1000, 40, 1536),    # a ragged piece
+    (37, 37, 1000),      # d no multiple of the vector: element by element
+    (64, 2048, 4096),    # 256 threads a row
+    (5, 8192, 16384),    # a row wider than a block's vectors: the loop over them
+])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_rmsnorm_split_matches_plain(dev, rows, d, d_full, dtype, wdtype):
+    """The split-row mode on one piece of rows ``d_full`` wide, the other
+    pieces' sums fixed: each launch (the partial sums, the apply, the
+    backward) against its plain twin on the same inputs, and forward and
+    backward through ``rmsnorm_split`` (two forward launches, two backward
+    calls) against the plain chain; the backward twice for the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
+    w = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(wdtype)
+    g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    others = [(torch.randn((rows, d_full - d), generator=gen, device=dev) * 3).square().sum(-1),
+              torch.randn((rows,), generator=gen, device=dev) * (d_full - d) ** 0.5]
+    ss = ref.rmsnorm_part_ref(x) + others[0]
+    st = ref.rmsnorm_part_ref(x, w, g) + others[1]
+    _close_grad(rn.rmsnorm_part(x) + others[0], ss, torch.float32)
+    _close_grad(rn.rmsnorm_part(x, w, g) + others[1], st, torch.float32)
+    _close(rn.rmsnorm_apply(x, w, ss, d_full=d_full),
+           ref.rmsnorm_apply_ref(x, w, ss, d_full=d_full), dtype)
+    got = rn.rmsnorm_split_bwd(x, w, g, ss, st, d_full=d_full)
+    want = ref.rmsnorm_split_bwd_ref(x, w, g, ss, st, d_full=d_full)
+    assert all(torch.equal(a, b) for a, b in zip(got, rn.rmsnorm_split_bwd(x, w, g, ss, st,
+                                                                            d_full=d_full)))
+    _close_grad(got[0], want[0], dtype)
+    _close_grad(got[1], want[1], wdtype if wdtype == torch.bfloat16 else dtype)
+    before = rn.rmsnorm_split.launches, rn.rmsnorm_split_bwd.launches
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = rn.rmsnorm_split(xg, wg, d_full=d_full, reduce=_PieceSums(others))
+    dx, dw = torch.autograd.grad(y, (xg, wg), g)
+    assert (rn.rmsnorm_split.launches, rn.rmsnorm_split_bwd.launches) == (before[0] + 2,
+                                                                          before[1] + 2)
+    _close(y, ref.rmsnorm_apply_ref(x, w, ss, d_full=d_full), dtype)
+    _close_grad(dx, want[0], dtype)
+    _close_grad(dw, want[1], wdtype if wdtype == torch.bfloat16 else dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_split_reads_strided_rows(dev, dtype):
+    """A piece as a view with a row stride other than its width (a column
+    slice of wider rows), forward and backward."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    base = (torch.randn((300, 100), generator=gen, device=dev) * 3).to(dtype)
+    x, g = base[:, :96], torch.randn((300, 96), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((96,), generator=gen, device=dev) * 0.1).to(dtype)
+    ss = ref.rmsnorm_part_ref(x) + 7.0
+    st = ref.rmsnorm_part_ref(x, w, g) - 3.0
+    _close_grad(rn.rmsnorm_part(x), ref.rmsnorm_part_ref(x), torch.float32)
+    _close(rn.rmsnorm_apply(x, w, ss, d_full=192), ref.rmsnorm_apply_ref(x, w, ss, d_full=192),
+           dtype)
+    for a, b in zip(rn.rmsnorm_split_bwd(x, w, g, ss, st, d_full=192),
+                    ref.rmsnorm_split_bwd_ref(x, w, g, ss, st, d_full=192)):
+        _close_grad(a, b, dtype)
