@@ -40,8 +40,9 @@ Phases, one or more lines each:
                by kernel: flash_bwd_delta, D = rowsum(dO o O) and the padded
                log-sum-exp; flash_bwd_dkdv, keys as rows; flash_bwd_dq; and
                under GQA flash_bwd_group_sum, each group's heads added) at
-               qwen2's, gemma3's (global and window 512), granite's and
-               phi-3's shapes against autograd through the plain version,
+               qwen2's, gemma3's train shape (S = 2048, global and window
+               512), granite's and phi-3's shapes against autograd through
+               the plain version,
                timed beside SDPA's backward (torch.autograd.grad), with a
                bound of 10 hd flops per unmasked pair (f32 as 3xTF32);
                RMSNorm's (rmsnorm_bwd_rows_kernel, dx with each block's dw
@@ -132,6 +133,35 @@ Phases, one or more lines each:
                bf16 state's round trip (bf16 params with their f32 master);
                then all of that again for mamba2-130m at B=4, S=4096 (the
                SSD scan forward and backward; launch counts by layer kind)
+  train_bf16   launch/train.py --bf16's configuration (BF16_RUN: bf16
+               parameters and compute, f32 master and moments), remat
+               "dots", 6 steps of qwen2-1.5b at B=4, S=1024 and of
+               mamba2-130m at B=4, S=4096 from the train phase's seed and
+               batches, and (after train_more) of gemma3-1b at B=4, S=2048
+               (granite's BF16_RUN state, 28 bytes a parameter, does not
+               fit the card): launches a step equal to the f32 phase's, step ms,
+               tokens/s, peak memory, device busy; every first-step gradient
+               finite and not all zero, the first loss within 2e-2 of the
+               f32 first step's, and every parameter its master rounded to
+               bf16 after the last step; the first step's grad norm and
+               the losses of steps 2 to 6 within 5e-3 of the f32 run's
+  train_more   f32 training of gemma3-1b (B=4, S=2048: 22 of its 26 layers
+               take the window-512 backward) and granite-moe-3b-a800m (B=4,
+               S=1024), remat "dots", 6 steps each, the train phase's
+               figures and checks (launches, finite and non-zero first-step
+               gradients), then each reduced arch's step on the card against
+               the CPU (after the dryrun phase, which frees the card of its
+               subprocesses' contexts)
+  serve_embeddings
+               phi-3-vision-4.2b at full width through the embeddings
+               frontend (serve/api.py's prefill and serve steps), f32 and
+               then bf16: prefill on seeded (4, 1024, 3072) embeddings and
+               32 decode steps on seeded (4, 3072) ones, launches (flash at
+               head_dim 96 once a layer), prefill ms, decode ms a step, KV
+               cache bytes, device busy; the bf16 prefill logits within 0.1
+               of the f32 ones' scale; prefill(S) against prefill(S-1) and
+               one decode step within 1e-3; the reduced arch's forward on
+               embeddings, card against CPU, within 1e-4
   mesh         the multi-device runtime on a mesh of one card (a world-1 NCCL
                group): qwen2-1.5b at full width and depth, f32, B=4, S=1024,
                remat "dots", 6 steps unsharded and 6 under plan_for_mesh of a
@@ -150,6 +180,20 @@ Phases, one or more lines each:
                loss equals the unsharded step's, compressed_psum on card
                tensors against its formula, and pipeline_forward with one
                stage against the sequential stage
+  serve_bf16   (after each model's serve_mesh lines) the same full-width
+               model served in bf16 through Engine(dtype=torch.bfloat16),
+               its weights the serve phase's cast to bf16: launches of one
+               generate equal to the f32 path's (counts set to 0 just before
+               it), prefill ms, decode ms a step and tok/s, device busy and
+               device ms by kernel class, and prefill's last-position logits
+               finite and within 0.1 of the scale of the f32 weights' f32
+               prefill logits.  granite runs both at capacity factor 8, each
+               bf16 token routed to the experts the f32 run chose; since its
+               random weights amplify a rounding with depth (the f32 prefill
+               of its bf16-rounded weights lies 0.075 of the scale from the
+               f32 weights' at 32 layers), each of its layers and its head
+               run in bf16 on the f32 prefill's input to them, the update
+               within 0.1 of f32's, and the whole prefill's gap is printed
   serve_mesh   (after each model's serve and consistency lines) the same
                full-width model served under plan_for_mesh of a (1, 1)
                ("data", "model") mesh of the world-1 NCCL group: parameters
@@ -168,33 +212,33 @@ Phases, one or more lines each:
                share of both; and rmsnorm's host cost a call at the decode
                shape through its operator (torch.ops.repro_torch) against
                the bare launch
-  dryrun       python -m repro_torch.launch.dryrun in subprocesses, on a fake
-               world, at full size with fake tensors labelled cuda: deepseek-
-               67b train_4k pod (95 layers, 8 microbatches: minutes on one
-               core, so started before the kernels phase and collected
-               here; each weight's gradient reduce-scattered as autograd
-               makes it), then thirteen at once: mamba2-130m prefill_32k
-               pod (d_inner kept split through the gated norm and the head
-               view), qwen2-1.5b train_4k pod, gemma3-1b decode_32k
-               multipod, mamba2-130m long_500k pod, granite-moe-3b-a800m
-               and moonshot-v1-16b-a3b train_4k pod (the MoE with its ff
-               columns, and its experts, split over 'model'), mamba2-130m
-               train_4k and decode_32k pod (the SSD scan split over
-               head_dim, the head's vocabulary over an idle 'model'),
-               jamba-v0.1-52b long_500k pod (batch 1: the experts on their
-               FSDP shards), musicgen-medium decode_32k and gemma3-1b
-               long_500k pod (decode's softmax on each rank's own kv_seq
-               slots), granite-moe-3b-a800m prefill_32k pod (its ff
-               columns gathered, its token groups split) and yi-9b
-               train_4k pod (microbatches on their rows), each ok with
-               its peak a device within the card's memory, with its peak
-               GiB a device, FLOPs a device against model_flops / n_chips,
-               collective bytes by kind and seconds (seven also their
-               all-gather bytes and peak beside the CPU host's counts
-               before the byte repairs of the last two changes); then
-               reduced qwen2-1.5b
-               train_4k pod under --device cpu and --device cuda, whose
-               records agree key for key but lower_s
+  dryrun       (collected before train_more) python -m repro_torch.launch.dryrun
+               in subprocesses started after the build, beside the card's
+               phases at the lowest CPU priority and one thread each (each
+               holds a CUDA context of about 0.5 GiB until it ends), on a
+               fake world, at full size with fake tensors labelled cuda:
+               deepseek-67b train_4k pod (95 layers, 8 microbatches: minutes
+               on one core; each weight's gradient reduce-scattered as
+               autograd makes it), mamba2-130m prefill_32k pod (d_inner kept
+               split through the gated norm and the head view), qwen2-1.5b
+               train_4k pod, gemma3-1b decode_32k multipod, mamba2-130m
+               long_500k pod, granite-moe-3b-a800m and moonshot-v1-16b-a3b
+               train_4k pod (the MoE with its ff columns, and its experts,
+               split over 'model'), mamba2-130m train_4k and decode_32k pod
+               (the SSD scan split over head_dim, the head's vocabulary over
+               an idle 'model'), jamba-v0.1-52b long_500k pod (batch 1: the
+               experts on their FSDP shards), musicgen-medium decode_32k and
+               gemma3-1b long_500k pod (decode's softmax on each rank's own
+               kv_seq slots), granite-moe-3b-a800m prefill_32k pod (its ff
+               columns gathered, its token groups split) and yi-9b train_4k
+               pod (microbatches on their rows), each ok with its peak a
+               device within the card's memory, with its peak GiB a device,
+               FLOPs a device against model_flops / n_chips, collective
+               bytes by kind and seconds (seven also their all-gather bytes
+               and peak beside the CPU host's counts before the byte repairs
+               of the last two changes); and reduced qwen2-1.5b train_4k pod
+               under --device cpu and --device cuda, whose records agree key
+               for key but lower_s
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line, as does a host without CUDA or a directory
@@ -202,6 +246,7 @@ that holds this script and nothing else of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -238,6 +283,22 @@ SPLIT_RAGGED = 40  # a ragged width of the RMSNorm kernels' split-row mode (mamb
 # 3072..4095 against all 4096 keys)
 OFFSET_S, OFFSET_T, OFFSET = 1024, 4096, 3072
 REMAT_TOL = 1e-5  # loss and grad norm of remat none/full vs dots, relative
+# bf16 serving: prefill's last-position logits against the f32 prefill's,
+# max |diff| over the largest |f32 logit| (tests/test_torch_bf16_serve.py's
+# tolerance against the JAX package)
+BF16_SERVE_TOL = 0.1
+BF16_LOSS_RTOL = 2e-2  # BF16_RUN's first loss against the f32 step's (test_torch_train.py)
+# BF16_RUN against the f32 run from the same seed and batches, relative: the
+# first step's grad norm (read at 1.6e-4 to 3.5e-4 over qwen2, mamba2 and
+# gemma3), and the losses of the later steps, after updates (2.8e-5 to 8.8e-4)
+BF16_GRAD_RTOL, BF16_STEP_RTOL = 5e-3, 5e-3
+# f32 training of the other two serving archs: gemma3-1b at a sequence where
+# 22 of its 26 layers run the window-512 backward, granite-moe-3b-a800m at
+# qwen2's; (arch, batch, sequence)
+G_TRAIN_B, G_TRAIN_SEQ = 4, 2048
+MORE_TRAIN = ((GEMMA, G_TRAIN_B, G_TRAIN_SEQ), (GRANITE, TRAIN_BATCH, TRAIN_SEQ))
+EMB_PROMPT = 1024  # phi-3-vision-4.2b's prompt through the embeddings frontend
+EMB_SCALE = 0.1  # its seeded embeddings' standard deviation
 MESH_STEPS = 6  # train steps of the mesh phase, unsharded and under a (1, 1) plan
 MESH_RTOL = 1e-6  # the (1, 1) plan vs unsharded, where some op breaks bit equality
 MESH_MAMBA_LAYERS = 4  # mamba2-130m's depth in the mesh phase (of 24)
@@ -249,10 +310,9 @@ MESH_NEW = 4
 ROUND_TRIP_LAYERS = 2  # layers of the trained full-width state saved and restored
 MESH_DECODE_RTOL = 1e-5  # their logits under the (1, 1) plan vs unsharded, relative
 # the dry run's full-size cells (each must fit the card's memory), and the
-# reduced one run under both labels
-# started before the kernels phase, run beside the card's phases on one core
-DRYRUN_EARLY = (("deepseek-67b", "train_4k", "pod"),)
-DRYRUN_CELLS = (("mamba2-130m", "prefill_32k", "pod"),
+# reduced one run under both labels; all started after the build, beside
+# the card's phases
+DRYRUN_CELLS = (("deepseek-67b", "train_4k", "pod"), ("mamba2-130m", "prefill_32k", "pod"),
                 ("qwen2-1.5b", "train_4k", "pod"), ("gemma3-1b", "decode_32k", "multipod"),
                 ("mamba2-130m", "long_500k", "pod"), ("granite-moe-3b-a800m", "train_4k", "pod"),
                 ("moonshot-v1-16b-a3b", "train_4k", "pod"), ("mamba2-130m", "train_4k", "pod"),
@@ -287,6 +347,14 @@ DSE_SCAN = (32, 64, 128, 256)  # the sweep at the first P members of the DSE_BIG
 # up to 5,000 ops back, past the ring): (n_ops, W, P)
 DSE_WINDOW_CASES = ((20011, 8, 257), (20011, 3, 33))
 PROBE_LINKS = 1 << 22  # dependent (fmax, add) pairs the fp64 latency probe times
+
+
+T_START = time.perf_counter()
+
+
+def elapsed(phase: str) -> None:
+    """The run's seconds so far, as ``phase`` starts."""
+    print(f"[time] {phase} starts at {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -366,7 +434,7 @@ def same_bits(torch, a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass"), "ssd_scan": ("ssd_scan",),
+KERNEL_CLASSES = {"gemm": ("gemm", "xmma", "cutlass", "nvjet"), "ssd_scan": ("ssd_scan",),
                   "ssd_scan_bwd": ("ssd_bwd",),
                   "flash_attention": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
                   "rmsnorm": ("rmsnorm_rows", "rmsnorm_wide"), "rmsnorm_bwd": ("rmsnorm_bwd",),
@@ -821,26 +889,165 @@ def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
           f"prefill {stats.prefill_s * 1e3:.3f} ms, decode {stats.decode_tok_per_s:.3f} tok/s "
           f"({stats.decode_s * 1e3 / NEW:.3f} ms/step); launches {launches} (expected {want}); "
           f"first tokens {out[0, :8].tolist()}")
-    tok = torch.as_tensor(prompts, device="cuda")
-    f32 = torch.float32
-    caches = M.init_caches(spec, BATCH, prompt + NEW, dtype=f32, device="cuda")
-    pre = device_by_kernel(lambda: M.prefill(params, tok, caches, spec, compute_dtype=f32), 2)
-    step = device_by_kernel(lambda: M.decode_step(params, caches, tok[:, -1], prompt, spec,
-                                                  compute_dtype=f32), 8)
-
-    def share(by_name, wall_ms):
-        if not by_name:
-            return "not measured"
-        dev = sum(by_name.values())
-        classes = ", ".join(f"{c} {ms:.3f}" for c, ms in by_class(by_name).items())
-        return f"{dev:.3f} ms = {dev / wall_ms:.3f} of its wall ({classes} ms)"
+    pre, step = serve_device_time(torch, M, spec, params, prompts, NEW, torch.float32)
     print(f"[serve] {spec.name} device busy (torch.profiler): prefill "
-          f"{share(pre, stats.prefill_s * 1e3)}; decode step "
-          f"{share(step, stats.decode_s * 1e3 / NEW)}")
+          f"{busy_share(pre, stats.prefill_s * 1e3)}; decode step "
+          f"{busy_share(step, stats.decode_s * 1e3 / NEW)}")
     top = sorted(pre.items(), key=lambda kv: -kv[1])[:6]
     print(f"[serve] {spec.name} prefill's largest device kernels (ms): "
           + "; ".join(f"{name[:80]} {ms:.3f}" for name, ms in top))
     return params, prompts, launches, out, stats, (sum(pre.values()), sum(step.values()))
+
+
+def serve_device_time(torch, M, spec, params, prompts, new, dtype):
+    """Device ms by kernel name of one prefill of ``prompts`` and of one
+    decode step after it, in ``dtype`` (torch.profiler)."""
+    tok = torch.as_tensor(prompts, device="cuda")
+    b, s = prompts.shape
+    caches = M.init_caches(spec, b, s + new, dtype=dtype, device="cuda")
+    pre = device_by_kernel(lambda: M.prefill(params, tok, caches, spec, compute_dtype=dtype), 2)
+    step = device_by_kernel(lambda: M.decode_step(params, caches, tok[:, -1], s, spec,
+                                                  compute_dtype=dtype), 8)
+    return pre, step
+
+
+def busy_share(by_name, wall_ms) -> str:
+    """Device ms of a traced call against its wall ms, and by kernel class."""
+    if not by_name:
+        return "not measured"
+    dev = sum(by_name.values())
+    classes = ", ".join(f"{c} {ms:.3f}" for c, ms in by_class(by_name).items())
+    return f"{dev:.3f} ms = {dev / wall_ms:.3f} of its wall ({classes} ms)"
+
+
+def serve_bf16(torch, np, M, Engine, moem, map_with_path, counted, card, spec, params, prompts,
+               want):
+    """``spec`` served in bf16 from the serve phase's weights and prompts: the
+    weights cast to bf16 (the values ``init_params(dtype=torch.bfloat16)``
+    draws), ``Engine(dtype=torch.bfloat16)`` for NEW tokens with every
+    launch count set to 0 just before it, which must be ``want`` (the f32
+    path's); prefill ms, decode ms a step and tok/s, device busy and device
+    ms by kernel class; prefill's last-position logits finite and within
+    BF16_SERVE_TOL of the scale of the f32 prefill's from the f32 weights.
+    An MoE runs both prefills at NO_DROP_CAPACITY, and each token of the
+    bf16 one goes to the experts the f32 one chose for it, with bf16's
+    weights over them: random weights route almost uniformly, so bf16's
+    rounding of near-tied router probabilities would hand tokens other
+    expert sets, more with each layer.  Returns the launches."""
+    from repro_torch.train.optimizer import leaves
+    bf16, f32 = torch.bfloat16, torch.float32
+    p16 = map_with_path(lambda _, t: t.to(bf16), params)
+    weights = sum(t.numel() * t.element_size() for t in leaves(p16))
+    b, s = prompts.shape
+    eng = Engine(spec, p16, max_len=s + NEW, dtype=bf16, device="cuda")
+    eng.generate(prompts, max_new=2)  # warm-up: the bf16 GEMMs' handles
+    for fn in counted.values():
+        fn.launches = 0
+    out, stats = eng.generate(prompts, max_new=NEW)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    if launches != want:
+        fail(f"serve_bf16 {spec.name}: kernel launches in one generate: {launches}, expected "
+             f"{want}")
+    if out.shape != (b, NEW) or out.min() < 0 or out.max() >= spec.vocab_size:
+        fail(f"serve_bf16 {spec.name}: tokens out of range: shape {out.shape}")
+    pre, step = serve_device_time(torch, M, spec, p16, prompts, NEW, bf16)
+    tok = torch.as_tensor(prompts, device="cuda")
+    chosen, flips, route, default = [], [], moem.route, moem.CAPACITY_FACTOR
+
+    def recording(logits, k, cap):  # an f32 run: each MoE call's experts a token
+        out = route(logits, k, cap)
+        chosen.append(out[0])
+        return out
+
+    def replaying(logits, k, cap):  # the matching call: f32's experts, its own weights over them
+        want = chosen[len(flips)]
+        own = torch.topk(logits, k, dim=-1).indices.sort(-1).values
+        flips.append(int((own != want.sort(-1).values).any(-1).sum()))
+        keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, want, True)
+        return route(logits.masked_fill(~keep, float("-inf")), k, cap)
+
+    def last_logits(p, dt):
+        with torch.inference_mode():
+            return M.prefill(p, tok, M.init_caches(spec, b, s, dtype=dt, device="cuda"), spec,
+                             compute_dtype=dt)[0].float()
+
+    rel = lambda a, b: ((a.float() - b).abs().max() / b.abs().max()).item()
+    moem.CAPACITY_FACTOR = NO_DROP_CAPACITY if spec.n_experts else default
+    try:
+        moem.route = recording if spec.n_experts else route
+        ref = last_logits(params, f32)
+        moem.route = replaying if spec.n_experts else route
+        got = last_logits(p16, bf16)
+        if spec.n_experts:
+            own_sets = list(flips)
+            flips.clear()
+            rounded = rel(last_logits(map_with_path(lambda _, t: t.float(), p16), f32), ref)
+            chosen.clear(), flips.clear()
+            moem.route = lambda *a: (recording if len(chosen) == len(flips) else replaying)(*a)
+            by_layer = layer_by_layer(torch, M, spec, params, p16, tok)
+    finally:
+        moem.CAPACITY_FACTOR, moem.route = default, route
+    finite = bool(torch.isfinite(got).all())
+    err = rel(got, ref)
+    print(f"[serve_bf16] {card} | {spec.name} Engine(dtype=bfloat16) B={b} prompt={s} new={NEW}, "
+          f"bf16 weights {weights / 1e9:.3f} GB: prefill {stats.prefill_s * 1e3:.3f} ms, decode "
+          f"{stats.decode_tok_per_s:.3f} tok/s ({stats.decode_s * 1e3 / NEW:.3f} ms/step); "
+          f"launches {launches} (the f32 path's); first tokens {out[0, :8].tolist()}")
+    print(f"[serve_bf16] {spec.name} device busy (torch.profiler): prefill "
+          f"{busy_share(pre, stats.prefill_s * 1e3)}; decode step "
+          f"{busy_share(step, stats.decode_s * 1e3 / NEW)}")
+    if not spec.n_experts:
+        print(f"[serve_bf16] {spec.name} bf16 prefill's last-position logits against the f32 "
+              f"weights' f32 prefill: max |diff| / max |f32 logit| {err:.4e} (tol "
+              f"{BF16_SERVE_TOL}), finite {finite}, max |logit| {ref.abs().max().item():.3e}")
+        if not finite or not err <= BF16_SERVE_TOL:
+            fail(f"serve_bf16 {spec.name}: bf16 prefill logits off the f32 ones")
+    else:
+        worst = max(by_layer)
+        print(f"[serve_bf16] {spec.name} at capacity factor {NO_DROP_CAPACITY}, each bf16 token "
+              f"routed to the f32 run's experts (bf16's own top-{spec.top_k} would differ for "
+              f"{own_sets[0]} of {b * s} tokens in the first layer, {min(own_sets)} to "
+              f"{max(own_sets)} a layer): every layer and the head in bf16 on the f32 prefill's "
+              f"input to it, its update (output less input) against f32's, max |diff| / max "
+              f"|f32 update| by layer {[round(e, 4) for e in by_layer[:-1]]}, head "
+              f"{by_layer[-1]:.4e}, worst {worst:.4e} (tol {BF16_SERVE_TOL}); the whole bf16 "
+              f"prefill's last-position logits {err:.4e} of the f32 ones' scale, finite {finite} "
+              f"(not held: the f32 prefill of the bf16-rounded weights already lies {rounded:.4e} "
+              f"from them, this arch's random weights amplifying a rounding with depth)")
+        if not finite or not worst <= BF16_SERVE_TOL:
+            fail(f"serve_bf16 {spec.name}: a bf16 layer's update is off the f32 one")
+    del eng, p16
+    return launches
+
+
+def layer_by_layer(torch, M, spec, params, p16, tok) -> list[float]:
+    """Each layer of ``spec``'s prefill run in f32 on the f32 prefill's input
+    to it, and in bf16 (weights ``p16``) on that input rounded to bf16; then
+    the head the same way on the last layer's output.  Per layer, max |bf16
+    - f32| of its update (its output less its input) over max |f32
+    update|; last, the head's logits the same way."""
+    from repro_torch.models import blocks
+    from repro_torch.parallel.sharding import NULL_PLAN
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, s = tok.shape
+    pos = M._positions(s, tok.device)
+    caches = {dt: M.init_caches(spec, b, s, dtype=dt, device="cuda") for dt in (f32, bf16)}
+    errs = []
+    with torch.inference_mode():
+        x = M._embed_in(params, tok, spec, f32)
+        for i, ld in enumerate(spec.layer_defs()):
+            y, x16 = {}, x.to(bf16)
+            for dt, p, xin in ((f32, params, x), (bf16, p16, x16)):
+                y[dt], caches[dt][i] = blocks._apply_prefill(p["stack"][i], xin, pos, ld, spec,
+                                                             NULL_PLAN, caches[dt][i])
+            want = y[f32] - x
+            errs.append(((y[bf16].float() - x16.float() - want).abs().max()
+                         / want.abs().max()).item())
+            x = y[f32]
+        want = M._head(params, x[:, -1], spec)
+        errs.append(((M._head(p16, x[:, -1].to(bf16), spec).float() - want).abs().max()
+                     / want.abs().max()).item())
+    return errs
 
 
 def prefill_vs_decode(torch, M, spec, params, tok):
@@ -1013,18 +1220,31 @@ def rmsnorm_dispatch_cost(torch, rn, d):
     return med
 
 
-def dryrun_start(cells, out: Path, *extra, threads: int | None = None) -> list:
+def dryrun_start(cells, out: Path, *extra) -> list:
     """One ``python -m repro_torch.launch.dryrun`` subprocess per cell, writing
-    its record under ``out``; ``threads``: the intra-op threads each may use
-    (one, for a cell run beside the card's phases)."""
+    its record and its output under ``out``: one intra-op thread each, at
+    the lowest CPU priority, so that they run on the cores the card's phases
+    leave idle."""
     import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    if threads:
-        env["OMP_NUM_THREADS"] = str(threads)
-    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                              "--shape", shape, "--mesh", mesh, "--out", str(out), *extra],
-                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for arch, shape, mesh in cells]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, mesh in cells:
+        with open(out / f"{arch}__{shape}__{mesh}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--out", str(out), *extra], env=env, stdout=log,
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19)))
+            procs[-1].log = Path(log.name)
+    return procs
+
+
+def dryrun_launch(tmp: Path) -> dict[str, list]:
+    """Every dry-run subprocess at once (``dryrun_start``): DRYRUN_CELLS at
+    full size, and DRYRUN_REDUCED labelled cpu and cuda."""
+    return {"full": dryrun_start(DRYRUN_CELLS, tmp / "full"),
+            "reduced": [p for dev in ("cpu", "cuda") for p in dryrun_start(
+                [DRYRUN_REDUCED], tmp / dev, "--reduced", "--device", dev)]}
 
 
 def dryrun_finish(procs, timeout: float) -> list[str]:
@@ -1033,7 +1253,8 @@ def dryrun_finish(procs, timeout: float) -> list[str]:
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=timeout)
+            logs.append(p.log.read_text())
     finally:
         dryrun_stop(procs)
     return logs
@@ -1041,20 +1262,20 @@ def dryrun_finish(procs, timeout: float) -> list[str]:
 
 def dryrun_stop(procs) -> None:
     """Stop every subprocess of ``procs`` still running (at exit too: a failed
-    phase leaves the early cells running)."""
+    phase leaves the cells running)."""
     for p in procs:
         if p.poll() is None:
             p.kill()
             p.wait()
 
 
-def dryrun_phase(card, total_memory: int, early, tmp: Path) -> None:
-    """The dry run in subprocesses on fake worlds: DRYRUN_EARLY (``early``,
-    started before the kernels phase) and DRYRUN_CELLS at full size (fake
-    tensors labelled cuda, all at once), each ok with a peak a device within
-    the card's ``total_memory``; then the reduced DRYRUN_REDUCED cell
-    labelled cpu and cuda, whose records agree key for key but lower_s.
-    Every process is stopped before it returns, and ``tmp`` removed."""
+def dryrun_phase(card, total_memory: int, procs: dict, tmp: Path) -> None:
+    """The dry run's subprocesses on fake worlds (``dryrun_launch``, started
+    after the build): DRYRUN_CELLS at full size (fake tensors labelled
+    cuda), each ok with a peak a device within the card's
+    ``total_memory``; the reduced DRYRUN_REDUCED cell labelled cpu and cuda,
+    whose records agree key for key but lower_s.  Every process is stopped
+    before it returns, and ``tmp`` removed."""
     import shutil
     try:
         def record(out, arch, shape, mesh):
@@ -1062,14 +1283,11 @@ def dryrun_phase(card, total_memory: int, early, tmp: Path) -> None:
             return json.loads(path.read_text()) if path.exists() else None
 
         t0 = time.perf_counter()
-        logs = dryrun_finish(dryrun_start(DRYRUN_CELLS, tmp / "full"), DRYRUN_TIMEOUT)
-        print(f"[dryrun] {len(DRYRUN_CELLS)} full-size cells in {time.perf_counter() - t0:.3f} s "
-              f"wall")
-        t0 = time.perf_counter()
-        logs += dryrun_finish(early, DRYRUN_TIMEOUT)
-        print(f"[dryrun] waited {time.perf_counter() - t0:.3f} s for {len(DRYRUN_EARLY)} cell(s) "
-              f"started before the kernels phase")
-        for cell, log in zip(DRYRUN_CELLS + DRYRUN_EARLY, logs):
+        logs = dryrun_finish(procs["full"], DRYRUN_TIMEOUT)
+        dryrun_finish(procs["reduced"], DRYRUN_TIMEOUT)
+        print(f"[dryrun] waited {time.perf_counter() - t0:.3f} s for the {len(DRYRUN_CELLS)} "
+              f"full-size cells and the reduced pair, started after the build")
+        for cell, log in zip(DRYRUN_CELLS, logs):
             rec = record(tmp / "full", *cell)
             if rec is None or rec["status"] != "ok":
                 fail(f"dryrun {':'.join(cell)}: {(rec or {}).get('error') or log[-2000:]}")
@@ -1101,11 +1319,9 @@ def dryrun_phase(card, total_memory: int, early, tmp: Path) -> None:
             if mem["peak_bytes_per_device"] > total_memory:
                 fail(f"dryrun {':'.join(cell)}: a device's peak {mem['peak_bytes_per_device']} "
                      f"bytes exceeds the card's {total_memory}")
-        print(f"[dryrun] {len(DRYRUN_CELLS) + len(DRYRUN_EARLY)} full-size cells, each peak "
+        print(f"[dryrun] {len(DRYRUN_CELLS)} full-size cells, each peak "
               f"within the card's {total_memory / 2**30:.3f} GiB")
         arch, shape, mesh = DRYRUN_REDUCED
-        dryrun_finish([p for dev in ("cpu", "cuda") for p in dryrun_start(
-            [DRYRUN_REDUCED], tmp / dev, "--reduced", "--device", dev)], DRYRUN_TIMEOUT)
         cpu, cuda = (record(tmp / dev, arch, shape, mesh) for dev in ("cpu", "cuda"))
         if not cpu or not cuda or cpu["status"] != "ok" or cuda["status"] != "ok":
             fail(f"dryrun reduced {arch}:{shape}: {(cpu or {}).get('error')} / "
@@ -1141,53 +1357,71 @@ def train_counts(spec, remat: str) -> dict[str, int]:
             "dse_class_times": 0, "dse_sweep": 0, "rmsnorm_split": 0, "rmsnorm_split_bwd": 0}
 
 
-def train(torch, counted, card, spec, seq):
-    """``spec`` at full width, batches of TRAIN_BATCH x ``seq``: TRAIN_STEPS
-    steps of f32 AdamW under remat "dots" with the launch counts set to 0
-    just before them, then the remat policies against each other from one
-    state and batch.  Returns the launches of the counted steps."""
+def train_steps(torch, counted, card, spec, seq, cfg, batch=TRAIN_BATCH, tag="train"):
+    """``spec`` at full width, batches of ``batch`` x ``seq``: TRAIN_STEPS steps
+    of ``cfg`` (AdamW) with the launch counts set to 0 just before them,
+    which must be ``train_counts``' a step; every loss finite, and every
+    parameter's gradient of the first step finite and not all zero (a hook
+    on each leaf, which the step's autograd.grad calls); step ms (median of
+    the last 4), tokens/s, peak memory, device busy and device ms by kernel
+    class of one more step.  Returns (state, batches, launches, the run's
+    losses and grad norms by step)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
-                                              make_train_step, to_device)
-    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    from repro_torch.train.train_step import init_train_state, make_train_step, to_device
+    dt = "f32" if cfg.param_dtype == torch.float32 else "bf16"
     t0 = time.perf_counter()
     state = init_train_state(spec, cfg, seed=SEED, device="cuda")
-    data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, seq, seed=SEED))
+    data = SyntheticLM(spec, DataConfig(batch, seq, seed=SEED))
     batches = [to_device(data.batch_at(i), "cuda") for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
-    print(f"[train] {spec.name} full width f32 state (params, m, v) and {TRAIN_STEPS + 1} "
-          f"SyntheticLM batches of B={TRAIN_BATCH} S={seq} on the card in "
+    print(f"[{tag}] {spec.name} full width {dt} state ({sorted(state)}) and {TRAIN_STEPS + 1} "
+          f"SyntheticLM batches of B={batch} S={seq} on the card in "
           f"{time.perf_counter() - t0:.3f} s")
     step_fn = make_train_step(spec, cfg=cfg)
+    leaves = opt.leaves(state["params"])
+    seen = [None] * len(leaves)
+    hooks = [p.requires_grad_(True).register_hook(
+        lambda g, i=i: seen.__setitem__(i, torch.stack([torch.isfinite(g).all(), (g != 0).any()])))
+        for i, p in enumerate(leaves)]
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
-    losses, step_ms = [], []
+    losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batches[i])
         loss = metrics["loss"].item()
+        norms.append(metrics["grad_norm"].item())
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
         if not math.isfinite(loss):
-            fail(f"train step {i}: loss {loss}")
+            fail(f"{tag} {spec.name} step {i}: loss {loss}")
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            bad = [j for j, ok in enumerate(seen) if ok is None or not bool(ok.all())]
+            if bad:
+                fail(f"{tag} {spec.name}: {len(bad)} of {len(leaves)} parameters have a first-step "
+                     f"gradient that is not finite or all zero (leaves {bad[:8]})")
     launches = {name: fn.launches for name, fn in counted.items()}
     want = {k: TRAIN_STEPS * v for k, v in train_counts(spec, cfg.remat).items()}
     if launches != want:
-        fail(f"train: kernel launches in {TRAIN_STEPS} steps {launches}, expected {want}")
+        fail(f"{tag} {spec.name}: kernel launches in {TRAIN_STEPS} steps {launches}, expected "
+             f"{want}")
     peak = torch.cuda.max_memory_allocated()
     ms = sorted(step_ms[-4:])
     median = (ms[1] + ms[2]) / 2
-    tokens = TRAIN_BATCH * seq
-    print(f"[train] {card} | {spec.name} B={TRAIN_BATCH} S={seq} f32 remat=dots: losses "
+    tokens = batch * seq
+    print(f"[{tag}] {card} | {spec.name} B={batch} S={seq} {dt} remat={cfg.remat}: losses "
           f"{[round(x, 4) for x in losses]}; step ms {[round(x, 3) for x in step_ms]}, median of "
           f"the last 4 {median:.3f} ms, {tokens / median * 1e3:.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB; launches per step "
           f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} } (expected "
-          f"{train_counts(spec, cfg.remat)})")
+          f"{train_counts(spec, cfg.remat)}); every one of {len(leaves)} parameters' first-step "
+          f"gradient finite and not all zero")
     by_name = device_by_kernel(lambda: step_fn(state, batches[TRAIN_STEPS]), 1)
     if by_name:
         dev = sum(by_name.values())
@@ -1195,14 +1429,34 @@ def train(torch, counted, card, spec, seq):
         busy = f"{dev:.3f} ms = {dev / median:.3f} of the step's wall ({classes} ms)"
     else:
         busy = "not measured"
-    print(f"[train] {spec.name} device busy (torch.profiler, one step): {busy}")
+    print(f"[{tag}] {spec.name} device busy (torch.profiler, one step): {busy}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[train] {spec.name} step's largest device kernels (ms): "
+    print(f"[{tag}] {spec.name} step's largest device kernels (ms): "
           + "; ".join(f"{name[:80]} {v:.3f}" for name, v in top))
     other = sorted(((n, v) for n, v in by_name.items() if by_class({n: v})["other"]),
                    key=lambda kv: -kv[1])[:8]
-    print(f"[train] {spec.name} step's largest kernels of class other (ms): "
+    print(f"[{tag}] {spec.name} step's largest kernels of class other (ms): "
           + "; ".join(f"{name[:80]} {v:.3f}" for name, v in other))
+    return state, batches, launches, {"loss": losses, "grad_norm": norms}
+
+
+def f32_run(remat: str = "dots"):
+    """The f32 run of the train paths here: AdamW at lr 1e-3 after
+    TRAIN_WARMUP warm-up steps, under ``remat``."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import RunConfig
+    return RunConfig(remat=remat, opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+
+
+def train(torch, counted, card, spec, seq):
+    """``spec`` at full width, batches of TRAIN_BATCH x ``seq``: TRAIN_STEPS
+    steps of f32 AdamW under remat "dots" (``train_steps``), then the remat
+    policies against each other from one state and batch.  Returns the
+    launches of the counted steps and their losses and grad norms."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_loss_fn
+    cfg = f32_run()
+    state, batches, launches, run = train_steps(torch, counted, card, spec, seq, cfg)
 
     # -- remat policies: loss and grad norm from one state and batch
     batch, params = batches[TRAIN_STEPS], state["params"]
@@ -1228,6 +1482,40 @@ def train(torch, counted, card, spec, seq):
           f"zero; none and full within {REMAT_TOL} of dots")
     round_trip(torch, first_layers(state, ROUND_TRIP_LAYERS),
                f"{spec.name} full-width trained f32, first {ROUND_TRIP_LAYERS} layers,")
+    return launches, run
+
+
+def train_bf16(torch, counted, card, spec, seq, f32, batch=TRAIN_BATCH):
+    """``launch/train.py --bf16``'s configuration (BF16_RUN: bf16 parameters
+    and compute, f32 master and moments) under remat "dots", from the f32
+    run's seed and batches (``train_steps``), against that run's losses and
+    grad norms ``f32``: the first loss within BF16_LOSS_RTOL of the f32
+    first step's, the first step's grad norm within BF16_GRAD_RTOL, every
+    later loss (after updates) within BF16_STEP_RTOL, and after the last
+    step every parameter equal to its master rounded to bf16.  Returns the
+    launches."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import BF16_RUN
+    cfg = BF16_RUN.with_(remat="dots", opt=f32_run().opt)
+    state, _, launches, run = train_steps(torch, counted, card, spec, seq, cfg, batch=batch,
+                                          tag="train_bf16")
+    rel = lambda key, i: abs(run[key][i] - f32[key][i]) / abs(f32[key][i])
+    first, norm = rel("loss", 0), rel("grad_norm", 0)
+    later = max(rel("loss", i) for i in range(1, TRAIN_STEPS))
+    ps, ms = opt.leaves(state["params"]), opt.leaves(state["master"])
+    exact = all(p.dtype == torch.bfloat16 and m.dtype == torch.float32
+                and torch.equal(p, m.to(torch.bfloat16)) for p, m in zip(ps, ms))
+    print(f"[train_bf16] {spec.name} against the f32 run from the same seed and batches: first "
+          f"loss {run['loss'][0]:.6f} against {f32['loss'][0]:.6f}, relative {first:.3e} (tol "
+          f"{BF16_LOSS_RTOL}); first grad norm {run['grad_norm'][0]:.6e} against "
+          f"{f32['grad_norm'][0]:.6e}, relative {norm:.3e} (tol {BF16_GRAD_RTOL}); grad norms "
+          f"{[round(x, 6) for x in run['grad_norm']]} against "
+          f"{[round(x, 6) for x in f32['grad_norm']]}; losses of steps 2 to {TRAIN_STEPS} "
+          f"within {later:.3e} (tol {BF16_STEP_RTOL}); all {len(ps)} bf16 parameters equal "
+          f"their f32 master rounded to bf16 after step {TRAIN_STEPS}: {exact}")
+    if not (first <= BF16_LOSS_RTOL and norm <= BF16_GRAD_RTOL and later <= BF16_STEP_RTOL
+            and exact):
+        fail(f"train_bf16 {spec.name}: the bf16 run's losses, grad norm or parameters are off")
     return launches
 
 
@@ -1279,10 +1567,10 @@ def train_consistency(torch, map_with_path, reduced, spec):
     round trip of a bf16 train state with its f32 master."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (BF16_RUN, RunConfig, init_train_state,
-                                              make_loss_fn, make_train_step)
+    from repro_torch.train.train_step import (BF16_RUN, init_train_state, make_loss_fn,
+                                              make_train_step)
     small = reduced(spec)
-    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    cfg = f32_run()
     batch = SyntheticLM(small, DataConfig(4, 128, seed=SEED)).batch_at(0)
     cpu = init_train_state(small, cfg, seed=SEED, device="cpu")
     states = {"cpu": cpu, "cuda": map_with_path(lambda _, t: t.detach().cuda(), cpu)}
@@ -1314,6 +1602,116 @@ def train_consistency(torch, map_with_path, reduced, spec):
     round_trip(torch, bf16, f"reduced {spec.name} bf16 + f32 master")
 
 
+def serve_embeddings(torch, np, M, api, map_with_path, reduced, counted, card, spec):
+    """``spec`` (an embeddings-frontend arch) at full width through the
+    serving entry points (``serve/api.py``'s prefill and serve steps) on
+    seeded embeddings, as the JAX package drives its model
+    (tests/test_perf_features.py): prefill on (BATCH, EMB_PROMPT, D), then
+    NEW decode steps on (BATCH, D), in f32 and then in bf16 (the weights
+    and embeddings cast), every launch count set to 0 just before each
+    (flash once a layer in prefill, RMSNorm twice a layer and the final
+    norm in prefill and in each step); prefill ms, decode ms a step, device
+    busy and device ms by kernel class; logits finite; f32 prefill over S
+    against prefill over S - 1 and one decode step within CONSISTENCY_TOL,
+    the bf16 prefill's logits within BF16_SERVE_TOL of the f32 ones' scale;
+    and the reduced model's forward on the card against the CPU within
+    1e-4.  Returns the launches of the f32 run and of the bf16 run."""
+    from repro_torch.train.optimizer import leaves
+    f32, bf16, d = torch.float32, torch.bfloat16, spec.d_model
+    t0 = time.perf_counter()
+    params = M.init_params(spec, SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor((rng.standard_normal((BATCH, EMB_PROMPT, d)) * EMB_SCALE)
+                             .astype(np.float32), device="cuda")
+    steps = torch.as_tensor((rng.standard_normal((NEW, BATCH, d)) * EMB_SCALE)
+                            .astype(np.float32), device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[serve_embeddings] {spec.name} full width: {weights / 2**30:.3f} GiB of f32 weights "
+          f"and seeded embeddings ({BATCH}, {EMB_PROMPT}, {d}) and {NEW} x ({BATCH}, {d}) on the "
+          f"card in {time.perf_counter() - t0:.3f} s")
+    max_len = EMB_PROMPT + NEW
+    want = {name: 0 for name in counted}
+    want.update(flash_attention=spec.n_layers, rmsnorm=(2 * spec.n_layers + 1) * (1 + NEW))
+    out = {}
+    for dtype in (f32, bf16):
+        p = params if dtype == f32 else map_with_path(lambda _, t: t.to(bf16), params)
+        x, xs = prompt.to(dtype), steps.to(dtype)
+        prefill = api.make_prefill_step(spec, compute_dtype=dtype)
+        decode = api.make_serve_step(spec, compute_dtype=dtype)
+
+        @torch.inference_mode()
+        def generate():
+            caches = M.init_caches(spec, BATCH, max_len, dtype=dtype, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(p, x, caches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            first, finite = logits.float(), [torch.isfinite(logits).all()]
+            for i in range(NEW):
+                logits, caches = decode(p, caches, xs[i], EMB_PROMPT + i)
+                finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1, bool(torch.stack(finite).all()), caches, \
+                first
+
+        generate()  # warm-up
+        for fn in counted.values():
+            fn.launches = 0
+        pre_s, dec_s, finite, caches, first = generate()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        name = dtype_name(dtype)
+        if launches != want or not finite:
+            fail(f"serve_embeddings {spec.name} {name}: launches {launches} (expected {want}), "
+                 f"logits finite {finite}")
+        kv = sum(t.numel() * t.element_size() for t in leaves(caches))
+        with torch.inference_mode():  # the caches are generate()'s
+            pre = device_by_kernel(lambda: prefill(p, x, M.init_caches(
+                spec, BATCH, max_len, dtype=dtype, device="cuda")), 2)
+            step = device_by_kernel(lambda: decode(p, caches, xs[0], EMB_PROMPT), 8)
+        print(f"[serve_embeddings] {card} | {spec.name} B={BATCH} prompt={EMB_PROMPT} embeddings "
+              f"new={NEW} {name}: prefill {pre_s * 1e3:.3f} ms, decode {BATCH * NEW / dec_s:.3f} "
+              f"tok/s ({dec_s * 1e3 / NEW:.3f} ms/step); KV cache {kv / 2**30:.3f} GiB; launches "
+              f"{launches} (expected); logits finite")
+        print(f"[serve_embeddings] {spec.name} {name} device busy (torch.profiler): prefill "
+              f"{busy_share(pre, pre_s * 1e3)}; decode step {busy_share(step, dec_s * 1e3 / NEW)}")
+        out[dtype] = launches, first
+        del p, caches
+    err16 = ((out[bf16][1] - out[f32][1]).abs().max() / out[f32][1].abs().max()).item()
+    print(f"[serve_embeddings] {spec.name} bf16 prefill's last-position logits against the f32 "
+          f"ones: max |diff| / max |f32 logit| {err16:.4e} (tol {BF16_SERVE_TOL})")
+    if not err16 <= BF16_SERVE_TOL:
+        fail(f"serve_embeddings {spec.name}: bf16 prefill logits off the f32 ones")
+    with torch.inference_mode():
+        full, _ = M.prefill(params, prompt, M.init_caches(spec, BATCH, EMB_PROMPT, dtype=f32,
+                                                          device="cuda"), spec, compute_dtype=f32)
+        _, c = M.prefill(params, prompt[:, :-1], M.init_caches(
+            spec, BATCH, EMB_PROMPT, dtype=f32, device="cuda"), spec, compute_dtype=f32)
+        last, _ = M.decode_step(params, c, prompt[:, -1], EMB_PROMPT - 1, spec, compute_dtype=f32)
+    err = (full - last).abs().max().item()
+    print(f"[serve_embeddings] {spec.name} prefill(S={EMB_PROMPT}) vs prefill(S-1)+decode_step: "
+          f"max_abs_err {err:.3e} (tol {CONSISTENCY_TOL}), max |logit| "
+          f"{full.abs().max().item():.3e}")
+    if not err <= CONSISTENCY_TOL:
+        fail(f"serve_embeddings {spec.name}: prefill and decode disagree")
+    del params, c
+    torch.cuda.empty_cache()
+    small = reduced(spec)
+    cpu_params = M.init_params(small, SEED, device="cpu")
+    gpu_params = map_with_path(lambda _, t: t.cuda(), cpu_params)
+    emb = torch.as_tensor((rng.standard_normal((2, 200, small.d_model)) * EMB_SCALE)
+                          .astype(np.float32))
+    on_cpu, _ = M.forward(cpu_params, emb, small)
+    on_gpu, _ = M.forward(gpu_params, emb.cuda(), small)
+    err_small = (on_cpu - on_gpu.cpu()).abs().max().item()
+    print(f"[serve_embeddings] reduced {spec.name} forward on embeddings B=2 S=200: card vs CPU "
+          f"plain path max_abs_err {err_small:.3e} (tol 1e-4)")
+    if not err_small <= 1e-4:
+        fail(f"serve_embeddings {spec.name}: the card's forward disagrees with the CPU's")
+    return out[f32][0], out[bf16][0]
+
+
 # -- the multi-device runtime on a mesh of one card ------------------------------
 
 def mesh_train(torch, counted, card, spec, seq, steps):
@@ -1331,11 +1729,10 @@ def mesh_train(torch, counted, card, spec, seq, steps):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import NULL_PLAN, plan_for_mesh
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (RunConfig, init_train_state, make_train_step,
-                                              to_device)
+    from repro_torch.train.train_step import init_train_state, make_train_step, to_device
     mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
     plan = plan_for_mesh(mesh)
-    cfg = RunConfig(remat="dots", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    cfg = f32_run()
     data = SyntheticLM(spec, DataConfig(TRAIN_BATCH, seq, seed=SEED))
     batches = [to_device(data.batch_at(i), "cuda") for i in range(steps + 1)]
     runs = {}
@@ -1419,8 +1816,6 @@ def mesh_dp_pipeline(torch, card):
     g - round(g / scale) * scale as the new grad_error; compressed_psum on
     card tensors against its formula; pipeline_forward with one stage
     against the sequential stage."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import make_mesh
@@ -1428,10 +1823,9 @@ def mesh_dp_pipeline(torch, card):
     from repro_torch.parallel.dp_explicit import make_dp_train_step
     from repro_torch.parallel.pipeline import pipeline_forward
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (RunConfig, init_train_state, make_loss_fn,
-                                              to_device)
+    from repro_torch.train.train_step import init_train_state, make_loss_fn, to_device
     spec = dataclasses.replace(get_arch(ARCH), n_layers=2)
-    cfg = RunConfig(remat="none", opt=opt.OptConfig(lr=1e-3, warmup_steps=TRAIN_WARMUP))
+    cfg = f32_run("none")
     batch = SyntheticLM(spec, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED)).batch_at(0)
     mesh = make_mesh((1,), ("data",), device="cuda")
     step, init_extra = make_dp_train_step(spec, mesh, cfg, compress_bits=8)
@@ -1927,14 +2321,16 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] nvcc {sorted(logs) or 'cached'}: {time.perf_counter() - t0:.3f} s")
 
-    # -- dryrun's long cells, beside the card's phases on one core -----------------
+    # -- dryrun's cells, beside the card's phases until the train_more phase ------
+    # (each holds a CUDA context, about 0.5 GiB of the card, until it ends)
     import atexit
     import tempfile
     dry_tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
-    early = dryrun_start(DRYRUN_EARLY, dry_tmp / "full", threads=1)
-    atexit.register(dryrun_stop, early)
+    dry = dryrun_launch(dry_tmp)
+    atexit.register(dryrun_stop, dry["full"] + dry["reduced"])
 
     # -- kernels ---------------------------------------------------------------
+    elapsed("kernels")
     spec, mspec, gspec, rspec = get_arch(ARCH), get_arch(MAMBA), get_arch(GEMMA), get_arch(GRANITE)
     pspec = get_arch(PHI3)
     h, g, hd, d = spec.n_heads, spec.n_kv_heads, spec.resolved_head_dim, spec.d_model
@@ -1964,8 +2360,10 @@ def main() -> None:
         for key, args, iters in (
                 ("bwd qwen2", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, g, hd, 0), 5),
                 ("bwd qwen2 ragged 1000", (BATCH, PROMPT, PROMPT, h, g, hd, 0), 5),
-                ("bwd gemma3 global", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, 0), 3),
-                (f"bwd gemma3 window {gw}", (BATCH, G_PROMPT, G_PROMPT, gh, gg, ghd, gw), 3),
+                # gemma3's train shape (train_more)
+                ("bwd gemma3 global", (G_TRAIN_B, G_TRAIN_SEQ, G_TRAIN_SEQ, gh, gg, ghd, 0), 3),
+                (f"bwd gemma3 window {gw}",
+                 (G_TRAIN_B, G_TRAIN_SEQ, G_TRAIN_SEQ, gh, gg, ghd, gw), 3),
                 ("bwd granite", (BATCH, R_PROMPT, R_PROMPT, rspec.n_heads, rspec.n_kv_heads,
                                  rspec.resolved_head_dim, 0), 5),
                 ("bwd phi3 hd96", (BATCH, 1024, 1024, pspec.n_heads, pspec.n_kv_heads,
@@ -1979,11 +2377,12 @@ def main() -> None:
                                                             q_offset=OFFSET)
         rows += [named[name, "qwen2 q_offset"], named[name, "bwd qwen2 q_offset"]]
         for key, (n_rows, width), iters in (
+                # qwen2's train rows, and granite's (the same width)
                 ("bwd qwen2 train", (TRAIN_BATCH * TRAIN_SEQ, d), 50),
                 ("bwd 4000x1536", (4000, d), 50),
-                ("bwd gemma3 8160x1152", (BATCH * G_PROMPT, gspec.d_model), 50),
+                ("bwd gemma3 train", (G_TRAIN_B * G_TRAIN_SEQ, gspec.d_model), 50),
                 # mamba2-130m training: norm1 and the final norm, the gated norm
-                ("bwd mamba2 train", (m_rows, mspec.d_model), 50),
+                ("bwd mamba2 train rows", (m_rows, mspec.d_model), 50),
                 ("bwd mamba2 train gated", (m_rows, mspec.d_inner), 50)):
             named[name, key] = check_rmsnorm_bwd(torch, F, rn, ref, n_rows, width, dtype, iters)
             rows.append(named[name, key])
@@ -2014,6 +2413,7 @@ def main() -> None:
                     (BATCH, 2048, 8, 2, 64, 16, 20),         # grouped, jamba's widths
                     (2, 1000, small.ssm_heads, 1, small.ssm_head_dim, small.ssm_state, 20)):
                 ssd_rows.append(check_ssd(torch, ss, b, s, sh, sg, sp, sn, dtype, ranges, iters))
+                named.setdefault((name, f"mamba2 prefill {ranges}"), ssd_rows[-1])
             # mamba2-130m's train shape on one of 16 'model' ranks: P = 64 / 16
             named[name, f"mamba2 train P4 {ranges}"] = check_ssd(
                 torch, ss, TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, mp // M_MODEL_RANKS, mn, dtype,
@@ -2058,10 +2458,12 @@ def main() -> None:
     no_dse = {"dse_class_times": 0, "dse_sweep": 0, "rmsnorm_split": 0, "rmsnorm_split_bwd": 0}
 
     # -- dse -----------------------------------------------------------------------
+    elapsed("dse")
     by_path = {}
     dse_rows, by_path["dse"], dse_more = dse(torch, np, counted, card)
 
     # -- serve, consistency and serve_mesh, per model ---------------------------
+    elapsed("serve")
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed
@@ -2089,19 +2491,59 @@ def main() -> None:
         consistency(torch, M, moem, map_with_path, reduced, model_spec, params, prompts)
         by_path[f"serve_mesh {model_spec.name}"] = serve_mesh(
             torch, np, M, Engine, counted, card, model_spec, params, prompts, want, base)
+        by_path[f"serve_bf16 {model_spec.name}"] = serve_bf16(
+            torch, np, M, Engine, moem, map_with_path, counted, card, model_spec, params,
+            prompts, want)
         del params
         torch.cuda.empty_cache()
 
     # -- train ---------------------------------------------------------------------
+    elapsed("train")
+    f32_runs = {}
     for train_spec, seq in ((spec, TRAIN_SEQ), (mspec, M_TRAIN_SEQ)):
-        by_path[f"{train_spec.name} train"] = train(torch, counted, card, train_spec, seq)
+        by_path[f"{train_spec.name} train"], f32_runs[train_spec.name] = train(
+            torch, counted, card, train_spec, seq)
         torch.cuda.empty_cache()
         train_consistency(torch, map_with_path, reduced, train_spec)
         torch.cuda.empty_cache()
 
-    # -- mesh: the sharded train path on a mesh of one card ------------------------
-    import dataclasses
+    # -- train_bf16: BF16_RUN at the f32 train paths' shapes ------------------------
+    elapsed("train_bf16")
+    for train_spec, seq in ((spec, TRAIN_SEQ), (mspec, M_TRAIN_SEQ)):
+        by_path[f"{train_spec.name} train_bf16"] = train_bf16(
+            torch, counted, card, train_spec, seq, f32_runs[train_spec.name])
+        torch.cuda.empty_cache()
 
+    # -- dryrun: the program on fake worlds of 256 and 512 ranks, collected ---------
+    # before the phases that need most of the card's memory
+    elapsed("dryrun")
+    dryrun_phase(card, torch.cuda.get_device_properties(0).total_memory, dry, dry_tmp)
+
+    # -- train_more: f32 training of gemma3-1b and granite-moe-3b-a800m -------------
+    elapsed("train_more")
+    for arch, batch, seq in MORE_TRAIN:
+        more_spec = get_arch(arch)
+        state, _, by_path[f"{arch} train_more"], f32_runs[arch] = train_steps(
+            torch, counted, card, more_spec, seq, f32_run(), batch=batch, tag="train_more")
+        del state, _
+        torch.cuda.empty_cache()
+        train_consistency(torch, map_with_path, reduced, more_spec)
+        torch.cuda.empty_cache()
+    # gemma3-1b's BF16_RUN too (granite's state, 28 bytes a parameter, does not fit the card)
+    by_path[f"{GEMMA} train_bf16"] = train_bf16(torch, counted, card, gspec, G_TRAIN_SEQ,
+                                                f32_runs[GEMMA], batch=G_TRAIN_B)
+    torch.cuda.empty_cache()
+
+    # -- serve_embeddings: phi-3-vision-4.2b through the embeddings frontend --------
+    elapsed("serve_embeddings")
+    from repro_torch.serve import api
+    (by_path[f"serve_embeddings {pspec.name}"],
+     by_path[f"serve_embeddings bf16 {pspec.name}"]) = serve_embeddings(
+        torch, np, M, api, map_with_path, reduced, counted, card, pspec)
+    torch.cuda.empty_cache()
+
+    # -- mesh: the sharded train path on a mesh of one card ------------------------
+    elapsed("mesh")
     by_path[f"mesh {spec.name} train"] = mesh_train(torch, counted, card, spec, TRAIN_SEQ,
                                                     MESH_STEPS)
     torch.cuda.empty_cache()
@@ -2113,10 +2555,8 @@ def main() -> None:
     dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # -- dryrun: the program on fake worlds of 256 and 512 ranks --------------------
-    dryrun_phase(card, torch.cuda.get_device_properties(0).total_memory, early, dry_tmp)
-
     # -- report ------------------------------------------------------------------
+    elapsed("report")
     print(f"[device] {card}")
     print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
           f"without device events, each taken again (up to {TRACE_TRIES} tries)")
@@ -2132,7 +2572,7 @@ def main() -> None:
         return {key: r[key] for key in case_keys if key in r}
 
     # more: the kernel at the other shapes of its paths, and bf16 flash
-    flash_more = [("bfloat16", "qwen2")] + [
+    flash_more = [("bfloat16", "qwen2"), ("bfloat16", "granite")] + [
         (name, "qwen2 q_offset") for name in ("float32", "bfloat16")] + [
         (name, key) for key in ("gemma3 global", f"gemma3 window {gw}", "hd256 ragged 200")
         for name in ("float32", "bfloat16")] + [("float32", "granite")] + [
@@ -2144,13 +2584,13 @@ def main() -> None:
         for name in ("float32", "bfloat16")]
     split_keys = ("mamba2 train split", "mamba2 decode split", "ragged split")
     norm_bwd_more = [("bfloat16", "bwd qwen2 train")] + [
-        (name, key) for key in ("bwd 4000x1536", "bwd gemma3 8160x1152", "bwd mamba2 train",
+        (name, key) for key in ("bwd 4000x1536", "bwd gemma3 train", "bwd mamba2 train rows",
                                 "bwd mamba2 train gated") + tuple("bwd " + k for k in split_keys)
         for name in ("float32", "bfloat16")]
-    norm_more = [("float32", key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
-                                              "granite prefill", "mamba2 prefill",
-                                              "mamba2 prefill gated", "mamba2 decode")] + [
-        ("bfloat16", key) for key in ("mamba2 prefill", "mamba2 prefill gated")] + [
+    norm_more = [("bfloat16", "qwen2 prefill")] + [
+        (name, key) for key in ("qwen2 decode", "gemma3 prefill", "gemma3 decode",
+                                "granite prefill", "mamba2 prefill", "mamba2 prefill gated",
+                                "mamba2 decode") for name in ("float32", "bfloat16")] + [
         (name, key) for key in split_keys for name in ("float32", "bfloat16")]
     kernels = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2161,8 +2601,9 @@ def main() -> None:
              case=named["float32", "qwen2 prefill"], more=[named[k] for k in norm_more]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0],
-             more=[named[dt_name, f"mamba2 train P4 {ranges}"]
-                   for dt_name in ("float32", "bfloat16") for ranges in ("model", "random")]),
+             more=[named["bfloat16", "mamba2 prefill model"]] + [
+                 named[dt_name, f"mamba2 train P4 {ranges}"]
+                 for dt_name in ("float32", "bfloat16") for ranges in ("model", "random")]),
         # the gradients of the first two: the JAX package differentiates jnp
         # attention and normalisation, and has no Pallas backward
         dict(name="flash_attention_bwd", route="cuda",

@@ -32,8 +32,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import ArchSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, linear, linears, rmsnorm
-from repro_torch.parallel.local_shards import (all_to_all, mesh_dims_along, on_local_shards,
-                                               split_along)
+from repro_torch.parallel.local_shards import (all_to_all, lift, mesh_dims_along,
+                                               on_local_shards, split_along)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan, placements
 
 DEFAULT_CHUNK = 256
@@ -310,20 +310,110 @@ def mamba_prefill(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
     return out, _store(cache, plan, conv=tail, ssm=hlast)
 
 
+def _conv_whole_rows(p, conv, xi, bi, ci):
+    """Decode's causal conv on whole rows, as the JAX module computes it
+    (:217-223): the three streams' new row concatenated, the cache's cw-1
+    rows before it, one product over all C channels.  Returns the streams
+    after the conv and the cache's new rows (B, cw-1, C).  Under a plan
+    whose layouts ``_conv_own_columns`` does not take, the concatenations
+    gather what they join."""
+    din, gds = xi.shape[-1], bi.shape[-1]
+    window = torch.cat([conv.to(xi.dtype), torch.cat([xi, bi, ci], dim=-1)[:, None, :]], dim=1)
+    wfull = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=1)            # (cw, C)
+    out = F.silu(torch.einsum("bwc,wc->bc", window, wfull.to(xi.dtype)))
+    return (out[:, :din], out[:, din:din + gds], out[:, din + gds:]), window[:, 1:]
+
+
+@functools.cache
+def _conv_moves(din: int, c: int, n: int, k: int):
+    """Rank ``k`` of ``n`` holds the conv cache's channels [k cp, (k + 1) cp)
+    (cp = c / n: its split of all C channels) and xi's columns
+    [k dp, (k + 1) dp) (dp = din / n: the d_inner split); the channels past
+    din are b's and c's, which every rank convolves whole.  Returns
+    (order, send, recv, back_send, back_recv).  Load: the local channels
+    this rank sends, by the rank they go to (a d_inner channel to the rank
+    whose piece holds it, a b/c channel to every rank), how many go to each
+    rank and how many come from each; what arrives is in channel order, so
+    this rank's d_inner piece and then every b/c channel.  Store: how many
+    of its d_inner piece's columns go back to each rank's channel piece,
+    and how many of its own channel piece's d_inner columns come from
+    each."""
+    cp, dp = c // n, din // n
+    goes_to = lambda ch, q: ch >= din or ch // dp == q
+    held = lambda r: range(r * cp, (r + 1) * cp)
+    order = [ch - k * cp for q in range(n) for ch in held(k) if goes_to(ch, q)]
+    send = [sum(goes_to(ch, q) for ch in held(k)) for q in range(n)]
+    recv = [sum(goes_to(ch, k) for ch in held(r)) for r in range(n)]
+    overlap = lambda lo, hi, lo2, hi2: max(0, min(hi, hi2) - max(lo, lo2))
+    back_send = [overlap(k * dp, (k + 1) * dp, q * cp, (q + 1) * cp) for q in range(n)]
+    back_recv = [overlap(r * dp, (r + 1) * dp, k * cp, (k + 1) * cp) for r in range(n)]
+    return order, send, recv, back_send, back_recv
+
+
+def _conv_own_columns(p, conv, xi, bi, ci):
+    """Decode's causal conv with the d_inner split kept, or None where the
+    layouts do not fit it.  It fits where one mesh dim splits the cache's
+    C channels (``_CACHE_AXES``: the leaf is laid out as the JAX cache, in
+    pieces of C / n that do not follow xi's pieces of d_inner / n), xi's
+    d_inner splits over it too, and any other split is the batch's.  Each
+    rank then convolves its own d_inner columns of xi and b's and c's whole
+    (as the plan lays them out): one all-to-all of unequal pieces brings it
+    the cache's rows of those channels (``_conv_moves``), the same move as
+    the head view's (``_to_head_dim``), and one more takes the new rows of
+    its d_inner columns back to the cache's pieces.  Neither the cache's
+    channels nor xi is gathered whole; b's and c's new rows (B x 2 g ds),
+    which a ``DTensor`` product may hand over split, are.  Returns what
+    ``_conv_whole_rows`` returns, xi's conv in its d_inner split and b's
+    and c's whole."""
+    if not (isinstance(conv, DTensor) and isinstance(xi, DTensor)):
+        return None
+    mesh, cache_pl = conv.device_mesh, tuple(conv.placements)
+    dims = mesh_dims_along(conv, 2)
+    if len(dims) != 1 or any(q not in (Replicate(), Shard(0), Shard(2)) for q in cache_pl):
+        return None
+    i, din, c = dims[0], xi.shape[-1], conv.shape[-1]
+    n = mesh.size(i)
+    if c % n or din % n:
+        return None
+    batch = tuple(Shard(0) if q == Shard(0) else Replicate() for q in cache_pl)
+    x_pl = tuple(Shard(1) if j == i else q for j, q in enumerate(batch))
+    w_pl = tuple(Shard(1) if j == i else Replicate() for j in range(mesh.ndim))
+    xl = _laid_out(xi, x_pl).to_local()
+    bl, cl = (_laid_out(t, batch).to_local() for t in (bi, ci))
+    w = torch.cat([_laid_out(lift(p["conv_x"], conv), w_pl).to_local()] + [
+        _laid_out(lift(p[k], conv), (Replicate(),) * mesh.ndim).to_local()
+        for k in ("conv_b", "conv_c")], dim=1).to(xl.dtype)
+    k = mesh.get_coordinate()[i]
+    order, send, recv, back_send, back_recv = _conv_moves(din, c, n, k)
+    group = mesh.get_group(i)
+    old = conv.to_local().to(xl.dtype)                        # (b, cw-1, C / n)
+    b, rows = old.shape[0], old.shape[0] * old.shape[1]
+    index = torch.tensor(order, device=old.device)
+    got = all_to_all(old.reshape(rows, -1).t().index_select(0, index), group, recv, send)
+    window = torch.cat([got.t().reshape(b, old.shape[1], -1),
+                        torch.cat([xl, bl, cl], dim=-1)[:, None, :]], dim=1)
+    out = F.silu(torch.einsum("bwc,wc->bc", window, w))
+    dp, gds = xl.shape[-1], bl.shape[-1]
+    cp = c // n
+    lo, hi = max(k * cp, din) - din, max((k + 1) * cp, din) - din  # its b/c channels
+    back = all_to_all(window[:, 1:, :dp].reshape(rows, dp).t(), group, back_recv, back_send)
+    mine = torch.cat([back.t().reshape(b, old.shape[1], -1), window[:, 1:, dp + lo:dp + hi]],
+                     dim=-1)
+    wrap = lambda t, pl: DTensor.from_local(t.contiguous(), mesh, pl, run_check=False)
+    return ((wrap(out[:, :dp], x_pl), wrap(out[:, dp:dp + gds], batch),
+             wrap(out[:, dp + gds:], batch)), wrap(mine, cache_pl))
+
+
 def mamba_decode(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
-    """One-token recurrent update.  x: (B, D).  Updates ``cache`` in place."""
+    """One-token recurrent update.  x: (B, D).  Updates ``cache`` in place.
+    The conv keeps a plan's d_inner split where the layouts fit
+    (``_conv_own_columns``), else runs on whole rows (``_conv_whole_rows``)."""
     bsz, _ = x.shape
     din, g, ds, nh, hd = spec.d_inner, spec.ssm_groups, spec.ssm_state, spec.ssm_heads, \
         spec.ssm_head_dim
     z, xi, bi, ci, dt = _in_proj(p, x)                       # dt: (B, nh)
-
-    new_raw = torch.cat([xi, bi, ci], dim=-1)                # (B, C)
-    window = torch.cat([cache["conv"].to(x.dtype), new_raw[:, None, :]], dim=1)  # (B,cw,C)
-    wfull = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=1)            # (cw, C)
-    conv_out = F.silu(torch.einsum("bwc,wc->bc", window, wfull.to(x.dtype)))
-    xi = conv_out[:, :din]
-    bi = conv_out[:, din : din + g * ds]
-    ci = conv_out[:, din + g * ds :]
+    conv_args = (p, cache["conv"], xi, bi, ci)
+    (xi, bi, ci), conv = _conv_own_columns(*conv_args) or _conv_whole_rows(*conv_args)
 
     a = -torch.exp(p["a_log"].float())                        # (nh,)
     decay = torch.exp(dt * a)                                 # (B, nh)
@@ -337,4 +427,4 @@ def mamba_decode(p, x, spec: ArchSpec, plan: ShardingPlan, cache):
     y = rmsnorm(_fold_heads(y, (bsz, din), plan, ("batch",)) * F.silu(z), p["norm"],
                 spec.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
-    return out, _store(cache, plan, conv=window[:, 1:], ssm=h)
+    return out, _store(cache, plan, conv=conv, ssm=h)

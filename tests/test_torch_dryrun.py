@@ -34,10 +34,17 @@ forced host devices.  Held:
     divide 'model', mamba's d_inner through its gated norm and its head
     view, the FSDP-split weights where moving the activations costs less,
     an undivided vocabulary of the head over an idle 'model'), so no rank
-    does a gathered dim's work.  Reduced mamba2's batch-1 decode sets the
-    top (1.35x): its products are a few thousand FLOPs a rank, and the
-    decode conv, whose 160 channels do not divide 'model', runs whole on
-    every rank.  Reduced mamba2's train step sat at 1.07x only because its
+    does a gathered dim's work.  A batch-1 decode of a Mamba model (reduced
+    mamba2 and jamba ``d1``: 'data' splits no rows) is held to the band on
+    the decode conv's whole-row branch (``mamba._conv_whole_rows``, forced
+    in a run of its own), whose layout XLA's count follows (mamba2 0.98x of
+    XLA's FLOPs and 0.52x of its all-gather bytes, jamba 0.52x and 0.23x);
+    the conv's d_inner split, the path the plan takes, is held to that run
+    exactly: its FLOPs lower by the d_inner channels a rank no longer
+    repeats (2 B cw (d_inner - d_inner / n) a layer; 0.54x of XLA's for
+    mamba2), no all-gather at all, and fewer collective bytes in all
+    (the cache's pieces and the head view move by all-to-all).  Reduced
+    mamba2's train step sat at 1.07x only because its
     gathered d_inner made every 'model' rank repeat the output projection's
     gradient products; kept split, with the SSD formula counting the
     recurrence alone, it read 0.60x, and with the chunked products 0.93x
@@ -108,6 +115,7 @@ CELLS = [(a, s, "pod") for a in ARCH_CELLS for s in "tpd"] + [("gemma3-1b", "d",
 FLOP_BAND = (0.8, 1.4)
 FLOP_FLOORS = {"split_attention_prefill": 0.45, "moe": 0.05}  # below FLOP_BAND: see above
 GATHER_BAND = (0.1, 1.1)  # the port's all-gather bytes a device over XLA's
+WHOLE_ROWS = [(a, "d1", "pod") for a in ("mamba2-130m", "jamba-v0.1-52b")]  # see above
 PEAK_FACTOR = 2.0
 POD = {"data": 16, "model": 16}
 MULTIPOD = {"pod": 2, "data": 16, "model": 16}
@@ -141,12 +149,16 @@ with fake_mode():
 m = MeshPlan((2, 16, 16), ("pod", "data", "model"), True, True).make_mesh(device="cpu")
 print("PIN " + json.dumps(dict(local=cost.flops, flop_counter=whole.get_total_flops(),
                                mesh=[list(m.mesh_dim_names), list(m.shape)])))
+from repro_torch.models import mamba
+own_columns = mamba._conv_own_columns
 for cell in sys.argv[2:]:
-    arch, shape, mesh_kind, size = cell.split(":")
+    arch, shape, mesh_kind, size, *whole_rows = cell.split(":")
     spec = get_arch(arch) if size == "full" else reduced(get_arch(arch))
+    # decode's conv forced onto its whole-row branch
+    mamba._conv_own_columns = (lambda *a: None) if whole_rows else own_columns
     rec = D.run_cell(arch, shape, mesh_kind, D.default_knobs(arch, shape), Path(sys.argv[1]),
-                     device="cpu", spec=spec)
-    print("REC " + json.dumps(rec))
+                     device="cpu", spec=spec, tag="__whole_rows" if whole_rows else "")
+    print(("WHOLE " if whole_rows else "REC ") + json.dumps(rec))
 """
 
 JAX = _SETUP + """
@@ -161,16 +173,20 @@ for cell in sys.argv[2:]:
 
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
-    """(the port's records, the JAX package's, the pinned case), by cell;
-    both subprocesses run at once."""
+    """(the port's records, the JAX package's, the pinned case, the port's
+    ``WHOLE_ROWS`` cells on the conv's whole-row branch), by cell; both
+    subprocesses run at once."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     cells = [":".join(c + ("full" if c == FULL_SIZE else "reduced",)) for c in CELLS]
+    whole_rows = [":".join(c + ("reduced", "whole_rows")) for c in WHOLE_ROWS]
     procs = {}
-    for name, pkg, script in (("port", "repro_torch", PORT), ("jax", "repro", JAX)):
+    for name, pkg, script, extra in (("port", "repro_torch", PORT, whole_rows),
+                                     ("jax", "repro", JAX, [])):
         code = script.format(pkg=pkg, shapes=SHAPES)
         out = tmp_path_factory.mktemp(name)
-        procs[name] = subprocess.Popen([sys.executable, "-c", code, str(out), *cells], env=env,
-                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs[name] = subprocess.Popen([sys.executable, "-c", code, str(out), *cells, *extra],
+                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
     res = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=TIMEOUT)
@@ -180,6 +196,9 @@ def records(tmp_path_factory):
         if name == "port":
             res["pin"] = next(json.loads(line[4:]) for line in stdout.splitlines()
                               if line.startswith("PIN "))
+            res["whole_rows"] = {(r["arch"], r["shape"], r["mesh"]): r for r in (
+                json.loads(line[6:]) for line in stdout.splitlines()
+                if line.startswith("WHOLE "))}
     return res
 
 
@@ -224,7 +243,8 @@ def test_dryrun_record_matches_jax_run_cell(records, cell):
     if port["kind"] != "train":
         assert mem["kv_cache_bytes_per_device"] == jmem["kv_cache_bytes_per_device"] + kpos
     assert mem["peak_bytes_per_device"] >= mem["argument_bytes"]
-    ratio = port["hlo"]["flops_per_device"] / jax_rec["hlo"]["flops_per_device"]
+    banded = records["whole_rows"][cell] if cell in WHOLE_ROWS else port
+    ratio = banded["hlo"]["flops_per_device"] / jax_rec["hlo"]["flops_per_device"]
     split_attention = spec.n_heads and not ShardingPlan(axis_sizes=sizes).can_shard(
         "q_heads", spec.n_heads)
     lo = (FLOP_FLOORS["moe"] if spec.n_experts else
@@ -233,8 +253,17 @@ def test_dryrun_record_matches_jax_run_cell(records, cell):
     assert lo <= ratio <= FLOP_BAND[1], ratio
     if cell == FULL_SIZE:
         assert mem["peak_bytes_per_device"] <= PEAK_FACTOR * jmem["peak_bytes_per_device"]
-    gathers = [r["hlo"]["collective_bytes"].get("all-gather", 0) for r in (port, jax_rec)]
+    gathers = [r["hlo"]["collective_bytes"].get("all-gather", 0) for r in (banded, jax_rec)]
     assert GATHER_BAND[0] * gathers[1] <= gathers[0] <= GATHER_BAND[1] * gathers[1], gathers
+    if cell in WHOLE_ROWS:
+        # the conv's d_inner split: each rank its d_inner / n columns and b's and c's whole
+        repeated = 2 * b * spec.ssm_conv * (spec.d_inner - spec.d_inner // sizes["model"])
+        layers = sum(ld.mixer == "mamba" for ld in spec.layer_defs())
+        assert (port["hlo"]["flops_per_device"] ==
+                banded["hlo"]["flops_per_device"] - layers * repeated)
+        assert port["hlo"]["collective_bytes"].get("all-gather", 0) == 0
+        assert (sum(port["hlo"]["collective_bytes"].values()) <
+                sum(banded["hlo"]["collective_bytes"].values()))
     kinds = set(port["hlo"]["collective_bytes"])
     assert kinds and kinds == set(port["hlo"]["collective_counts"])
     assert {k.split("@")[0] for k in port["hlo"]["collective_by_group"]} == kinds

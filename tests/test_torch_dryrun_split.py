@@ -10,6 +10,12 @@ head view and the fold move by all-to-all there, and the gated norm's row
 sums are all-reduced at the split-row Function's line
 (``kernels/rmsnorm.py``).  On the parent tree the gated norm gathered
 3.36e7 bytes at ``ops.py:93`` and the head view 3.36e7 at ``mamba.py:135``.
+The same at decode_32k's shape: no all-gather at the lines of decode's
+conv (``_conv_own_columns``, ``_conv_whole_rows``) or of the head view and
+fold, and at ``mamba_decode``'s own lines none but w_out's FSDP gather (at
+most its share over 'data'); the conv, the head view and the fold move by
+all-to-all.  Before decode's conv kept the d_inner split it gathered each
+row of its three streams whole at ``mamba_decode``'s concatenation.
 
 Peak.  Reduced mamba2 with mamba2-130m's own vocabulary (50,280 words) at
 train_4k's shape (batch 256, sequence 4096) on the pod, against the JAX
@@ -38,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT = 600  # seconds, per subprocess: each takes under 30 s here
 PEAK_FACTOR = 1.1  # the port's peak over XLA's
 VOCAB = 50_280  # mamba2-130m's
+POD_MODEL = 16  # the pod's 'model' axis
 
 CELL = """
 import json, sys
@@ -73,16 +80,20 @@ def _at(label: str, spans) -> bool:
     return any(path == rel and line.isdigit() and int(line) in lines for rel, lines in spans)
 
 
-@pytest.fixture(scope="module")
-def prefill_record(tmp_path_factory):
+def _attributed(tmp_path_factory, shape: str) -> dict:
     out = tmp_path_factory.mktemp("attribute")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mamba2-130m",
-                        "--shape", "prefill_32k", "--reduced", "--device", "cpu", "--attribute",
+                        "--shape", shape, "--reduced", "--device", "cpu", "--attribute",
                         "--out", str(out)], env=env, capture_output=True, text=True,
                        timeout=TIMEOUT)
     assert r.returncode == 0, r.stderr[-4000:]
-    return json.loads((out / "mamba2-130m__prefill_32k__pod.json").read_text())
+    return json.loads((out / f"mamba2-130m__{shape}__pod.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def prefill_record(tmp_path_factory):
+    return _attributed(tmp_path_factory, "prefill_32k")
 
 
 def test_mamba_norm_and_head_view_gather_no_d_inner_rows(prefill_record):
@@ -98,6 +109,27 @@ def test_mamba_norm_and_head_view_gather_no_d_inner_rows(prefill_record):
     assert any(_at(k, _lines(mamba._to_head_dim)) for k in moved), by_site["all-to-all"]
     assert any(_at(k, _lines(mamba._from_head_dim)) for k in moved), by_site["all-to-all"]
     assert any(k.startswith("all_reduce@kernels/rmsnorm.py") for k, _ in by_site["all-reduce"])
+
+
+@pytest.fixture(scope="module")
+def decode_record(tmp_path_factory):
+    return _attributed(tmp_path_factory, "decode_32k")
+
+
+def test_mamba_decode_conv_and_head_view_gather_no_d_inner_rows(decode_record):
+    by_site = decode_record["attribution"]["collective_bytes_by_site"]
+    gathers = dict(by_site["all-gather"])
+    spec = reduced(ARCHS["mamba2-130m"])
+    conv_view = _lines(mamba._conv_own_columns, mamba._conv_whole_rows, mamba._heads,
+                       mamba._to_head_dim, mamba._fold_heads, mamba._from_head_dim)
+    assert not [k for k in gathers if _at(k, conv_view)], gathers
+    # at mamba_decode's own lines only w_out's FSDP share ('embed' over 'data'), bf16
+    w_out = 2 * spec.n_layers * spec.d_inner // POD_MODEL * spec.d_model
+    decode = sum(v for k, v in gathers.items() if _at(k, _lines(mamba.mamba_decode)))
+    assert decode <= w_out, (decode, w_out, gathers)
+    moved = [k for k, _ in by_site["all-to-all"]]
+    for fn in (mamba._conv_own_columns, mamba._to_head_dim, mamba._from_head_dim):
+        assert any(_at(k, _lines(fn)) for k in moved), (fn.__name__, by_site["all-to-all"])
 
 
 def test_loss_backward_peak_within_a_factor_of_xla(tmp_path):

@@ -18,10 +18,15 @@ columns of every head.  Held:
     tolerances, while every call of the gated norm takes the RMSNorm
     kernels' split-row mode on each rank's 24 columns of rows 96 wide (no
     whole-row call sees a row 96 wide), and every head view and fold of
-    the scan and of training, and decode's fold, moves by all-to-all.
-    (Decode's conv concatenates its three streams across the d_inner split
-    and hands the head view a whole row, so decode's head view is a local
-    view.)
+    the scan, of decode and of training moves by all-to-all;
+  * decode's conv (``mamba._conv_own_columns``): each rank convolves its
+    own 24 d_inner columns and b's and c's 32 channels whole, the conv
+    cache's 128 channels (pieces of 32) moved to and from that layout by
+    all-to-all, and no all-gather runs inside ``mamba_decode``: six greedy
+    steps against the unsharded port and the JAX package (tokens equal,
+    logits and conv cache leaves within 1e-6 of their scale, the first
+    layer's leaves bit for bit); with 130 channels, which 'model' does not
+    divide, every decode takes ``_conv_whole_rows``, as before.
 ZeRO-2.  Reduced mamba2 on (2, 2) under a plan that keeps its mixer's
 weights whole over 'model' (the dry run's ``mamba_dp`` rules), with every
 state leaf in the default plan's layout (``opt_plan``), so the gradients of
@@ -32,9 +37,9 @@ optimizer's layout; under remat ``dots`` with two microbatches a leaf's hook
 fires once a microbatch, not once a recompute; and two such steps match the
 port's unsharded step (rtol 1e-4, atol 1e-6) and the JAX step (rtol 1e-3,
 atol 1e-5; losses 1e-5 and 1e-4).
-Every assertion of the first two tests fails on the parent tree, which has
-no ``_to_head_dim``, ``_from_head_dim``, ``rmsnorm_split`` or
-``grads_laid_out``.  The ranks import the port only; JAX runs in the test
+The first two tests' assertions hold only where ``_to_head_dim``,
+``_from_head_dim``, ``rmsnorm_split`` and ``grads_laid_out`` run, the decode
+tests' only where ``_conv_own_columns`` does.  The ranks import the port only; JAX runs in the test
 process.
 """
 from __future__ import annotations
@@ -42,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from test_torch_parallel_train import (JAX_TOL, OPT, PORT_TOL, _batches, _check as _check_train,
                                        _host, _references, _sharded_rank)
 from test_torch_serve_plan import CASES, _check as _check_serve, _params, _serve_rank
@@ -53,6 +59,21 @@ ARCH, KW = "mamba2-130m", {"d_model": 48}
 TIMEOUT = 600  # seconds, per spawned call: each takes 30 to 90 s alone
 
 
+class Collectives(TorchDispatchMode):
+    """The collectives dispatched while it is on, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.name().split("::")[-1].split(".")[0]
+        if ("c10d_functional" in func.namespace or func.namespace == "_dtensor") and \
+                name.startswith(("all_", "reduce_scatter", "shard_dim", "broadcast")):
+            self.ops.append(name)
+        return func(*args, **(kwargs or {}))
+
+
 # -- the head view ----------------------------------------------------------------
 
 def _heads_rank():
@@ -60,23 +81,10 @@ def _heads_rank():
     replace, on (1, 4); the collectives each ran."""
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import mamba
     from repro_torch.parallel.sharding import placements, plan_for_mesh
-
-    class Collectives(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = func.name().split("::")[-1].split(".")[0]
-            if ("c10d_functional" in func.namespace or func.namespace == "_dtensor") and \
-                    name.startswith(("all_", "reduce_scatter", "shard_dim", "broadcast")):
-                self.ops.append(name)
-            return func(*args, **(kwargs or {}))
 
     spec = reduced(ARCHS[ARCH], **KW)
     nh, hd, din = spec.ssm_heads, spec.ssm_head_dim, spec.d_inner
@@ -183,10 +191,183 @@ def test_mamba_keeps_d_inner_split_matches_unsharded_and_jax():
             assert ("split", piece, din) in seen["norm"], seen["norm"]
             assert not any(kind == "whole" and w == din for kind, w, _ in seen["norm"])
             assert seen["from"] and all(moved for _, moved in seen["from"]), seen["from"]
-        # the scan's head views (B, S, d_inner) move; decode's (B, d_inner) take a whole row
-        assert all(moved == (nd == 3) for nd, moved in served["to"]), served["to"]
-        assert any(nd == 3 for nd, _ in served["to"])
+        # the scan's head views (B, S, d_inner) and decode's (B, d_inner) move
+        assert served["to"] and all(moved for _, moved in served["to"]), served["to"]
+        assert {nd for nd, _ in served["to"]} == {2, 3}, served["to"]
         assert trained["to"] and all(moved for _, moved in trained["to"]), trained["to"]
+
+
+# -- decode's conv on each rank's own d_inner columns ------------------------------
+
+DECODE_PROMPT, DECODE_STEPS = 16, 6
+# ssm_state 17: C = 96 + 2 * 17 = 130 channels, which 'model' (4) does not
+# divide, so the conv cache is whole while xi's d_inner (96) is split
+UNFIT_KW = {"d_model": 48, "ssm_state": 17}
+DECODE_TOL = 1e-6  # logits: atol DECODE_TOL * the step's largest |logit|
+
+
+def _decode_rank(runs):
+    """For each (arch overrides, params, prompts): reduced mamba2's prefill
+    and DECODE_STEPS greedy decode steps on (1, 4), unsharded and under the
+    plan; each step's tokens, logits and conv cache leaves (rank 0), the
+    decodes under the plan that took ``_conv_own_columns`` and
+    ``_conv_whole_rows``, and the collectives dispatched inside
+    ``mamba_decode`` under the plan."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mamba
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import NULL_PLAN, distribute_tree, placements, plan_for_mesh
+
+    mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+    plan = plan_for_mesh(mesh)
+    seen = {"own": 0, "whole": 0, "ops": []}
+    own, whole_rows, decode = mamba._conv_own_columns, mamba._conv_whole_rows, mamba.mamba_decode
+
+    def counting(fn, key):
+        def wrapped(p, conv, *args):
+            out = fn(p, conv, *args)
+            if isinstance(conv, DTensor) and out is not None:
+                seen[key] += 1
+            return out
+        return wrapped
+
+    def recording_decode(p, x, spec, pl, cache):
+        if pl is NULL_PLAN:
+            return decode(p, x, spec, pl, cache)
+        with Collectives() as moved:
+            out = decode(p, x, spec, pl, cache)
+        seen["ops"] += moved.ops
+        return out
+
+    mamba._conv_own_columns = counting(own, "own")
+    mamba._conv_whole_rows = counting(whole_rows, "whole_rows")
+    mamba.mamba_decode = recording_decode
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    out = []
+    for kw, params, prompts in runs:
+        spec = reduced(ARCHS[ARCH], **kw)
+        (b, s), f32 = prompts.shape, torch.float32
+        seen.update(own=0, whole_rows=0, ops=[])
+
+        @torch.inference_mode()
+        def run(p, pl):
+            caches = M.init_caches(spec, b, s + DECODE_STEPS, dtype=f32, device="cpu")
+            tok = torch.as_tensor(prompts)
+            if pl is not NULL_PLAN:
+                caches = distribute_tree(caches, M.cache_axes(spec, b, s + DECODE_STEPS), pl,
+                                         mesh)
+                tok = distribute_tensor(tok, mesh, placements(pl.spec(("batch", None), tok.shape),
+                                                              mesh), src_data_rank=None)
+            lg, caches = M.prefill(p, tok, caches, spec, pl, compute_dtype=f32)
+            steps = []
+            for i in range(DECODE_STEPS):
+                tok = whole(lg).argmax(-1)
+                lg, caches = M.decode_step(p, caches, tok, s + i, spec, pl, compute_dtype=f32)
+                steps.append((tok.numpy().copy(), whole(lg).numpy().copy(),
+                              [whole(c["conv"]).numpy().copy() for c in caches]))
+            return steps
+
+        base = run(params, NULL_PLAN)
+        got = run(distribute_tree(params, M.param_axes(spec), plan, mesh), plan)
+        first = dist.get_rank() == 0
+        out.append(dict(base=base if first else None, got=got if first else None,
+                        own=seen["own"], whole_rows=seen["whole_rows"],
+                        ops=sorted(set(seen["ops"]))))
+    return out
+
+
+def _jax_decode(kw, params, prompts, tokens):
+    """The JAX package's prefill and decode steps on ``tokens`` (a step's
+    input each) from the same parameters, f32: each step's logits and conv
+    cache leaves."""
+    import jax.numpy as jnp
+    from test_torch_models import _jax_decoder, _jax_layer
+
+    from repro.configs import ARCHS as JARCHS, reduced as jreduced
+    from repro.models import model as JM
+    from repro_torch.convert import to_jax_params
+    spec, jspec = reduced(ARCHS[ARCH], **kw), jreduced(JARCHS[ARCH], **kw)
+    jp = to_jax_params(params, spec)
+    b, s = prompts.shape
+    caches = JM.init_caches(jspec, b, s + len(tokens), dtype=jnp.float32)
+    _, caches = JM.prefill(jp, jnp.asarray(prompts), caches, jspec, compute_dtype=jnp.float32)
+    step, out = _jax_decoder(jspec), []
+    for i, tok in enumerate(tokens):
+        lg, caches = step(jp, caches, tok, s + i)
+        out.append((np.asarray(lg), [_jax_layer(caches, spec, j, "conv")
+                                     for j in range(spec.n_layers)]))
+    return out
+
+
+_DECODE: dict = {}
+
+
+def _decode_runs():
+    if not _DECODE:
+        runs = []
+        for kw in (KW, UNFIT_KW):
+            spec = reduced(ARCHS[ARCH], **kw)
+            runs.append((kw, _params(ARCH, kw), np.random.default_rng(7).integers(
+                0, spec.vocab_size, (2, DECODE_PROMPT)).astype(np.int32)))
+        _DECODE["runs"] = runs
+        _DECODE["ranks"] = spawn.run(_decode_rank, 4, runs, timeout=TIMEOUT)
+    return _DECODE["runs"], _DECODE["ranks"]
+
+
+def _check_decode(base, got):
+    for step, ((bt, bl, bc), (gt, gl, gc)) in enumerate(zip(base, got)):
+        np.testing.assert_array_equal(gt, bt, err_msg=f"tokens of step {step}")
+        np.testing.assert_allclose(gl, bl, rtol=DECODE_TOL, atol=DECODE_TOL * np.abs(bl).max(),
+                                   err_msg=f"logits of step {step}")
+        # the first layer's conv rows are the embedding's products on either
+        # side; deeper layers' inputs carry the plan's partial sums
+        np.testing.assert_array_equal(gc[0], bc[0], err_msg="conv cache of layer 0")
+        for layer, (g, w) in enumerate(zip(gc, bc)):
+            np.testing.assert_allclose(g, w, rtol=DECODE_TOL, atol=DECODE_TOL * np.abs(w).max(),
+                                       err_msg=f"conv cache of layer {layer}")
+
+
+def test_decode_conv_keeps_d_inner_split_matches_unsharded_and_jax():
+    """Reduced mamba2 (d_inner 96 in pieces of 24 over 'model', the conv
+    cache's 128 channels in pieces of 32): every decode under the plan
+    convolves each rank's own columns (``_conv_own_columns``), no all-gather
+    runs inside ``mamba_decode`` (the cache and the head view move by
+    all-to-all), and six greedy steps give the unsharded port's tokens and
+    conv cache leaves bit for bit and its logits within DECODE_TOL of their
+    scale, and the JAX package's logits and conv cache leaves within the
+    same tolerance."""
+    runs, ranks = _decode_runs()
+    kw, params, prompts = runs[0]
+    ranks = [r[0] for r in ranks]
+    n_layers = reduced(ARCHS[ARCH], **kw).n_layers
+    for r in ranks:
+        assert (r["own"], r["whole_rows"]) == (DECODE_STEPS * n_layers, 0), r
+        assert "all_to_all_single" in r["ops"], r["ops"]
+        assert not [op for op in r["ops"] if op.startswith("all_gather")], r["ops"]
+    base, got = ranks[0]["base"], ranks[0]["got"]
+    _check_decode(base, got)
+    jax_steps = _jax_decode(kw, params, prompts, [t for t, _, _ in base])
+    for step, ((_, bl, bc), (jl, jc)) in enumerate(zip(base, jax_steps)):
+        np.testing.assert_allclose(bl, jl, rtol=DECODE_TOL, atol=DECODE_TOL * np.abs(jl).max(),
+                                   err_msg=f"logits of step {step} against JAX")
+        for layer, (g, w) in enumerate(zip(bc, jc)):
+            np.testing.assert_allclose(g, w, rtol=DECODE_TOL, atol=DECODE_TOL * np.abs(w).max(),
+                                       err_msg=f"conv cache of layer {layer} against JAX")
+
+
+def test_decode_conv_takes_whole_rows_where_the_split_does_not_fit():
+    """With 130 conv channels (``UNFIT_KW``) the cache's channels stay whole
+    while xi's d_inner is split: ``_conv_own_columns`` declines and every
+    decode takes ``_conv_whole_rows``, with the unsharded port's tokens, conv
+    cache leaves and logits."""
+    ranks = [r[1] for r in _decode_runs()[1]]
+    n_layers = reduced(ARCHS[ARCH], **UNFIT_KW).n_layers
+    for r in ranks:
+        assert (r["own"], r["whole_rows"]) == (0, DECODE_STEPS * n_layers), r
+    _check_decode(ranks[0]["base"], ranks[0]["got"])
 
 
 # -- ZeRO-2: gradients reduce-scattered as autograd makes them ---------------------
