@@ -4,7 +4,7 @@ whole-row RMSNorm kernels' outputs bit for bit, the unsharded serving
 path's times, and the unsharded train steps' losses, gradients, peak
 memory and times.
 
-    python3 chip_ab.py LABEL OUT [AGAINST]
+    python3 chip_ab.py LABEL OUT [AGAINST] [--bits]
 
 Builds the flash attention (forward and backward), RMSNorm and SSD scan
 (forward and backward) kernels of the checkout it sits in, then:
@@ -40,8 +40,10 @@ Builds the flash attention (forward and backward), RMSNorm and SSD scan
     (``max_memory_allocated`` over the steps); with AGAINST, the losses
     compared bit for bit and each saved gradient within ``GRAD_RTOL`` of
     the other's (max |diff| over the leaf's max |value|).
-To compare two commits, copy this script into an unpacked checkout of the
-other (``git archive``) and run both in one chip call in turns: A, B, B, A.
+``--bits`` stops after the kernels' bits and the train steps' comparison
+(no serving times).  To compare two commits, copy this script into an
+unpacked checkout of the other (``git archive``) and run both in one chip
+call in turns: A, B, B, A.
 Decode is host-bound, so its wall moves with the host: compare medians
 only within one call.  Exits non-zero without CUDA.
 """
@@ -182,10 +184,11 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("[ab] CUDA is not available: this needs an NVIDIA GPU")
-    if len(sys.argv) < 3:
+    args = [a for a in sys.argv[1:] if a != "--bits"]
+    if len(args) < 2:
         sys.exit(__doc__)
-    label, out_path = sys.argv[1], Path(sys.argv[2])
-    against = Path(sys.argv[3]) if len(sys.argv) > 3 else None
+    label, out_path = args[0], Path(args[1])
+    against = Path(args[2]) if len(args) > 2 else None
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
@@ -231,6 +234,8 @@ def main() -> None:
             bad |= not same_loss or rel[worst] > GRAD_RTOL
         if bad:
             sys.exit(1)
+    if "--bits" in sys.argv:
+        return
 
     for arch, prompt in MODELS:
         spec = get_arch(arch)

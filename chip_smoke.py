@@ -28,8 +28,18 @@ Phases, one or more lines each:
                and ssd_scan_output_f32 or _bf16 (y from the chunk's scores
                and its entering state); also at mamba2-130m's train shape as
                one rank of a 16-way 'model' axis scans it, its head_dim
-               split to P = 4 (the kernels' tiles of 16 columns, x read an
-               element at a time), forward and backward.  Flash attention at head_dim 96
+               split to P = 4, forward and backward, against the plain
+               version; and at P = 1, 2, 4 and 8 (a group's heads packed
+               into tiles of 16 columns: ssd_scan_chunk_state_narrow,
+               ssd_scan_state_pass, ssd_scan_output_narrow; backward
+               ssd_bwd_chunk_grad_narrow, ssd_bwd_state_pass,
+               ssd_bwd_dx_narrow, ssd_bwd_dbc_narrow, ssd_bwd_da), f32 and
+               bf16, against the plain version and the P = 16 launch on the
+               same heads' x and dy padded with zeros to 16 columns, two calls
+               bit for bit, with the 16-rank split's device ms against the
+               unsplit scan's.  The SSD rows whose f32 products run in 3xTF32
+               on the tensor cores (the backward, every launch below P = 16)
+               take the 3xTF32 bound, the CUDA cores' beside it.  Flash attention at head_dim 96
                (phi-3-vision-4.2b, 32 heads).  Flash attention at a query
                offset, forward and backward: qwen2's train shape as the last
                of four 'model' ranks of a sequence-split attention sees it
@@ -277,6 +287,7 @@ PHI3 = "phi-3-vision-4.2b"  # head_dim 96
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 M_TRAIN_SEQ = 4096  # mamba2-130m's train sequence
 M_MODEL_RANKS = 16  # the pod's 'model' axis: mamba2's 24 heads do not divide it, its head_dim does
+NARROW_DIMS = (1, 2, 4, 8)  # the SSD kernels' head dims below 16: a group's heads packed in a tile
 SPLIT_RAGGED = 40  # a ragged width of the RMSNorm kernels' split-row mode (mamba2's piece: 96)
 # flash attention at a query offset: qwen2's train_4k sequence as the last of
 # four 'model' ranks sees it under sequence-split attention (its rows
@@ -461,6 +472,17 @@ def dtype_name(dt) -> str:
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_bound(nbytes: float, flops: float, name: str, tensor_cores: bool) -> tuple[float, str, dict]:
+    """An SSD kernel's bound: where its f32 products run in 3xTF32 on the
+    tensor cores (the backward, and every launch below head dim 16), three
+    TF32 products a product, with the CUDA cores' bound beside it."""
+    if name == "float32" and tensor_cores:
+        cores = bound(nbytes, flops, name)
+        return (*bound(nbytes, 3 * flops, "tf32"),
+                dict(bound_f32_cores_ms=cores[0], bound_f32_cores_by=cores[1]))
+    return (*bound(nbytes, flops, name), {})
 
 
 def band_mask(torch, s, t, window, q_offset):
@@ -776,7 +798,7 @@ def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
     # state and one to read y = C h out; the decay's multiply is left out, so
     # this stays a lower bound.  The chunked form's score tiles do more.
     flops = 4.0 * s * n * p * b * h
-    bound_ms, bound_by = bound(nbytes, flops, name)
+    bound_ms, bound_by, extra = ssd_bound(nbytes, flops, name, p < 16)
     kernel = lambda: ss.ssd_scan(*args)
     # the three launches of one call, by kernel name
     phases = device_ms_split(kernel, iters, "ssd_scan")
@@ -789,9 +811,21 @@ def check_ssd(torch, ss, b, s, h, g, p, n, dtype, ranges, iters):
         scratch_bytes=4 * ss.scratch_floats(b, s, h, p, n),
         plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(*args), 1, warmup=0),
         library_ms=None, library_note="no single PyTorch call computes the SSD scan",
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {json.dumps(row)}")
     return row
+
+
+def ssd_plain_grads(torch, ss, inputs, dy, dstate):
+    """Autograd through ``ssd_scan_plain`` on inputs (x, dt, a, b, c) with
+    the output gradients (dy, dstate): the gradients and that backward's ms."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    plain_out = ss.ssd_scan_plain(*leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = torch.autograd.grad(plain_out, leaves, (dy, dstate))
+    torch.cuda.synchronize()
+    return want, (time.perf_counter() - t0) * 1e3
 
 
 def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
@@ -808,14 +842,7 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
     kernel = lambda: ss.ssd_scan_bwd(x, dt, a, bb, cc, scratch, dy, dstate)
     got = kernel()
     deterministic = same_bits(torch, got, kernel())
-    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
-    plain_out = ss.ssd_scan_plain(*leaves)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = torch.autograd.grad(plain_out, leaves, (dy, dstate))
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    del plain_out, leaves
+    want, plain_ms = ssd_plain_grads(torch, ss, (x, dt, a, bb, cc), dy, dstate)
     name = dtype_name(dtype)
     errs = [rel_close(torch, u, w, TOL[name]) for u, w in zip(got, want)]
     del want
@@ -830,12 +857,7 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
     # state gradient's C dY term, dC = h dY, dx = dt dh B and dB = dt dh x
     # (the forward's 4 S N P convention: decays and the recompute of h left out)
     flops = 8.0 * s * n * p * b * h
-    if name == "float32":  # products in 3xTF32; the CUDA cores' bound beside it
-        bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
-        extra = dict(zip(("bound_f32_cores_ms", "bound_f32_cores_by"), bound(nbytes, flops, name)))
-    else:
-        bound_ms, bound_by = bound(nbytes, flops, name)
-        extra = {}
+    bound_ms, bound_by, extra = ssd_bound(nbytes, flops, name, True)
     phases = device_ms_split(kernel, iters, "ssd_bwd")
     row = dict(
         case=f"ssd_scan_bwd {name} model ranges B={b} S={s} H={h} G={g} P={p} N={n}",
@@ -846,12 +868,89 @@ def check_ssd_bwd(torch, ss, b, s, h, g, p, n, dtype, iters):
         ms=cuda_ms(kernel, iters), device_ms=sum(phases.values()) or None,
         device_ms_by_kernel=phases,
         scratch_bytes=4 * ss._bwd_scratch_entry()(b, s, h, g, p, n),
-        heads_per_block=ss.heads_per_block(h // g, b * h * -(-s // ss.CHUNK)),
+        **(dict(zip(("heads_per_tile", "tiles_per_group", "tiles_per_block"),
+                    ss.narrow_blocks(b, s, h, g, p))) if p < 16 else
+           dict(heads_per_block=ss.heads_per_block(h // g, b * h * -(-s // ss.CHUNK)))),
         plain_ms=plain_ms,
         library_ms=None, library_note="no single PyTorch call computes the SSD scan's gradient",
         bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {json.dumps(row)}")
     return row
+
+
+def check_ssd_narrow(torch, ss, b, s, h, g, q, n, dtype, iters):
+    """The SSD kernels at a head dim q below 16 (a group's heads packed into
+    tiles of 16 columns), forward and backward, against the plain version
+    (``ssd_scan_plain`` and autograd through it; plain_ms is its time) and
+    against the Q = 16 launch on the same heads' x and dy padded with zeros
+    to 16 columns (whose extra columns add nothing): y and the final state
+    within SSD_TOL, every gradient within TOL; two calls of each must give
+    the same bits.  Returns the forward's and the backward's rows."""
+    x, dt, a, bb, cc = ssd_inputs(torch, b, s, h, g, q, n, dtype, "model")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dy = torch.randn((b, s, h, q), generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn((b, h, q, n), generator=gen, device="cuda")
+    fwd = lambda: ss._launch(x, dt, a, bb, cc)
+    y, st, scratch = fwd()
+    bwd = lambda: ss.ssd_scan_bwd(x, dt, a, bb, cc, scratch, dy, dstate)
+    grads = bwd()
+    y2, st2, _ = fwd()
+    same_fwd = same_bits(torch, (y, st), (y2, st2))
+    same_bwd = same_bits(torch, grads, bwd())
+    del y2, st2
+    pad = lambda t: torch.nn.functional.pad(t, (0, 16 - q))
+    x16, dy16 = pad(x), pad(dy)
+    ref_fwd = lambda: ss._launch(x16, dt, a, bb, cc)
+    y16, st16, sc16 = ref_fwd()
+    ref_bwd = lambda: ss.ssd_scan_bwd(x16, dt, a, bb, cc, sc16, dy16,
+                                      torch.nn.functional.pad(dstate, (0, 0, 0, 16 - q)))
+    g16 = ref_bwd()
+    inputs = (x, dt, a, bb, cc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_y, plain_st = ss.ssd_scan_plain(*inputs)
+    torch.cuda.synchronize()
+    plain_fwd_ms = (time.perf_counter() - t0) * 1e3
+    plain_g, plain_bwd_ms = ssd_plain_grads(torch, ss, inputs, dy, dstate)
+    name = dtype_name(dtype)
+    fwd_errs = [rel_close(torch, y, y16[..., :q], SSD_TOL[name]),
+                rel_close(torch, st, st16[:, :, :q], SSD_TOL["float32"]),
+                rel_close(torch, y, plain_y, SSD_TOL[name]),
+                rel_close(torch, st, plain_st, SSD_TOL["float32"])]
+    bwd_errs = [rel_close(torch, u, w, TOL[name])
+                for u, w in zip(grads + grads, (g16[0][..., :q], *g16[1:], *plain_g))]
+    del plain_y, plain_st, plain_g
+    torch.cuda.empty_cache()
+    esize = x.element_size()
+    k, tiles, kt = ss.narrow_blocks(b, s, h, g, q)
+    layout = dict(heads_per_tile=k, tiles_per_group=tiles, tiles_per_block=kt)
+    rows = []
+    for case, errs, kernel, reference, prefix, nbytes, flops, same, scr, plain_ms in (
+            (f"ssd_scan {name} narrow B={b} S={s} H={h} G={g} P={q} N={n}", fwd_errs, fwd,
+             ref_fwd, "ssd_scan",
+             (2 * x.numel() + bb.numel() + cc.numel()) * esize
+             + (dt.numel() + a.numel() + st.numel()) * 4,
+             4.0 * s * n * q * b * h, same_fwd, ss.scratch_floats(b, s, h, q, n), plain_fwd_ms),
+            (f"ssd_scan_bwd {name} narrow B={b} S={s} H={h} G={g} P={q} N={n}", bwd_errs, bwd,
+             ref_bwd, "ssd_bwd",
+             (3 * x.numel() + 4 * bb.numel()) * esize
+             + (2 * dt.numel() + 2 * a.numel() + dstate.numel()) * 4,
+             8.0 * s * n * q * b * h, same_bwd, ss.bwd_scratch_floats(b, s, h, g, q, n),
+             plain_bwd_ms)):
+        bound_ms, bound_by, extra = ssd_bound(nbytes, flops, name, True)
+        phases = device_ms_split(kernel, iters, prefix)
+        rows.append(dict(
+            case=case, reference="the P = 16 launch on x and dy padded with zeros to 16 columns, "
+                                 "then the plain version (autograd through it backward)",
+            max_abs_err=max(e[0] for e in errs), rel_err=[e[1] for e in errs],
+            tol=SSD_TOL[name] if prefix == "ssd_scan" else TOL[name], deterministic=same,
+            ok=all(e[2] for e in errs) and same, ms=cuda_ms(kernel, iters),
+            device_ms=sum(phases.values()) or None, device_ms_by_kernel=phases,
+            reference_ms=cuda_ms(reference, iters), plain_ms=plain_ms, library_ms=None,
+            library_note="no single PyTorch call computes the SSD scan or its gradient",
+            scratch_bytes=4 * scr, bound_ms=bound_ms, bound_by=bound_by, **layout, **extra))
+        print(f"[kernels] {json.dumps(rows[-1])}")
+    return rows
 
 
 def serve(torch, np, M, Engine, counted, param_count, card, spec, prompt, want):
@@ -2428,6 +2527,26 @@ def main() -> None:
                 ("bwd ragged grouped", (2, 1000, 8, 2, 64, 16), 10)):
             named[name, key] = check_ssd_bwd(torch, ss, *args, dtype, iters)
             rows.append(named[name, key])
+        # the narrow head dims a 'model' split leaves a rank (mamba2's 64 on 16,
+        # 32, 64 and 8 ranks; 1 where a smaller head_dim meets 16), packed tiles
+        for q in NARROW_DIMS:
+            named[name, f"narrow P{q}"], named[name, f"bwd narrow P{q}"] = check_ssd_narrow(
+                torch, ss, TRAIN_BATCH, M_TRAIN_SEQ, mh, mg, q, mn, dtype, 10)
+            ssd_rows.append(named[name, f"narrow P{q}"])
+            rows.append(named[name, f"bwd narrow P{q}"])
+        # the split's cost: M_MODEL_RANKS ranks each scanning P = 64 / 16 against the unsplit scan
+        p4 = mp // M_MODEL_RANKS
+        split = {}
+        for label, key, whole in (("forward", f"narrow P{p4}", "mamba2 prefill model"),
+                                  ("backward", f"bwd narrow P{p4}", "bwd mamba2 train")):
+            part, full = named[name, key]["device_ms"], named[name, whole]["device_ms"]
+            split[label] = dict(
+                rank_device_ms=part, ranks=M_MODEL_RANKS,
+                split_device_ms=None if part is None else M_MODEL_RANKS * part,
+                unsplit_device_ms=full,
+                ratio=None if part is None or not full else M_MODEL_RANKS * part / full)
+        print(f"[kernels] {name} SSD scan split over head_dim on {M_MODEL_RANKS} ranks "
+              f"(P = {p4} each) vs unsplit (P = {mp}), device ms: {json.dumps(split)}")
     bad = [r["case"] for r in rows + ssd_rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -2561,7 +2680,7 @@ def main() -> None:
     print(f"[device] torch.profiler traces: {TRACES['empty']} of {TRACES['taken']} came back "
           f"without device events, each taken again (up to {TRACE_TRIES} tries)")
     case_keys = ("case", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel", "deterministic",
-                 "same_bits_as_whole_rows",
+                 "same_bits_as_whole_rows", "reference_ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms",
                  # the DSE sweep's measured cycles an op, P scan and fp64 latency
                  # (its chain estimate and served-from shares, worked out rather
@@ -2603,7 +2722,9 @@ def main() -> None:
              replaces="src/repro/kernels/ssd_scan.py:71", case=ssd_rows[0],
              more=[named["bfloat16", "mamba2 prefill model"]] + [
                  named[dt_name, f"mamba2 train P4 {ranges}"]
-                 for dt_name in ("float32", "bfloat16") for ranges in ("model", "random")]),
+                 for dt_name in ("float32", "bfloat16") for ranges in ("model", "random")] + [
+                 named[dt_name, f"narrow P{q}"]
+                 for dt_name in ("float32", "bfloat16") for q in NARROW_DIMS]),
         # the gradients of the first two: the JAX package differentiates jnp
         # attention and normalisation, and has no Pallas backward
         dict(name="flash_attention_bwd", route="cuda",
@@ -2620,7 +2741,9 @@ def main() -> None:
              case=named["float32", "bwd mamba2 train"],
              more=[named["bfloat16", "bwd mamba2 train"]] + [
                  named[dt_name, key] for key in ("bwd mamba2 train P4", "bwd ragged grouped")
-                 for dt_name in ("float32", "bfloat16")]),
+                 for dt_name in ("float32", "bfloat16")] + [
+                 named[dt_name, f"bwd narrow P{q}"]
+                 for dt_name in ("float32", "bfloat16") for q in NARROW_DIMS]),
         # the DSE's population evaluation: the JAX package runs it as
         # XLA-jitted jnp (_fused_eval and _sweep_population), not Pallas
         dict(name="dse_class_times", route="cuda", source="src/repro_torch/csrc/dse_sim.cu",

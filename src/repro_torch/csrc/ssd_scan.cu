@@ -51,12 +51,32 @@
 // chunk-state product feeds the final state, held at 1e-4 in every dtype, so
 // phase 1 keeps f32 operands on the CUDA cores for bf16 inputs too.
 //
-// Head dims below 16 (the head_dim split over a mesh axis: mamba2's 64 on 16
-// ranks is 4) run on the tiles of P = 16 (`tile_p`, ssd_scan.cuh): x reads as
-// zeros past its Q columns, one element at a time, and y and the final state
-// are stored in those Q columns only; the scratch holds (N, 16) states.  Each
-// kernel takes Q as a template argument beside the tile's P, so the launches
-// at P >= 16 (Q == P) are the code they were.
+// Head dims Q below 16 (the head_dim split over a mesh axis: mamba2's 64 on 16
+// ranks is 4) pack a group's heads into tiles of 16 columns, K = 16 / Q heads
+// a tile (`Packed`, ssd_scan.cuh), and take a block per (chunk, batch, kt
+// tiles of one group), kt by `tiles_per_block` (at mamba2-130m's (4, 4096,
+// 24, 4) all 6 tiles of the group: 256 blocks, C B^T formed once per chunk
+// and batch, not three times).  The chunk states are (N, Q) a head, so the
+// scratch and the pass move Q / 16 of the bytes a tile of 16 would:
+//   1. ssd_scan_chunk_state_narrow: S_c of the tile's K heads as one product
+//      B^T (x o w) of the packed (L x 16) tile, each head's weights on its own
+//      columns (`narrow_chunk_state`, ssd_scan.cuh, which the backward's
+//      chunk_grad shares); stored per head.
+//   2. ssd_scan_state_pass at P = Q.
+//   3. ssd_scan_output_narrow: C B^T once for the block, and per tile C h_in
+//      as one product over the packed h_in (N x 16); the masked scores stay
+//      per head, each thread walking m <= l for its row l and 4 columns with
+//      exp(cum_l - cum_m) of its columns' heads, times x dt at width Q.  No
+//      exp of a positive difference (exp(cum_l) exp(-cum_m) would overflow
+//      f32 past 88).
+// The products (C B^T, B^T (x o w), C h_in) run on the tensor cores as
+// mma.sync m16n8k8 in 3xTF32 (one pass where both operands are bf16, exact in
+// TF32: `warp_block`), each warp a 16-row block, the operands' rows padded so
+// the fragments' loads hit distinct banks; the per-head masked scores on the
+// CUDA cores in f32, both dtypes.  x and y rows are read and written 16 bytes
+// (8 in bf16) at a time where a packed row lies whole and aligned, else an
+// element at a time (a column slice of a wider x).  Launches at Q >= 16 are
+// the code they were.
 //
 // Kept from the serial design: L = 64; exp only of non-positive differences
 // (l >= m, cum_{L-1} - cum, cum <= 0), score tiles wholly above the diagonal
@@ -71,6 +91,10 @@
 //   ssd_scan_state_pass           102 registers, no shared, 256 threads
 //   ssd_scan_output_f32           115 registers, 115,712 B shared, 256 threads: 2 blocks/SM
 //   ssd_scan_output_bf16          168 registers, 63,488 B shared, 128 threads: 3 blocks/SM
+// and at N = 128, Q = 4 (f32 / bf16), no spills:
+//   ssd_scan_chunk_state_narrow   56 / 61 registers, 256 threads
+//   ssd_scan_output_narrow        80 / 80 registers, 91,152 B shared at K = 4 heads a tile
+//                                  (a tile's buffers in B's place): 2 blocks/SM
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +116,7 @@ struct Params {
   float* chunk_state;  // (B*H, nc, N, P): S_c from phase 1, h entering chunk c after phase 2
   float* chunk_decay;  // (B*H, nc): exp(cum_{L-1}) of each chunk
   int S, H, G, nc;
-  int kh;  // heads per product block, all of one group
+  int kh;  // heads per product block, all of one group; at P < 16 tiles per block
   // element strides of (batch, sequence, head or group) for x, dt, b, c, y;
   // the last dim of x, b, c, y is contiguous
   long long xs[3], dts[3], bs[3], cs[3], ys[3];
@@ -138,7 +162,7 @@ __device__ __forceinline__ void chunk_weights(const Params& p, const Block& blk,
   if (threadIdx.x == 0) p.chunk_decay[blk.bh(p, h) * p.nc + blk.ch] = expf(last);
 }
 
-template <typename T, int N, int P, int Q>
+template <typename T, int N, int P>
 __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const Params p) {
   constexpr int NT = nt_state(N, P), VT = 16 / sizeof(T);
   constexpr int XV = (L * P / VT + NT - 1) / NT;  // 16-byte loads of x per thread and head
@@ -168,7 +192,7 @@ __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const 
     for (int j = 0; j < XV; ++j) {
       const int i = tid + j * NT, l = i / (P / VT), q = (i % (P / VT)) * VT, s = blk.s0 + l;
       xr[j] = make_uint4(0, 0, 0, 0);
-      if (i < L * P / VT && s < p.S) xr[j] = load16_cols<Q, P>(xg + s * p.xs[1], q);
+      if (i < L * P / VT && s < p.S) xr[j] = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
     }
   };
   fetch_x(blk.h0);
@@ -214,7 +238,7 @@ __global__ void __launch_bounds__(nt_state(N, P), 2) ssd_scan_chunk_state(const 
 constexpr int NT_PASS = 256;
 constexpr int PASS_DEPTH = 8;  // chunks whose loads a thread keeps in flight
 
-template <int N, int P, int Q>
+template <int N, int P>
 __global__ void __launch_bounds__(NT_PASS) ssd_scan_state_pass(const Params p) {
   constexpr int V = N * P / 4;  // float4s per chunk state
   const int e4 = blockIdx.x * NT_PASS + threadIdx.x;
@@ -247,13 +271,17 @@ __global__ void __launch_bounds__(NT_PASS) ssd_scan_state_pass(const Params p) {
 #pragma unroll
     for (int k = 0; k < PASS_DEPTH; ++k) cur[k] = nxt[k], ec[k] = en[k];
   }
-  // the state is (N, P) here and (Q, N) in the output
-  const int n = 4 * e4 / P, q = 4 * e4 % P;
-  float* out = p.state + static_cast<long long>(bh) * Q * N + n;
+  // the state is (N, P) here and (P, N) in the output
+  float* out = p.state + static_cast<long long>(bh) * P * N;
   const float hv[4] = {h.x, h.y, h.z, h.w};
+  if constexpr (P >= 4) {
+    const int n = 4 * e4 / P, q = 4 * e4 % P;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (Q == P || q + j < Q) out[(q + j) * N] = hv[j];
+    for (int j = 0; j < 4; ++j) out[(q + j) * N + n] = hv[j];
+  } else {  // the four span rows n
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(4 * e4 + j) % P * N + (4 * e4 + j) / P] = hv[j];
+  }
 }
 
 // ---- phase 3, f32: y on the CUDA cores ------------------------------------------------------
@@ -265,7 +293,7 @@ constexpr int smem_output_f32() {
          static_cast<int>(sizeof(float));
 }
 
-template <int N, int P, int Q>
+template <int N, int P>
 __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p) {
   constexpr int NT = NT_OUT, XV = L * P / 4 / NT;  // float4s of x per thread and head
   extern __shared__ float4 smem4[];
@@ -286,9 +314,8 @@ __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p)
 #pragma unroll
     for (int j = 0; j < XV; ++j) {
       const int i = tid + j * NT, l = i / (P / 4), q = (i % (P / 4)) * 4, s = blk.s0 + l;
-      const uint4 u = s < p.S ? load16_cols<Q, P>(xg + s * p.xs[1], q) : make_uint4(0, 0, 0, 0);
-      xr[j] = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
-                          __uint_as_float(u.w));
+      xr[j] = s < p.S ? *reinterpret_cast<const float4*>(xg + s * p.xs[1] + q)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
   const auto store_x = [&]() {
@@ -372,7 +399,9 @@ __global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_f32(const Params p)
 #pragma unroll
     for (int i = 0; i < Tl::TR; ++i) {
       const int s = blk.s0 + t.row(i);
-      if (s < p.S) store4_cols<Q, P>(yg + s * p.ys[1], t.col0(), acc[i]);
+      if (s < p.S)
+        *reinterpret_cast<float4*>(yg + s * p.ys[1] + t.col0()) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
     if (more) {
       // the other decay buffer's last readers passed the barrier above
@@ -394,7 +423,7 @@ constexpr int smem_output_bf16() {
   return (2 * L * (N + 8) + L * (P + 8) + N * (P + 8)) * 2 + 2 * 2 * L * static_cast<int>(sizeof(float));
 }
 
-template <int N, int P, int Q>
+template <int N, int P>
 __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p) {
   using bf16 = __nv_bfloat16;
   constexpr int LDN = N + 8, LDP = P + 8;  // rows padded by 16 bytes: ldmatrix is conflict-free
@@ -457,7 +486,7 @@ __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p
     for (int i = tid; i < L * P / 8; i += NT_MMA) {
       const int l = i / (P / 8), q = (i % (P / 8)) * 8, s = blk.s0 + l;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (s < p.S) v = load16_cols<Q, P>(xg + s * p.xs[1], q);
+      if (s < p.S) v = *reinterpret_cast<const uint4*>(xg + s * p.xs[1] + q);
       *reinterpret_cast<uint4*>(Xs + l * LDP + q) = v;
     }
     const float* hin = p.chunk_state + (blk.bh(p, h) * p.nc + blk.ch) * N * P;
@@ -519,8 +548,8 @@ __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p
 #pragma unroll
     for (int j = 0; j < P / 8; ++j) {
       const int q = 8 * j + 2 * tq;
-      if (sa < p.S) store_pair_cols<Q, P>(yg + sa * p.ys[1], q, acc[j][0], acc[j][1]);
-      if (sb < p.S) store_pair_cols<Q, P>(yg + sb * p.ys[1], q, acc[j][2], acc[j][3]);
+      if (sa < p.S) store_pair(yg + sa * p.ys[1] + q, acc[j][0], acc[j][1]);
+      if (sb < p.S) store_pair(yg + sb * p.ys[1] + q, acc[j][2], acc[j][3]);
     }
     // the next head's cumsum; the other buffer was last read before the barrier above
     if (tid < 32 && k + 1 < p.kh) {
@@ -530,9 +559,118 @@ __global__ void __launch_bounds__(NT_MMA, 3) ssd_scan_output_bf16(const Params p
   }
 }
 
+// ---- phase 3, head dims below 16: y of a block's packed tiles ------------------------------
+template <int N, int Q>
+struct OutNarrowSmem {
+  // rows padded so the mma fragments' loads spread over the banks: C and B
+  // transposed (72), h_in (24), C h_in and x dt (20), each head's cumsum (65)
+  static constexpr int LT = L + 8, HS = 24, XR = 20, LC = L + 1;
+  // a tile's h_in, C h_in and x dt take B's place once the raw scores are in,
+  // where it is large enough: two blocks an SM at N = 128
+  static constexpr int TILE = N * HS + 2 * L * XR;
+  static constexpr bool IN_B = N * LT >= TILE;
+  static constexpr int FLOATS = 2 * N * LT + L * L + (IN_B ? 0 : TILE) + Packed<Q>::K * LC;
+  static constexpr int BYTES = FLOATS * static_cast<int>(sizeof(float));
+};
+
+template <typename T, int N, int Q>
+__global__ void __launch_bounds__(NT_OUT, 2) ssd_scan_output_narrow(const Params p) {
+  using SM = OutNarrowSmem<N, Q>;
+  constexpr int NT = NT_OUT, NW = NT / 32, VT = 16 / sizeof(T);
+  constexpr int LT = SM::LT, HS = SM::HS, XR = SM::XR, LC = SM::LC;
+  constexpr int K = Packed<Q>::K, QC = Packed<Q>::QC, HPT = Packed<Q>::HPT;
+  constexpr bool EX = sizeof(T) == 2;  // bf16 B and C: exact in TF32
+  extern __shared__ float4 smem4[];
+  float* Ct = reinterpret_cast<float*>(smem4);  // N x LT: C transposed
+  float* Bt = Ct + N * LT;                      // N x LT: B transposed
+  float* Rt = Bt + N * LT;                      // L x L: raw scores C B^T, Rt[m * L + l]
+  float* Hs = SM::IN_B ? Bt : Rt + L * L;      // N x HS: the tile's h_in
+  float* Ys = Hs + N * HS;                      // L x XR: C h_in
+  float* Xw = Ys + L * XR;                      // L x XR: the tile's x dt
+  float* cum = Rt + L * L + (SM::IN_B ? 0 : SM::TILE);  // K x LC: each head's cumsum
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const NarrowBlock blk(p.H, p.G, K, p.kh);
+
+  const T* cg = static_cast<const T*>(p.c) + blk.bi * p.cs[0] + blk.g * p.cs[2];
+  const T* bg = static_cast<const T*>(p.b) + blk.bi * p.bs[0] + blk.g * p.bs[2];
+  // neighbouring lanes take neighbouring rows, so the transposed stores hit distinct banks
+  for (int i = tid; i < L * N / VT; i += NT) {
+    const int l = i % L, n = (i / L) * VT, s = blk.s0 + l;
+    float cv[VT] = {}, bv[VT] = {};
+    if (s < p.S) load16(cg + s * p.cs[1] + n, cv), load16(bg + s * p.bs[1] + n, bv);
+#pragma unroll
+    for (int k = 0; k < VT; ++k) Ct[(n + k) * LT + l] = cv[k], Bt[(n + k) * LT + l] = bv[k];
+  }
+  __syncthreads();
+  // raw scores, once for the block's tiles, on the tensor cores
+  raw_scores<N, EX>(Ct, Bt, LT, [&](int l, int m, float v0, float v1) {
+    Rt[m * L + l] = v0;
+    Rt[(m + 1) * L + l] = v1;
+  });
+
+  // a thread's row l and columns c0 .. c0 + 3: HPT heads from kb on, QC columns each
+  using Tl = Tile<L, 16, NT>;
+  const Tl t(tid);
+  const int l = t.row(0), c0 = t.col0(), kb = c0 / Q, s = blk.s0 + l;
+  for (int tt = 0; tt < p.kh; ++tt) {
+    const int tile = blk.t0 + tt, h0 = blk.head0(tile, K), nh = blk.heads(tile, K);
+    __syncthreads();  // Rt is in (and Bt read no more); the last tile is done with Hs, Ys, Xw, cum
+    async_packed_state<N, Q, NT>(
+        Hs, p.chunk_state + ((static_cast<long long>(blk.bi) * p.H + h0) * p.nc + blk.ch) * N * Q,
+        static_cast<long long>(p.nc) * N * Q, nh, HS);
+    // each head's cumsum (its dt is read again below, with x)
+    narrow_cumsums<K, NW>(p.dt, p.dts, p.a, blk.bi, blk.s0, p.S, h0, nh, cum, nullptr, LC);
+    {  // x dt, row i / 4 and columns 4 (i % 4) .. + 3 a thread
+      const T* xg = static_cast<const T*>(p.x) + blk.bi * p.xs[0] + h0 * p.xs[2];
+      for (int i = tid; i < L * 4; i += NT) {
+        const int lx = i >> 2, cx = (i & 3) * 4, sx = blk.s0 + lx;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (sx < p.S) {
+          load_packed4<Q>(xg + sx * p.xs[1], p.xs[2], cx, nh, v);
+          const float* dtr = p.dt + blk.bi * p.dts[0] + sx * p.dts[1];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = (cx + j) / Q;
+            if (k < nh) v[j] *= dtr[(h0 + k) * p.dts[2]];
+          }
+        }
+        *reinterpret_cast<float4*>(Xw + lx * XR + cx) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // C h_in for the tile's heads, one product on the tensor cores: warp w
+    // the rows 16 (w % 4) .. and columns 8 (w / 4) ..
+    warp_block<1, N, EX, false>(Ct, LT, Hs, HS, 16 * (warp & 3), 8 * (warp >> 2),
+                                [&](int r, int c, float v0, float v1) { store_pair(Ys + r * XR + c, v0, v1); });
+    __syncthreads();
+
+    // y = exp(cum_l) o (C h_in) + sum_{m <= l} (C_l . B_m) exp(cum_l - cum_m) dt_m x_m
+    float acc[4], cl[HPT];
+#pragma unroll
+    for (int hh = 0; hh < HPT; ++hh) cl[hh] = cum[(kb + hh) * LC + l];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] = Ys[l * XR + c0 + j] * expf(cl[j / QC]);
+    for (int m = 0; m <= l; ++m) {
+      const float r = Rt[m * L + l];
+      const float4 xv = *reinterpret_cast<const float4*>(Xw + m * XR + c0);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int hh = 0; hh < HPT; ++hh) {
+        const float e = r * expf(cl[hh] - cum[(kb + hh) * LC + m]);
+#pragma unroll
+        for (int jj = 0; jj < QC; ++jj) acc[hh * QC + jj] = fmaf(e, xa[hh * QC + jj], acc[hh * QC + jj]);
+      }
+    }
+    if (s < p.S)
+      store_packed4<Q>(static_cast<T*>(p.y) + blk.bi * p.ys[0] + s * p.ys[1] + h0 * p.ys[2], p.ys[2],
+                       c0, nh, acc);
+  }
+}
+
 // ---- launches --------------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
+template <typename Kernel, typename Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Args& p,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)  // all of the SM's 228 KB as shared memory: two phase-3 blocks fit
@@ -543,22 +681,43 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
   return cudaGetLastError();
 }
 
-// Q: the call's head dim; the tiles take P = tile_p(Q)
 template <typename T, int N, int Q>
+__global__ void __launch_bounds__(nt_state(N, 16), 2) ssd_scan_chunk_state_narrow(const NarrowStateArgs a) {
+  narrow_chunk_state<T, N, Q, false>(a);
+}
+
+template <typename T, int N, int P>
 cudaError_t run(const Params& p, int B, cudaStream_t stream) {
-  constexpr int P = tile_p(Q);
-  const dim3 blocks(p.nc, B * p.H / p.kh);
-  cudaError_t err = launch(ssd_scan_chunk_state<T, N, P, Q>, blocks, nt_state(N, P),
-                           smem_chunk_state<N, P>(), p, stream);
-  if (err != cudaSuccess) return err;
-  err = launch(ssd_scan_state_pass<N, P, Q>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
-               NT_PASS, 0, p, stream);
-  if (err != cudaSuccess) return err;
-  if constexpr (sizeof(T) == 4)
-    return launch(ssd_scan_output_f32<N, P, Q>, blocks, NT_OUT, smem_output_f32<N, P>(), p, stream);
-  else
-    return launch(ssd_scan_output_bf16<N, P, Q>, blocks, NT_MMA, smem_output_bf16<N, P>(), p,
-                  stream);
+  cudaError_t err;
+  if constexpr (P < 16) {  // packed tiles, kh = tiles per block
+    const int tb_n = (p.H / p.G + Packed<P>::K - 1) / Packed<P>::K / p.kh;
+    const dim3 blocks(p.nc, B * p.G * tb_n);
+    const NarrowStateArgs a{p.b, p.x, p.dt, p.a, p.chunk_state, p.chunk_decay, p.S, p.H, p.G, p.nc,
+                            p.kh, {p.bs[0], p.bs[1], p.bs[2]}, {p.xs[0], p.xs[1], p.xs[2]},
+                            {p.dts[0], p.dts[1], p.dts[2]}};
+    err = launch(ssd_scan_chunk_state_narrow<T, N, P>, blocks, nt_state(N, 16),
+                 NarrowStateSmem<N, P>::BYTES, a, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_scan_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
+                   NT_PASS, 0, p, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_scan_output_narrow<T, N, P>, blocks, NT_OUT, OutNarrowSmem<N, P>::BYTES, p,
+                   stream);
+    return err;
+  } else {
+    const dim3 blocks(p.nc, B * p.H / p.kh);
+    err = launch(ssd_scan_chunk_state<T, N, P>, blocks, nt_state(N, P), smem_chunk_state<N, P>(), p,
+                 stream);
+    if (err != cudaSuccess) return err;
+    err = launch(ssd_scan_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, B * p.H),
+                 NT_PASS, 0, p, stream);
+    if (err != cudaSuccess) return err;
+    if constexpr (sizeof(T) == 4)
+      return launch(ssd_scan_output_f32<N, P>, blocks, NT_OUT, smem_output_f32<N, P>(), p, stream);
+    else
+      return launch(ssd_scan_output_bf16<N, P>, blocks, NT_MMA, smem_output_bf16<N, P>(), p,
+                    stream);
+  }
 }
 
 template <typename T, int N>
@@ -592,8 +751,8 @@ cudaError_t dispatch_n(const Params& p, int B, int P, int N, cudaStream_t stream
 // x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), y (B,S,H,P), with
 // the last dim of x, b, c, y contiguous and their rows 16-byte aligned (x
 // and y at P >= 16 only); state (B,H,P,N) f32, contiguous; scratch f32 of at
-// least B*H*nc*(N*tile_p(P) + 1) floats, nc = ceil(S / 64), which the three
-// launches use in turn.
+// least B*H*nc*(N*P + 1) floats, nc = ceil(S / 64), which the three launches
+// use in turn.
 // strides[15] = (batch, seq, head|group) element strides of x, dt, b, c, y.
 // dtype (of x, b, c, y): 0 = float32, 1 = bfloat16.  P in {1, 2, 4, 8, 16,
 // 32, 64, 128}, N in {16, 32, 64, 128}.  Returns the first launch's
@@ -605,11 +764,14 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a, cons
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + L - 1) / L;
-  const long long chunk_floats = static_cast<long long>(B) * H * nc * N * tile_p(P);
+  const long long chunk_floats = static_cast<long long>(B) * H * nc * N * P;
   if (scratch_floats < chunk_floats + static_cast<long long>(B) * H * nc)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{x, dt, a, b, c, y, state, scratch, scratch + chunk_floats, S, H, G, nc,
-           heads_per_block(H / G, static_cast<long long>(B) * H * nc), {}, {}, {}, {}, {}};
+  const int tiles = P < 16 ? (H / G + 16 / P - 1) / (16 / P) : 0;
+  const int kh = P < 16 ? tiles_per_block(tiles, static_cast<long long>(B) * G * tiles * nc)
+                        : heads_per_block(H / G, static_cast<long long>(B) * H * nc);
+  Params p{x, dt, a, b, c, y, state, scratch, scratch + chunk_floats, S, H, G, nc, kh,
+           {}, {}, {}, {}, {}};
   for (int i = 0; i < 3; ++i) {
     p.xs[i] = strides[i];
     p.dts[i] = strides[3 + i];

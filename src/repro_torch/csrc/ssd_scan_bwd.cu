@@ -55,7 +55,8 @@
 //
 // The states entering each chunk are the forward's own scratch, which holds
 // them after its phase 2: the autograd Function saves it, 201 MB a layer at
-// mamba2-130m's train shape, so the forward is not launched again.  The
+// mamba2-130m's train shape (12.6 MB on a rank that scans 4 of its 64 head
+// columns), so the forward is not launched again.  The
 // backward's own scratch, (B*H, nc, N, P) for g and (B, S, H/kh, N) twice for
 // the head-blocks' dB and dC (252 MB at that shape), lives for one call.
 //
@@ -89,12 +90,32 @@
 // (f32, N = P = 128) they share one buffer.  Rows past S load as dt = 0 and
 // x = B = C = dY = 0 and are never written.
 //
-// Head dims Q below 16 run on the tiles of P = 16, as in the forward
-// (`tile_p`, ssd_scan.cuh): x and dY load as zeros past their Q columns, one
-// element at a time (into shared memory directly, not by cp.async), dState
-// reads as zeros there, and dx is stored in its Q columns only.  The zero
-// columns add nothing to dB, dC, ddt or da.  Each kernel takes Q beside P, so
-// the launches at P >= 16 (Q == P) are the code they were.
+// Head dims Q below 16 take the forward's packed tiles (`Packed`,
+// ssd_scan.cuh: K = 16 / Q heads of a group side by side, kt tiles a block by
+// `tiles_per_block`), states (N, Q) a head, and five launches again:
+//   1. ssd_bwd_chunk_grad_narrow: Z_c of a tile's heads as one product
+//      C^T (dY o exp(cum)), the forward's `narrow_chunk_state` turned over.
+//   2. ssd_bwd_state_pass at P = Q.
+//   3. ssd_bwd_dx_narrow, a block per (chunk, batch, kt tiles of a group): R =
+//      C B^T once; per tile B g and C h_in as one product each over the packed
+//      g and h_in (N x 16); then per head at width Q, a thread per row m and 4
+//      columns walking every l: pair (l, m), l >= m, gives M^T dY into dx, T's
+//      column sum and W, pair (m, l), l <= m, T's row sum, each pair one exp
+//      of a non-positive difference.  W is summed over the block's heads in
+//      shared memory (a thread owns its rows l = 4 i + lq of column m, so the
+//      sums need no atomics: each tile's heads in order, the tiles in order),
+//      and written once per block.
+//   4. ssd_bwd_dbc_narrow, a block per (chunk, batch, group): the group's W
+//      (its head-blocks' partials added in order), dC = W B + the packed
+//      (dY e_in) h_in^T and dB = W^T C + (x dt e_end) g^T, one product of
+//      depth 16 per tile: the products whose width is N run once per group
+//      and block, not per head.  Written in the dtype: no group sum.
+//   5. ssd_bwd_da.
+// The products (C B^T, B g, C h_in, Z_c, and dB and dC) on the tensor cores
+// in 3xTF32 (`warp_block`, `warp_mma`; a pass fewer for bf16 B and C), the
+// per-head scores on the CUDA cores in f32, exp by the SFU's ex2.  The
+// scratch: the state gradients (N, Q) a head and W per head-block, not dB and
+// dC per head-block.  Launches at Q >= 16 are the code they were.
 //
 // `nvcc -Xptxas -v` (CUDA 12.8, sm_90a) at N = 128, P = 64, f32 / bf16, no
 // spills (spills only at N = P = 128, up to 88 bytes):
@@ -103,6 +124,10 @@
 //   ssd_bwd_dxbc        255 / 249 registers, 200,736 / 141,344 B shared, 256 threads: 1 block/SM
 //   ssd_bwd_group_sum    46 / 44 registers, no shared, 256 threads
 //   ssd_bwd_da           33 registers, no shared, 32 threads
+// and at N = 128, Q = 4 (f32 / bf16):
+//   ssd_bwd_chunk_grad_narrow  56 / 59 registers, 256 threads
+//   ssd_bwd_dx_narrow          159,824 B shared at K = 4 heads a tile: 1 block/SM
+//   ssd_bwd_dbc_narrow         128 / 128 registers (32 / 36 B spilled), 98,304 B shared: 2 blocks/SM
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,6 +156,7 @@ struct Params {
   float* g;             // (B*H, nc, N, P): Z_c, then the gradient of the state leaving chunk c
   float* db_part;       // (B, S, H/kh, N): each head-block's dB
   float* dc_part;       // (B, S, H/kh, N): each head-block's dC
+  float* w_part;        // at P < 16 (B, nc, G, head-blocks of a group, L, L): W over a block's heads
   float* da_part;       // (B*H, nc): each chunk's share of da
   void* dx;             // (B, S, H, P), contiguous
   float* ddt;           // (B, S, H), contiguous
@@ -138,7 +164,7 @@ struct Params {
   void* db;             // (B, S, G, N), contiguous
   void* dc;             // (B, S, G, N), contiguous
   int B, S, H, G, nc;
-  int kh;  // heads per block of kernels 1 and 3, all of one group
+  int kh;  // heads per block of kernels 1 and 3, all of one group; at P < 16 tiles per block
   // element strides of (batch, sequence, head or group) for x, dt, b, c, dy;
   // the last dim of x, b, c, dy is contiguous
   long long xs[3], dts[3], bs[3], cs[3], dys[3];
@@ -251,23 +277,6 @@ __device__ __forceinline__ void async_rows(const STile<T, W>& t, const T* src, l
   }
 }
 
-// The same for x or dY with Q columns: by cp.async where Q == P, else an
-// element at a time, zeros past Q (and past S).
-template <int Q, typename T, int P>
-__device__ __forceinline__ void load_rows(const STile<T, P>& t, const T* src, long long rs, int s0,
-                                          int S) {
-  if constexpr (Q == P) {
-    async_rows(t, src, rs, s0, S);
-  } else {
-    using U = typename RawBits<T>::type;
-    const U* bits = reinterpret_cast<const U*>(src);
-    for (int i = threadIdx.x; i < L * P; i += NT) {
-      const int l = i / P, c = i % P, s = s0 + l;
-      reinterpret_cast<U*>(t.p)[t.off(l, c)] = s < S && c < Q ? bits[s * rs + c] : U(0);
-    }
-  }
-}
-
 // A chunk's (N, P) f32 state into t, by cp.async.
 template <int N, int P>
 __device__ __forceinline__ void async_state(const STile<float, P>& t, const float* src) {
@@ -278,55 +287,6 @@ __device__ __forceinline__ void async_state(const STile<float, P>& t, const floa
 }
 
 // ---- warp products on the tensor cores ----------------------------------------------------------
-template <int K, bool EXACT>
-__device__ __forceinline__ void to_tf32(const float* v, uint32_t* hi, uint32_t* lo) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if constexpr (EXACT) {
-      hi[i] = __float_as_uint(v[i]);
-    } else {
-      split_tf32_trunc(v[i], hi[i], lo[i]);
-    }
-  }
-}
-
-// d += a b in TF32 passes: 3xTF32, without the lo term of an exact operand
-template <bool AX, bool BX>
-__device__ __forceinline__ void mma_x(float* d, const uint32_t* ah, const uint32_t* al,
-                                      const uint32_t* bh, const uint32_t* bl) {
-  if constexpr (!AX && !BX) {
-    mma_3xtf32(d, ah, al, bh, bl);
-  } else {
-    if constexpr (!AX) mma_tf32(d, al, bh);
-    if constexpr (!BX) mma_tf32(d, ah, bl);
-    mma_tf32(d, ah, bh);
-  }
-}
-
-// A warp's 16 x 8NJ tile: acc[j] += sum_{k0 <= k < k1} A(row, k) Bm(k, col)
-// over k-steps of 8 from k0 (a multiple of 8).  The lane's operands come from
-// a(hi, e, kb) = A(gq + 8 hi, kb + tq + 4 e) and b(e, kb, j) = Bm(kb + tq + 4 e,
-// 8 j + gq).  AX, BX: the operand is exact in TF32.  Each A fragment is
-// split once per k-step and serves every n-tile.  Tiles that a mask leaves
-// zero are computed all the same: a branch around mma.sync costs more.
-template <int NJ, bool AX, bool BX, typename FA, typename FB>
-__device__ __forceinline__ void warp_mma(float (&acc)[NJ][4], const FA& a, const FB& b, int k0,
-                                         int k1) {
-#pragma unroll 2
-  for (int k = k0; k < k1; k += 8) {
-    const float av[4] = {a(0, 0, k), a(1, 0, k), a(0, 1, k), a(1, 1, k)};
-    uint32_t ah[4], al[4];
-    to_tf32<4, AX>(av, ah, al);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float bv[2] = {b(0, k, j), b(1, k, j)};
-      uint32_t bh[2], bl[2];
-      to_tf32<2, BX>(bv, bh, bl);
-      mma_x<AX, BX>(acc[j], ah, al, bh, bl);
-    }
-  }
-}
-
 // The same for two bf16 tiles that both hold k along their rows:
 // acc[j] += sum_k A[r0 + row][k] Bt[n0 + 8 j + col][k], k < K, by ldmatrix
 // and mma.sync m16n8k16 bf16 (exact products, f32 sums).
@@ -349,12 +309,6 @@ __device__ __forceinline__ void warp_mma_bf16(float (&acc)[NJ][4], const __nv_bf
       mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
     }
   }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero_acc(float (&acc)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 }
 
 // Lane sums of the rows gq and gq + 8 over the quad's four lanes (fixed order)
@@ -380,7 +334,7 @@ struct GradSmem {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-template <typename T, int N, int P, int Q>
+template <typename T, int N, int P>
 __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
   using SM = GradSmem<T, N, P>;
   constexpr bool EX = STile<T, P>::EXACT;
@@ -407,7 +361,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
   };
 
   async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
-  load_rows<Q>(ys(0), at<T>(p.dy, p.dys, k.bi, k.h0), p.dys[1], k.s0, p.S);
+  async_rows(ys(0), at<T>(p.dy, p.dys, k.bi, k.h0), p.dys[1], k.s0, p.S);
   if (warp == 0) weights(fetch_dt(p, k, k.h0), ew);
   cp_async_wait_all();
   __syncthreads();
@@ -416,7 +370,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
     const bool more = kq + 1 < p.kh;
     HeadDt next{};
     if (more) {  // the next head's dY arrives while this head's product runs
-      load_rows<Q>(ys(st ^ 1), at<T>(p.dy, p.dys, k.bi, h + 1), p.dys[1], k.s0, p.S);
+      async_rows(ys(st ^ 1), at<T>(p.dy, p.dys, k.bi, h + 1), p.dys[1], k.s0, p.S);
       if (warp == 0) next = fetch_dt(p, k, h + 1);
     }
     if (c0 < P) {
@@ -456,7 +410,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_bwd_chunk_grad(const Params p) {
 }
 
 // ---- 2: g <- exp(cum_{L-1}) g + Z_c, chunks in reverse, in place -----------------------------
-template <int N, int P, int Q>
+template <int N, int P>
 __global__ void __launch_bounds__(NT_PASS) ssd_bwd_state_pass(const Params p) {
   constexpr int V = N * P / 4;  // float4s per chunk state
   const int e4 = blockIdx.x * NT_PASS + threadIdx.x;
@@ -464,13 +418,17 @@ __global__ void __launch_bounds__(NT_PASS) ssd_bwd_state_pass(const Params p) {
   const long long bh = blockIdx.y;
   const float* dec = p.decay + bh * p.nc;
   float4* st = reinterpret_cast<float4*>(p.g) + bh * p.nc * V + e4;
-  // dState is (Q, N) per head, the scratch (N, P)
-  const int n = 4 * e4 / P, q = 4 * e4 % P;
+  // dState is (P, N) per head, the scratch (N, P)
   float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
   if (p.dstate) {
-    const float* ds = p.dstate + bh * Q * N + n;
-    const auto col = [&](int j) { return Q == P || q + j < Q ? ds[(q + j) * N] : 0.f; };
-    g = make_float4(col(0), col(1), col(2), col(3));
+    const float* ds = p.dstate + bh * P * N;
+    if constexpr (P >= 4) {
+      const int n = 4 * e4 / P, q = 4 * e4 % P;
+      g = make_float4(ds[q * N + n], ds[(q + 1) * N + n], ds[(q + 2) * N + n], ds[(q + 3) * N + n]);
+    } else {  // the four span rows n
+      const auto at4 = [&](int j) { return ds[(4 * e4 + j) % P * N + (4 * e4 + j) / P]; };
+      g = make_float4(at4(0), at4(1), at4(2), at4(3));
+    }
   }
   // step k visits chunk nc-1-k: Z_c is read and the gradient of the state
   // leaving chunk c written in its place; the next PASS_DEPTH chunks' loads
@@ -519,7 +477,7 @@ struct DxbcSmem {
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
 };
 
-template <typename T, int N, int P, int Q>
+template <typename T, int N, int P>
 __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
   using SM = DxbcSmem<T, N, P>;
   constexpr int XS = SM::XS, SS = SM::SS;
@@ -553,8 +511,8 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
     return STile<T, P>{reinterpret_cast<T*>(xbase + (XS + st) * SM::X_BYTES)};
   };
   const auto fetch_xy = [&](int st, int h) {
-    load_rows<Q>(xs(st), at<T>(p.x, p.xs, k.bi, h), p.xs[1], k.s0, p.S);
-    load_rows<Q>(ys(st), at<T>(p.dy, p.dys, k.bi, h), p.dys[1], k.s0, p.S);
+    async_rows(xs(st), at<T>(p.x, p.xs, k.bi, h), p.xs[1], k.s0, p.S);
+    async_rows(ys(st), at<T>(p.dy, p.dys, k.bi, h), p.dys[1], k.s0, p.S);
   };
   async_rows(Bs, at<T>(p.b, p.bs, k.bi, k.g), p.bs[1], k.s0, p.S);
   async_rows(Cs, at<T>(p.c, p.cs, k.bi, k.g), p.cs[1], k.s0, p.S);
@@ -728,10 +686,8 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd_dxbc(const Params p) {
         const int q = cp0 + 8 * j + 2 * tq;
         pa += X.at(ra, q, s1) * dxa[j][0] + X.at(ra, q + 1, s1) * dxa[j][1];
         pb += X.at(rb, q, s1) * dxa[j][2] + X.at(rb, q + 1, s1) * dxa[j][3];
-        if (sa < p.S)
-          store_pair_cols<Q, P>(dxg + (k.row(p, sa) * p.H + h) * Q, q, da0 * dxa[j][0], da0 * dxa[j][1]);
-        if (sb < p.S)
-          store_pair_cols<Q, P>(dxg + (k.row(p, sb) * p.H + h) * Q, q, db0 * dxa[j][2], db0 * dxa[j][3]);
+        if (sa < p.S) store_pair(dxg + (k.row(p, sa) * p.H + h) * P + q, da0 * dxa[j][0], da0 * dxa[j][1]);
+        if (sb < p.S) store_pair(dxg + (k.row(p, sb) * p.H + h) * P + q, db0 * dxa[j][2], db0 * dxa[j][3]);
       }
       pa = quad_sum(pa), pb = quad_sum(pb);
       if (tq == 0) dpart[hc * L + ra] = pa, dpart[hc * L + rb] = pb;
@@ -860,9 +816,412 @@ __global__ void __launch_bounds__(32) ssd_bwd_da(const Params p) {
   if (lane == 0) p.da[h] = s;
 }
 
+// ---- head dims below 16: the packed tiles (ssd_scan.cuh) -----------------------------------------
+// 1: Z_c of a tile's K heads as one product C^T (dY o exp(cum)), as the forward's phase 1
+template <typename T, int N, int Q>
+__global__ void __launch_bounds__(nt_state(N, 16), 2) ssd_bwd_chunk_grad_narrow(const NarrowStateArgs a) {
+  narrow_chunk_state<T, N, Q, true>(a);
+}
+
+// 3: dx, ddt and da's share per head, and W summed over the block's heads
+template <int N, int Q>
+struct DxNarrowSmem {
+  // rows padded so a warp's accesses spread over the banks: C and B
+  // transposed (72: the mma fragments' k rows), R (76: both of the score
+  // loop's patterns), g and h_in (24), x, dY, B g and C h_in (20), per head (65)
+  static constexpr int K = Packed<Q>::K, LT = L + 8, LR = 76, GS = 24, XR = 20, LC = L + 1;
+  // C and B transposed, the raw scores, W's sum; a tile's g, h_in, x, dY,
+  // B g and C h_in; per head cum, dt, dcum, x . dx / dt and u
+  static constexpr int FLOATS = 2 * N * LT + L * LR + L * L + 2 * N * GS + 4 * L * XR + 5 * K * LC;
+  static constexpr int BYTES = FLOATS * static_cast<int>(sizeof(float));
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+template <typename T, int N, int Q>
+__global__ void __launch_bounds__(NT, 1) ssd_bwd_dx_narrow(const Params p) {
+  using SM = DxNarrowSmem<N, Q>;
+  constexpr int K = SM::K, LT = SM::LT, LR = SM::LR, GS = SM::GS, XR = SM::XR, LC = SM::LC;
+  constexpr int NW = NT / 32, VT = 16 / sizeof(T);
+  constexpr int QC = Packed<Q>::QC, HPT = Packed<Q>::HPT;
+  constexpr bool EX = sizeof(T) == 2;  // bf16 B and C: exact in TF32
+  extern __shared__ float4 smem4[];
+  float* Ct = reinterpret_cast<float*>(smem4);  // N x LT: C transposed
+  float* Bt = Ct + N * LT;                      // N x LT: B transposed
+  float* R = Bt + N * LT;                       // L x LR: R[l][m] = C_l . B_m at l LR + m, m <= l
+  float* Ws = R + L * LR;                       // L x L: W[l][m] summed over the block's heads
+  float* gs = Ws + L * L;                       // N x GS: the tile's g
+  float* hs = gs + N * GS;                      // N x GS: the tile's h_in
+  float* xs = hs + N * GS;                      // L x XR: the tile's x
+  float* ys = xs + L * XR;                      // L x XR: the tile's dY
+  float* bgs = ys + L * XR;                     // L x XR: B g
+  float* chs = bgs + L * XR;                    // L x XR: C h_in
+  float* cum = chs + L * XR;                    // K x LC
+  float* dtl = cum + K * LC;                    // K x LC
+  float* dcs = dtl + K * LC;                    // K x LC: dcum
+  float* xdx = dcs + K * LC;                    // K x LC: x . dx / dt
+  float* us = xdx + K * LC;                     // K x LC: u
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const NarrowBlock blk(p.H, p.G, K, p.kh);
+
+  const T* cg = at<T>(p.c, p.cs, blk.bi, blk.g);
+  const T* bg = at<T>(p.b, p.bs, blk.bi, blk.g);
+  // neighbouring lanes take neighbouring rows, so the transposed stores hit distinct banks
+  for (int i = tid; i < L * N / VT; i += NT) {
+    const int l = i % L, n = (i / L) * VT, s = blk.s0 + l;
+    float cv[VT] = {}, bv[VT] = {};
+    if (s < p.S) load16(cg + s * p.cs[1] + n, cv), load16(bg + s * p.bs[1] + n, bv);
+#pragma unroll
+    for (int k = 0; k < VT; ++k) Ct[(n + k) * LT + l] = cv[k], Bt[(n + k) * LT + l] = bv[k];
+  }
+  __syncthreads();
+  // R once for the block's tiles, on the tensor cores
+  raw_scores<N, EX>(Ct, Bt, LT, [&](int l, int m, float v0, float v1) {
+    store_pair(R + l * LR + m, v0, v1);
+  });
+
+  // A thread's row m of the chunk.  In the products and for dx, columns c0 ..
+  // c0 + 3 of a tile (HPT heads from kb on, QC columns each; at Q = 8 the two
+  // lanes of a column pair share a head); in the scores, every head of the
+  // tile and rows l = 4 i + lq (lq = lane % 4) of the chunk, so W[l][m] of the
+  // block's heads sums in the thread's own places of Ws and the four lanes
+  // of a row add their shares of dx and T once a tile.
+  using Tl = Tile<L, 16, NT>;
+  static_assert(Tl::CT == 4 && Tl::WC == 4, "lane % 4 is the column group");
+  const Tl t(tid);
+  const int m = t.row(0), c0 = t.col0(), kb = c0 / Q, lq = lane & 3, sm = blk.s0 + m;
+  for (int i = tid; i < L * L; i += NT) Ws[i] = 0.f;
+  for (int tt = 0; tt < p.kh; ++tt) {
+    const int tile = blk.t0 + tt, h0 = blk.head0(tile, K), nh = blk.heads(tile, K);
+    const long long slab = ((static_cast<long long>(blk.bi) * p.H + h0) * p.nc + blk.ch) * N * Q;
+    const long long hstride = static_cast<long long>(p.nc) * N * Q;
+    __syncthreads();  // R is in; the last tile is done with every tile buffer
+    async_packed_state<N, Q, NT>(gs, p.g + slab, hstride, nh, GS);
+    async_packed_state<N, Q, NT>(hs, p.h_in + slab, hstride, nh, GS);
+    narrow_cumsums<K, NW>(p.dt, p.dts, p.a, blk.bi, blk.s0, p.S, h0, nh, cum, dtl, LC);
+    {
+      const T* xg = at<T>(p.x, p.xs, blk.bi, h0);
+      const T* yg = at<T>(p.dy, p.dys, blk.bi, h0);
+      for (int i = tid; i < L * 4; i += NT) {  // row i / 4, columns 4 (i % 4) .. + 3
+        const int l = i >> 2, cx = (i & 3) * 4, s = blk.s0 + l;
+        float xv[4] = {0.f, 0.f, 0.f, 0.f}, yv[4] = {0.f, 0.f, 0.f, 0.f};
+        if (s < p.S) {
+          load_packed4<Q>(xg + s * p.xs[1], p.xs[2], cx, nh, xv);
+          load_packed4<Q>(yg + s * p.dys[1], p.dys[2], cx, nh, yv);
+        }
+        *reinterpret_cast<float4*>(xs + l * XR + cx) = make_float4(xv[0], xv[1], xv[2], xv[3]);
+        *reinterpret_cast<float4*>(ys + l * XR + cx) = make_float4(yv[0], yv[1], yv[2], yv[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    {  // B g (dx's state term, u) and C h_in (dY . C h_in), one product each for
+       // the tile's heads, on the tensor cores: warps 0-3 the first, 4-7 the
+       // second, 16 rows and the tile's 16 columns a warp
+      float* out = warp < 4 ? bgs : chs;
+      warp_block<2, N, EX, false>(warp < 4 ? Bt : Ct, LT, warp < 4 ? gs : hs, GS, 16 * (warp & 3), 0,
+                                  [&](int r, int c, float v0, float v1) { store_pair(out + r * XR + c, v0, v1); });
+    }
+    __syncthreads();
+    float bgv[1][4], chv[1][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bgv[0][j] = bgs[m * XR + c0 + j], chv[0][j] = chs[m * XR + c0 + j];
+    float xm[16], ym[16];  // row m of the tile's x and dY
+#pragma unroll
+    for (int j = 0; j < 16; j += 4) {
+      const float4 xa = *reinterpret_cast<const float4*>(xs + m * XR + j);
+      const float4 ya = *reinterpret_cast<const float4*>(ys + m * XR + j);
+      xm[j] = xa.x, xm[j + 1] = xa.y, xm[j + 2] = xa.z, xm[j + 3] = xa.w;
+      ym[j] = ya.x, ym[j + 1] = ya.y, ym[j + 2] = ya.z, ym[j + 3] = ya.w;
+    }
+    float x4[4], y4[4];  // row m's x and dY in this lane's columns
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x4[j] = xs[m * XR + c0 + j], y4[j] = ys[m * XR + c0 + j];
+    float eend[HPT], uu[HPT], yo[HPT];
+#pragma unroll
+    for (int hh = 0; hh < HPT; ++hh) {  // the heads of this lane's 4 columns
+      const int k = kb + hh;
+      const float cmk = cum[k * LC + m];
+      eend[hh] = expf(cum[k * LC + L - 1] - cmk);
+      float su = 0.f, sy = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < QC; ++jj) {
+        const int j = hh * QC + jj;
+        su = fmaf(x4[j], bgv[0][j], su);
+        sy = fmaf(y4[j], chv[0][j], sy);
+      }
+      if constexpr (Q == 8) su += __shfl_xor_sync(FULL, su, 1), sy += __shfl_xor_sync(FULL, sy, 1);
+      uu[hh] = su * eend[hh] * dtl[k * LC + m];
+      yo[hh] = sy * expf(cmk);
+    }
+
+    // the scores, per head at width Q: pair (l, m), l >= m, gives M^T dY
+    // into dx, T's column sum and W; pair (m, l), l <= m, T's row sum; each
+    // one exp of a non-positive difference, by the SFU's ex2 (__expf: a few
+    // ulp more error than expf on values that only feed sums held at 1e-4,
+    // for a quarter of the loop's instructions)
+    float cm[K], dtm[K], colT[K], rowT[K], dxp[16];
+#pragma unroll
+    for (int k = 0; k < K; ++k) cm[k] = cum[k * LC + m], dtm[k] = dtl[k * LC + m], colT[k] = rowT[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dxp[j] = 0.f;
+#pragma unroll 2
+    for (int i = 0; i < L / 4; ++i) {
+      const int l = 4 * i + lq;
+      if (l >= m) {
+        const float r = R[l * LR + m];
+        float yl[16];
+#pragma unroll
+        for (int j = 0; j < 16; j += 4) {
+          const float4 ya = *reinterpret_cast<const float4*>(ys + l * XR + j);
+          yl[j] = ya.x, yl[j + 1] = ya.y, yl[j + 2] = ya.z, yl[j + 3] = ya.w;
+        }
+        float w = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float e = __expf(cum[k * LC + l] - cm[k]);
+          float qc = 0.f;  // dY_l . x_m
+#pragma unroll
+          for (int q = 0; q < Q; ++q) qc = fmaf(yl[k * Q + q], xm[k * Q + q], qc);
+          const float mm = r * e, wc = e * dtm[k] * qc;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) dxp[k * Q + q] = fmaf(mm, yl[k * Q + q], dxp[k * Q + q]);
+          colT[k] = fmaf(r, wc, colT[k]);
+          w += wc;
+        }
+        Ws[l * L + m] += w;
+      }
+      if (l <= m) {
+        const float r = R[m * LR + l];
+        float xl[16];
+#pragma unroll
+        for (int j = 0; j < 16; j += 4) {
+          const float4 xa = *reinterpret_cast<const float4*>(xs + l * XR + j);
+          xl[j] = xa.x, xl[j + 1] = xa.y, xl[j + 2] = xa.z, xl[j + 3] = xa.w;
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float cl = cum[k * LC + l];
+          float qr = 0.f;  // dY_m . x_l
+#pragma unroll
+          for (int q = 0; q < Q; ++q) qr = fmaf(ym[k * Q + q], xl[k * Q + q], qr);
+          rowT[k] = fmaf(r, __expf(cm[k] - cl) * dtl[k * LC + l] * qr, rowT[k]);
+        }
+      }
+    }
+    // the four lanes of row m add their shares, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      dxp[j] += __shfl_xor_sync(FULL, dxp[j], 1);
+      dxp[j] += __shfl_xor_sync(FULL, dxp[j], 2);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      colT[k] += __shfl_xor_sync(FULL, colT[k], 1);
+      colT[k] += __shfl_xor_sync(FULL, colT[k], 2);
+      rowT[k] += __shfl_xor_sync(FULL, rowT[k], 1);
+      rowT[k] += __shfl_xor_sync(FULL, rowT[k], 2);
+      if (k * Q / 4 == lq) dcs[k * LC + m] = rowT[k] - colT[k];  // the head's first lane
+    }
+
+    {  // dx out for this lane's columns; x . dx / dt and the rest of dcum per head
+      float dxm[4], out[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dxm[j] = 0.f;
+#pragma unroll
+        for (int g4 = 0; g4 < 4; ++g4)
+          if (g4 == lq) dxm[j] = dxp[4 * g4 + j];
+      }
+#pragma unroll
+      for (int hh = 0; hh < HPT; ++hh) {
+        const int k = kb + hh;
+        const float dtk = dtl[k * LC + m];
+        float sx = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < QC; ++jj) {
+          const int j = hh * QC + jj;
+          const float dxj = fmaf(eend[hh], bgv[0][j], dxm[j]);
+          sx = fmaf(x4[j], dxj, sx);
+          out[j] = dtk * dxj;
+        }
+        if constexpr (Q == 8) sx += __shfl_xor_sync(FULL, sx, 1);
+        if (Q < 8 || (lane & 1) == 0) {  // the head's first lane
+          dcs[k * LC + m] += yo[hh] - uu[hh];
+          xdx[k * LC + m] = sx;
+          us[k * LC + m] = uu[hh];
+        }
+      }
+      if (sm < p.S)
+        store_packed4<Q>(static_cast<T*>(p.dx) + (blk.row(sm, p.S) * p.H + h0) * Q, Q, c0, nh, out);
+    }
+    __syncthreads();
+
+    // per head, a warp: the state's terms on the chunk's last row, rc = the
+    // reverse cumsum of dcum, ddt and da's share
+    for (int k = warp; k < nh; k += NW) {
+      const int h = h0 + k, l0 = 2 * lane;
+      float gh = 0.f;  // <g, h_in>
+      for (int i = lane; i < N * Q; i += 32) {
+        const int off = (i / Q) * GS + k * Q + i % Q;
+        gh = fmaf(gs[off], hs[off], gh);
+      }
+      float su = us[k * LC + l0] + us[k * LC + l0 + 1];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) {
+        gh += __shfl_xor_sync(FULL, gh, off);
+        su += __shfl_xor_sync(FULL, su, off);
+      }
+      const float d0 = dcs[k * LC + l0];
+      const float d1 = dcs[k * LC + l0 + 1] + (lane == 31 ? su + expf(cum[k * LC + L - 1]) * gh : 0.f);
+      float inc = d0 + d1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float dn = __shfl_down_sync(FULL, inc, off);
+        if (lane + off < 32) inc += dn;
+      }
+      float excl = __shfl_down_sync(FULL, inc, 1);
+      if (lane == 31) excl = 0.f;
+      const float rc1 = excl + d1, rc0 = rc1 + d0;
+      const float a = p.a[h];
+      const int s = blk.s0 + l0;
+      if (s < p.S) p.ddt[blk.row(s, p.S) * p.H + h] = xdx[k * LC + l0] + a * rc0;
+      if (s + 1 < p.S) p.ddt[blk.row(s + 1, p.S) * p.H + h] = xdx[k * LC + l0 + 1] + a * rc1;
+      float da = dtl[k * LC + l0] * rc0 + dtl[k * LC + l0 + 1] * rc1;
+#pragma unroll
+      for (int off = 16; off; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
+      if (lane == 0) p.da_part[(static_cast<long long>(blk.bi) * p.H + h) * p.nc + blk.ch] = da;
+    }
+  }
+  // the block's W, for ssd_bwd_dbc_narrow
+  __syncthreads();
+  const int tb_n = (blk.hg + K - 1) / K / p.kh;
+  float4* wp = reinterpret_cast<float4*>(
+      p.w_part + (((static_cast<long long>(blk.bi) * p.nc + blk.ch) * p.G + blk.g) * tb_n + blk.tb) * L * L);
+  for (int i = tid; i < L * L / 4; i += NT) wp[i] = reinterpret_cast<const float4*>(Ws)[i];
+}
+
+// 4 at Q < 16: dB and dC of a group per (chunk, batch, group), summed over its heads,
+//   dC = W B + sum_h (dY_h o exp(cum_h)) h_in_h^T,
+//   dB = W^T C + sum_h (x_h dt_h exp(cum_{L-1} - cum_h)) g_h^T,
+// W the group's head-blocks' partials added in order; the per-head terms one
+// product of depth 16 per packed tile.  3xTF32 on the tensor cores (two
+// passes where B or C is bf16, exact in TF32); warp w takes rows 16 (w % 4)
+// and half w / 4 of N.  No head-block partials: no group sum.
+template <int N, int Q>
+struct DbcNarrowSmem {
+  static constexpr int K = Packed<Q>::K, LA = L + 8, NB = N + 8;  // rows padded: no bank conflicts
+  // B and C rows; then W (L x LA), or a tile's (dY e_in)^T, (x dt e_end)^T
+  // (16 x LA each), h_in^T and g^T (16 x NB each) in its place; cum and dt per head
+  static constexpr int TILE = 2 * 16 * LA + 2 * 16 * NB;
+  static constexpr int FLOATS = 2 * L * NB + (TILE > L * LA ? TILE : L * LA) + 2 * K * L;
+  static constexpr int BYTES = FLOATS * static_cast<int>(sizeof(float));
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+template <typename T, int N, int Q>
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_dbc_narrow(const Params p) {
+  using SM = DbcNarrowSmem<N, Q>;
+  constexpr int K = SM::K, LA = SM::LA, NB = SM::NB, NW = NT / 32, VT = 16 / sizeof(T);
+  constexpr int NJ = N / 16;           // n-tiles of a warp's half of N
+  constexpr bool EX = sizeof(T) == 2;  // bf16 B and C: exact in TF32
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);  // L x NB: B
+  float* Cs = Bs + L * NB;                      // L x NB: C
+  float* Ws = Cs + L * NB;                      // L x LA: W[l][m]
+  float* Ay = Ws;                               // 16 x LA: a tile's (dY e_in)^T, [c][l]
+  float* Ax = Ay + 16 * LA;                     // 16 x LA: (x dt e_end)^T, [c][m]
+  float* Gh = Ax + 16 * LA;                     // 16 x NB: h_in^T, [c][n]
+  float* Gg = Gh + 16 * NB;                     // 16 x NB: g^T
+  float* cum = Ws + (SM::TILE > L * LA ? SM::TILE : L * LA);  // K x L
+  float* dtl = cum + K * L;                                   // K x L
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (warp & 3), n0 = (warp >> 2) * (N / 2);
+  const int ch = blockIdx.x, s0 = ch * L, bi = blockIdx.y / p.G, g = blockIdx.y % p.G;
+  const int hg = p.H / p.G, tiles = (hg + K - 1) / K, tb_n = tiles / p.kh;
+  const T* bg = at<T>(p.b, p.bs, bi, g);
+  const T* cg = at<T>(p.c, p.cs, bi, g);
+  for (int i = tid; i < L * N / VT; i += NT) {
+    const int l = i / (N / VT), n = (i % (N / VT)) * VT, s = s0 + l;
+    float bv[VT] = {}, cv[VT] = {};
+    if (s < p.S) load16(bg + s * p.bs[1] + n, bv), load16(cg + s * p.cs[1] + n, cv);
+#pragma unroll
+    for (int k = 0; k < VT; ++k) Bs[l * NB + n + k] = bv[k], Cs[l * NB + n + k] = cv[k];
+  }
+  {  // W of the group: its head-blocks' partials added in order, 4 floats at a time
+    const float4* wp = reinterpret_cast<const float4*>(
+        p.w_part + ((static_cast<long long>(bi) * p.nc + ch) * p.G + g) * tb_n * L * L);
+    for (int i = tid; i < L * L / 4; i += NT) {
+      float4 v = wp[i];
+      for (int b = 1; b < tb_n; ++b) {
+        const float4 u = wp[static_cast<long long>(b) * L * L / 4 + i];
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(Ws + (i / (L / 4)) * LA + (i % (L / 4)) * 4) = v;
+    }
+  }
+  __syncthreads();
+  float db[NJ][4], dc[NJ][4];
+  zero_acc(db);
+  zero_acc(dc);
+  // dB[m][n] = sum_l W[l][m] C[l][n], dC[l][n] = sum_m W[l][m] B[m][n]
+  warp_mma<NJ, false, EX>(
+      db, [&](int hi, int e, int kb) { return Ws[(kb + tq + 4 * e) * LA + r0 + gq + 8 * hi]; },
+      [&](int e, int kb, int j) { return Cs[(kb + tq + 4 * e) * NB + n0 + 8 * j + gq]; }, 0, L);
+  warp_mma<NJ, false, EX>(
+      dc, [&](int hi, int e, int kb) { return Ws[(r0 + gq + 8 * hi) * LA + kb + tq + 4 * e]; },
+      [&](int e, int kb, int j) { return Bs[(kb + tq + 4 * e) * NB + n0 + 8 * j + gq]; }, 0, L);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int h0 = g * hg + tile * K, nh = min(K, hg - tile * K);
+    const long long slab = ((static_cast<long long>(bi) * p.H + h0) * p.nc + ch) * N * Q;
+    const long long hstride = static_cast<long long>(p.nc) * N * Q;
+    __syncthreads();  // the last products are done with W's place, cum and dtl
+    async_packed_state<N, Q, NT, true>(Gh, p.h_in + slab, hstride, nh, NB);
+    async_packed_state<N, Q, NT, true>(Gg, p.g + slab, hstride, nh, NB);
+    narrow_cumsums<K, NW>(p.dt, p.dts, p.a, bi, s0, p.S, h0, nh, cum, dtl, L);
+    __syncthreads();
+    const T* xg = at<T>(p.x, p.xs, bi, h0);
+    const T* yg = at<T>(p.dy, p.dys, bi, h0);
+    for (int i = tid; i < L * 4; i += NT) {  // row i / 4, columns 4 (i % 4) .. + 3
+      const int l = i >> 2, cx = (i & 3) * 4, s = s0 + l;
+      float xv[4] = {0.f, 0.f, 0.f, 0.f}, yv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s < p.S) {
+        load_packed4<Q>(xg + s * p.xs[1], p.xs[2], cx, nh, xv);
+        load_packed4<Q>(yg + s * p.dys[1], p.dys[2], cx, nh, yv);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = cx + j, k = c / Q;
+        const float cl = cum[k * L + l];
+        Ay[c * LA + l] = yv[j] * expf(cl);
+        Ax[c * LA + l] = xv[j] * dtl[k * L + l] * expf(cum[k * L + L - 1] - cl);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    warp_mma<NJ, false, false>(
+        dc, [&](int hi, int e, int kb) { return Ay[(kb + tq + 4 * e) * LA + r0 + gq + 8 * hi]; },
+        [&](int e, int kb, int j) { return Gh[(kb + tq + 4 * e) * NB + n0 + 8 * j + gq]; }, 0, 16);
+    warp_mma<NJ, false, false>(
+        db, [&](int hi, int e, int kb) { return Ax[(kb + tq + 4 * e) * LA + r0 + gq + 8 * hi]; },
+        [&](int e, int kb, int j) { return Gg[(kb + tq + 4 * e) * NB + n0 + 8 * j + gq]; }, 0, 16);
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int s = s0 + r0 + gq + 8 * hi;
+    if (s >= p.S) continue;
+    const long long o = ((static_cast<long long>(bi) * p.S + s) * p.G + g) * N + n0;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      store_pair(static_cast<T*>(p.db) + o + 8 * j + 2 * tq, db[j][2 * hi], db[j][2 * hi + 1]);
+      store_pair(static_cast<T*>(p.dc) + o + 8 * j + 2 * tq, dc[j][2 * hi], dc[j][2 * hi + 1]);
+    }
+  }
+}
+
 // ---- launches --------------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
+template <typename Kernel, typename Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Args& p,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
@@ -873,22 +1232,38 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
   return cudaGetLastError();
 }
 
-// Q: the call's head dim; the tiles take P = tile_p(Q)
-template <typename T, int N, int Q>
+template <typename T, int N, int P>
 cudaError_t run(const Params& p, cudaStream_t stream) {
-  constexpr int P = tile_p(Q);
-  const dim3 blocks(p.nc, p.B * p.H / p.kh);
-  cudaError_t err = launch(ssd_bwd_chunk_grad<T, N, P, Q>, blocks, NT, GradSmem<T, N, P>::BYTES, p,
-                           stream);
-  if (err == cudaSuccess)
-    err = launch(ssd_bwd_state_pass<N, P, Q>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
-                 NT_PASS, 0, p, stream);
-  if (err == cudaSuccess)
-    err = launch(ssd_bwd_dxbc<T, N, P, Q>, blocks, NT, DxbcSmem<T, N, P>::BYTES, p, stream);
-  if (err == cudaSuccess) {
-    const long long sums = static_cast<long long>(p.B) * p.S * p.G * (N / 4);
-    err = launch(ssd_bwd_group_sum<T, N>, dim3(static_cast<unsigned>((sums + NT_SUM - 1) / NT_SUM)),
-                 NT_SUM, 0, p, stream);
+  cudaError_t err;
+  if constexpr (P < 16) {  // packed tiles, kh = tiles per block
+    const int tb_n = (p.H / p.G + Packed<P>::K - 1) / Packed<P>::K / p.kh;
+    const dim3 blocks(p.nc, p.B * p.G * tb_n);
+    const NarrowStateArgs a{p.c, p.dy, p.dt, p.a, p.g, nullptr, p.S, p.H, p.G, p.nc, p.kh,
+                            {p.cs[0], p.cs[1], p.cs[2]}, {p.dys[0], p.dys[1], p.dys[2]},
+                            {p.dts[0], p.dts[1], p.dts[2]}};
+    err = launch(ssd_bwd_chunk_grad_narrow<T, N, P>, blocks, nt_state(N, 16),
+                 NarrowStateSmem<N, P>::BYTES, a, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_bwd_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
+                   NT_PASS, 0, p, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_bwd_dx_narrow<T, N, P>, blocks, NT, DxNarrowSmem<N, P>::BYTES, p, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_bwd_dbc_narrow<T, N, P>, dim3(p.nc, p.B * p.G), NT,
+                   DbcNarrowSmem<N, P>::BYTES, p, stream);
+  } else {
+    const dim3 blocks(p.nc, p.B * p.H / p.kh);
+    err = launch(ssd_bwd_chunk_grad<T, N, P>, blocks, NT, GradSmem<T, N, P>::BYTES, p, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_bwd_state_pass<N, P>, dim3((N * P / 4 + NT_PASS - 1) / NT_PASS, p.B * p.H),
+                   NT_PASS, 0, p, stream);
+    if (err == cudaSuccess)
+      err = launch(ssd_bwd_dxbc<T, N, P>, blocks, NT, DxbcSmem<T, N, P>::BYTES, p, stream);
+    if (err == cudaSuccess) {
+      const long long sums = static_cast<long long>(p.B) * p.S * p.G * (N / 4);
+      err = launch(ssd_bwd_group_sum<T, N>, dim3(static_cast<unsigned>((sums + NT_SUM - 1) / NT_SUM)),
+                   NT_SUM, 0, p, stream);
+    }
   }
   if (err == cudaSuccess) err = launch(ssd_bwd_da, dim3(p.H), 32, 0, p, stream);
   return err;
@@ -922,18 +1297,26 @@ cudaError_t dispatch_n(const Params& p, int P, int N, cudaStream_t stream) {
 
 }  // namespace
 
-// The floats of one call's own scratch: B*H*nc*N*tile_p(P) + 2*B*S*(H/kh)*N
-// + B*H*nc, kh = heads_per_block(H/G, B*H*nc).  0 for sizes the entry refuses.
+// The floats of one call's own scratch: per (batch, head) and chunk an (N, P)
+// state gradient and a share of da, B*H*nc*(N*P + 1), and dB and dC of each
+// head-block (kh = heads_per_block(H/G, B*H*nc)), 2*B*S*(H/kh)*N; at P < 16
+// W over each head-block's heads instead (the group's tiles of K = 16 / P
+// heads, kt = tiles_per_block(tiles, B*G*tiles*nc) of them a block),
+// B*nc*G*(tiles/kt)*L*L.  0 for sizes the entry refuses.
 extern "C" long long ssd_scan_bwd_scratch_floats(int B, int S, int H, int G, int P, int N) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return 0;
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 || N <= 0) return 0;
   const long long nc = (S + L - 1) / L;
+  const long long states = B * H * nc * (static_cast<long long>(N) * P + 1);
+  if (P < 16) {
+    const int tiles = (H / G + 16 / P - 1) / (16 / P);
+    return states + B * nc * G * (tiles / tiles_per_block(tiles, B * G * tiles * nc)) * L * L;
+  }
   const int kh = heads_per_block(H / G, B * H * nc);
-  return B * H * nc * (static_cast<long long>(N) * tile_p(P) + 1) +
-         2LL * B * S * (H / kh) * N;
+  return states + 2LL * B * S * (H / kh) * N;
 }
 
 // ptrs[14]: x, dt, a, b, c, dy, dstate (0: zero), the forward's scratch (the
-// states entering each chunk, B*H*nc*N*tile_p(P) floats, then each chunk's decay,
+// states entering each chunk, B*H*nc*N*P floats, then each chunk's decay,
 // B*H*nc), this call's scratch (work_floats floats, at least
 // ssd_scan_bwd_scratch_floats), dx, ddt, da, db, dc.  x (B,S,H,P), dt
 // (B,S,H) f32, a (H,) f32, b/c (B,S,G,N), dy (B,S,H,P) read through
@@ -950,16 +1333,21 @@ extern "C" int ssd_scan_bwd(const long long* ptrs, const long long* strides,
       work_floats < ssd_scan_bwd_scratch_floats(B, S, H, G, P, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + L - 1) / L;
-  const int kh = heads_per_block(H / G, static_cast<long long>(B) * H * nc);
-  const long long states = static_cast<long long>(B) * H * nc * N * tile_p(P);
-  const long long per_block = static_cast<long long>(B) * S * (H / kh) * N;
+  const bool narrow = P < 16;
+  const int tiles = narrow ? (H / G + 16 / P - 1) / (16 / P) : 0;
+  const int kh = narrow ? tiles_per_block(tiles, static_cast<long long>(B) * G * tiles * nc)
+                        : heads_per_block(H / G, static_cast<long long>(B) * H * nc);
+  const long long states = static_cast<long long>(B) * H * nc * N * P;
+  const long long per_block = narrow ? 0 : static_cast<long long>(B) * S * (H / kh) * N;
+  const long long w_floats = narrow ? static_cast<long long>(B) * nc * G * (tiles / kh) * L * L : 0;
   const auto ptr = [&](int i) { return reinterpret_cast<void*>(ptrs[i]); };
   float* fwd = static_cast<float*>(ptr(7));
   float* bwd = static_cast<float*>(ptr(8));
+  float* parts = bwd + states;  // dB and dC per head-block, or W per head-block
   Params p{ptr(0), static_cast<const float*>(ptr(1)), static_cast<const float*>(ptr(2)), ptr(3),
            ptr(4), ptr(5), static_cast<const float*>(ptr(6)), fwd, fwd + states, bwd,
-           bwd + states, bwd + states + per_block, bwd + states + 2 * per_block, ptr(9),
-           static_cast<float*>(ptr(10)), static_cast<float*>(ptr(11)), ptr(12), ptr(13),
+           parts, parts + per_block, parts + 2 * per_block, parts + 2 * per_block + w_floats,
+           ptr(9), static_cast<float*>(ptr(10)), static_cast<float*>(ptr(11)), ptr(12), ptr(13),
            B, S, H, G, nc, kh, {}, {}, {}, {}, {}};
   for (int i = 0; i < 3; ++i) {
     p.xs[i] = strides[i];

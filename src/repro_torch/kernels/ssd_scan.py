@@ -16,15 +16,21 @@ SSD decomposition in three launches on PyTorch's current stream:
    batch*head), y from the chunk's scores and its entering state (bf16 on
    the tensor cores).
 
+At head dims below 16 the first and last are ``ssd_scan_chunk_state_narrow``
+and ``ssd_scan_output_narrow``, per (chunk, batch, tiles of a group).
+
 The kernels read the model layout directly: x (B, S, H, P), dt (B, S, H),
 b/c (B, S, G, N), head ``h`` reading group ``h // (H/G)`` through strides,
 and write the final state directly as (B, H, P, N).  Their chunk length (64)
 is their own choice; any S, the ragged last chunk masked.  Rows of x, b and c
 are read 16 bytes at a time, so a view whose rows are not 16-byte aligned is
 copied first.  Head dims below 16 (``DIMS``: 1, 2, 4 and 8, what a head_dim
-split over a mesh axis leaves a rank) run on the tiles of 16 columns
-(``tile_p``), x read an element at a time and zeros past its columns; y,
-the final state and dx keep the call's own head dim.
+split over a mesh axis leaves a rank) pack a group's heads side by side into
+tiles of 16 columns (``heads_per_tile``), several tiles of a group a block
+(``tiles_per_block``); x and dy are read 16 bytes at a time where a packed
+row lies whole and aligned, else an element at a time, so a column slice is
+never copied.  The scratch holds each head's chunk states at its own head
+dim, (N, P) a chunk, for every P.
 
 ``ssd_scan`` takes the kernels for a CUDA tensor and its plain version
 (``ssd_scan_plain``, built on ``ref.ssd_ref``) for a CPU tensor; any other
@@ -34,12 +40,13 @@ one per call, whatever the three launches inside it.
 Gradients.  When grad mode is on and an input requires grad, a CUDA call
 goes through ``SSDScanFn``: its forward launches the same kernels and keeps
 their scratch (the state entering each chunk, and each chunk's decay), and
-its backward is ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``, five launches
-on the tensor cores: each chunk's share of the state gradient, the chain over
-chunks in reverse, dx/ddt/da and dB/dC per chunk with ``heads_per_block``
-heads of a group a block, then the group sum of the head-blocks' dB/dC and
-da over the chunks, deterministic throughout; ``ssd_scan_bwd.launches``
-counts calls).
+its backward is ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``, five launches:
+each chunk's share of the state gradient, the chain over chunks in reverse,
+dx/ddt/da per chunk with ``heads_per_block`` heads of a group a block (below
+head dim 16 ``tiles_per_block`` packed tiles) and dB/dC (from head dim 16 on
+per head-block, then their group sum; below it per group, from the score
+gradients summed over its heads), and da over the chunks, deterministic
+throughout; ``ssd_scan_bwd.launches`` counts calls).
 Otherwise (serving, ``inference_mode``) the call launches the forward alone,
 as lean as before.  A CPU call differentiates through the plain version,
 which is also the card's reference for the gradient.
@@ -58,7 +65,7 @@ head) 4 S N P (the chunk states and C h_in) and 2 P L S (the masked
 scores times x, chunks of L = 64), per (batch, group) 2 N L S (the scores
 C B^T, shared by the group's heads), and twice that backward.  Neither the
 score tiles the kernels skip above the diagonal nor the tiles of 16
-columns they run a head dim below 16 on are counted.  ``chip_smoke.py``'s
+columns a head dim below 16 is packed into are counted.  ``chip_smoke.py``'s
 bounds take the sequential recurrence's work, 4 S N P forward and 8 S N P
 backward, the least any form of the scan does.
 """
@@ -107,38 +114,64 @@ def _bwd_scratch_entry():
     return fn
 
 
-def tile_p(p: int) -> int:
-    """The columns of the kernels' tiles for head dim ``p``: head dims below
-    16 run on tiles of 16 (``tile_p`` in ``csrc/ssd_scan.cuh``)."""
-    return max(p, 16)
+def heads_per_tile(p: int) -> int:
+    """Heads of one group side by side in a tile of 16 columns at head dim
+    ``p`` below 16 (``Packed`` in ``csrc/ssd_scan.cuh``); 1 from 16 on, where
+    a head fills its own tiles."""
+    return 16 // p if p < 16 else 1
 
 
 def scratch_floats(bsz: int, s: int, h: int, p: int, n: int) -> int:
-    """f32 scratch of one call: each chunk's (N, tile_p(P)) state and its
-    decay, per (batch, head)."""
-    return bsz * h * -(-s // CHUNK) * (n * tile_p(p) + 1)
+    """f32 scratch of one call: each chunk's (N, P) state and its decay, per
+    (batch, head)."""
+    return bsz * h * -(-s // CHUNK) * (n * p + 1)
 
 
 def heads_per_block(heads_per_group: int, chunk_heads: int) -> int:
     """Heads of one group that a block of the per-chunk kernels walks, forward
-    and backward: the most, up to 8, that leave at least 512 blocks of
-    ``chunk_heads`` = B*H*nc.  A copy of ``heads_per_block`` in
-    ``csrc/ssd_scan.cuh``, whose backward entry refuses a scratch shorter
-    than its own count (``_bwd_scratch_entry``)."""
+    and backward, at head dims from 16 on: the most, up to 8, that leave at
+    least 512 blocks of ``chunk_heads`` = B*H*nc.  A copy of
+    ``heads_per_block`` in ``csrc/ssd_scan.cuh``, whose backward entry
+    refuses a scratch shorter than its own count (``_bwd_scratch_entry``)."""
     for kh in (8, 6, 4, 3, 2):
         if heads_per_group % kh == 0 and chunk_heads // kh >= 512:
             return kh
     return 1
 
 
+def tiles_per_block(tiles_per_group: int, chunk_tiles: int) -> int:
+    """Packed tiles of one group that a block walks at head dims below 16:
+    the most that divide the group's tiles and leave at least 256 blocks of
+    ``chunk_tiles`` = B*G*tiles*nc, so C B^T is formed once per (chunk,
+    batch, group) where the card stays full.  A copy of ``tiles_per_block``
+    in ``csrc/ssd_scan.cuh``."""
+    for kt in range(tiles_per_group, 1, -1):
+        if tiles_per_group % kt == 0 and chunk_tiles // kt >= 256:
+            return kt
+    return 1
+
+
+def narrow_blocks(bsz: int, s: int, h: int, g: int, p: int) -> tuple[int, int, int]:
+    """At head dim ``p`` below 16: (heads a tile, tiles of a group, tiles a
+    block), the layout of the forward's and backward's per-chunk blocks."""
+    k = heads_per_tile(p)
+    tiles = -(-(h // g) // k)
+    return k, tiles, tiles_per_block(tiles, bsz * g * tiles * -(-s // CHUNK))
+
+
 def bwd_scratch_floats(bsz: int, s: int, h: int, g: int, p: int, n: int) -> int:
-    """f32 scratch of one backward call: per (batch, head) and chunk an (N,
-    tile_p(P)) state gradient and a share of da, and dB and dC of each
+    """f32 scratch of one backward call: per (batch, head) and chunk an (N, P)
+    state gradient and a share of da; from head dim 16 on dB and dC of each
     head-block (the ``heads_per_block`` heads of a group that one block
-    sums)."""
+    sums), below it the (L, L) sum W of each head-block's score gradients
+    (``narrow_blocks``), per (batch, chunk, group)."""
     nc = -(-s // CHUNK)
+    states = bsz * h * nc * (n * p + 1)
+    if p < 16:
+        _, tiles, kt = narrow_blocks(bsz, s, h, g, p)
+        return states + bsz * nc * g * (tiles // kt) * CHUNK * CHUNK
     blocks = h // heads_per_block(h // g, bsz * h * nc)
-    return bsz * h * nc * (n * tile_p(p) + 1) + 2 * bsz * s * blocks * n
+    return states + 2 * bsz * s * blocks * n
 
 
 def _aligned(t) -> bool:
@@ -320,7 +353,7 @@ def ssd_scan_bwd(x, dt, a, b, c, scratch, dy, dstate=None):
 def _launch_bwd(x, dt, a, b, c, scratch, dy, dstate):
     """One backward call on checked CUDA tensors, dstate possibly None: the
     CUDA implementation of ``repro_torch::ssd_bwd``."""
-    narrow = x.shape[-1] < 16  # x and dy read an element at a time
+    narrow = x.shape[-1] < 16  # x and dy: an element at a time where a packed row is not aligned
     x, dy = (_rows_ready(t, narrow) for t in (x, dy))
     b, c = _rows_ready(b), _rows_ready(c)
     dstate = None if dstate is None else dstate.contiguous()

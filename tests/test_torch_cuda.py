@@ -319,6 +319,52 @@ def test_ssd_narrow_head_dims_read_column_slices(dev, dtype, cols):
         _close_grad(gv, wv, dtype)
 
 
+def _ssd_narrow_twice(args, dy, dstate):
+    """Forward and backward of the kernels on the same inputs, twice."""
+    runs = []
+    for _ in range(2):
+        y, hl, scratch = ss._launch(*args)
+        runs.append((y, hl, *ss.ssd_scan_bwd(*args, scratch, dy, dstate)))
+    return runs
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_narrow_packed_tiles(dev, dtype, p, g):
+    """Head dims below 16 pack 16 / P heads of a group into one tile: a
+    group's heads that 16 / P does not divide (6, or 3 at P = 8) leave a
+    ragged last tile; ragged S, N = 16.  y, the final state and every
+    gradient against the plain version, and two calls bit for bit."""
+    hg = 3 if p == 8 else 6
+    args, _, dy, dstate = _ssd_bwd_case(dev, 2, 200, hg * g, g, p, 16, dtype, "model")
+    assert ss.narrow_blocks(2, 200, hg * g, g, p)[1] * ss.heads_per_tile(p) > hg
+    first, second = _ssd_narrow_twice(args, dy, dstate)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    ye, he = ss.ssd_scan_plain(*args)
+    _close_rel(first[0], ye, TOL[dtype])
+    _close_rel(first[1], he, TOL[torch.float32])
+    for gv, wv in zip(first[2:], _ssd_bwd_reference(args, dy, dstate)):
+        _close_grad(gv, wv, dtype)
+
+
+@pytest.mark.parametrize("p", [4, 8])
+def test_ssd_narrow_blocks_of_several_tiles(dev, p):
+    """Enough chunks for blocks of several tiles (``tiles_per_block``: 2 of
+    6 heads at P = 4, the second ragged; 3 at P = 8): the raw scores once for
+    them, W summed over their heads; against the plain version."""
+    args, _, dy, dstate = _ssd_bwd_case(dev, 2, 8190, 6, 1, p, 16, torch.float32, "model")
+    _, tiles, kt = ss.narrow_blocks(2, 8190, 6, 1, p)
+    assert kt == tiles > 1
+    y, hl, scratch = ss._launch(*args)
+    ye, he = ss.ssd_scan_plain(*args)
+    _close_rel(y, ye, TOL[torch.float32])
+    _close_rel(hl, he, TOL[torch.float32])
+    got = ss.ssd_scan_bwd(*args, scratch, dy, dstate)
+    for gv, wv in zip(got, _ssd_bwd_reference(args, dy, dstate)):
+        _close_grad(gv, wv, torch.float32)
+
+
 def test_ssd_kernel_rejects_unsupported_sizes(dev):
     x, dt, a, bb, cc = _ssd_inputs(dev, 1, 16, 2, 1, 8, 8, torch.float32, "model")
     with pytest.raises(ValueError, match="head_dim"):
@@ -724,10 +770,14 @@ def test_ssd_backward_matches_plain(dev, b, s, h, g, p, n, ranges, dtype):
 
 
 @pytest.mark.parametrize("b,s,h,g,p,n", SSD_SHAPES + [(4, 4096, 24, 1, 64, 128),
-                                                      (2, 1000, 8, 2, 64, 16)])
+                                                      (2, 1000, 8, 2, 64, 16)] + [
+    # head dims below 16: H/G of 6, 24 and 128, ragged S
+    (4, 4096, 24, 1, p, 128) for p in (1, 2, 4, 8)] + [
+    (2, 1000, 24, 1, 4, 128), (8, 8190, 6, 1, 4, 128), (1, 4097, 6, 1, 4, 128),
+    (2, 300, 12, 2, 1, 16), (2, 1000, 128, 1, 4, 128), (2, 3000, 256, 2, 8, 16)])
 def test_ssd_backward_scratch_size_is_the_kernels(dev, b, s, h, g, p, n):
-    """The wrapper's scratch size (its copy of heads_per_block) is the C
-    library's own."""
+    """The wrapper's scratch size (its copies of heads_per_block, and below
+    head dim 16 of the packed tiles' layout) is the C library's own."""
     assert ss.bwd_scratch_floats(b, s, h, g, p, n) == ss._bwd_scratch_entry()(b, s, h, g, p, n)
 
 

@@ -65,7 +65,12 @@ from repro_torch.parallel import spawn
 ROOT = Path(__file__).resolve().parents[1]
 AXES = ("data", "model")
 STEPS = 2
-TIMEOUT = 150  # seconds, per spawned call: each runs in well under 60 s alone
+# seconds a spawned call may take per case it runs: gemma3's first case, whose
+# call runs all four of its cases, took 27.3 s in a run of this file alone and
+# 88.7 s in a full run beside five other xdist workers, their ranks and XLA's
+# threads on 8 cores, and one deadline of 150 s for the four cases failed it
+# in another full run
+TIMEOUT = 150
 SHARDED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "gemma3-1b", "granite-moe-3b-a800m"]
 PORT_TOL = dict(rtol=1e-4, atol=1e-6)
 OPT = dict(lr=1e-3, warmup_steps=0, eps=1e-2)
@@ -203,7 +208,7 @@ def _sharded(arch, kw, shape, cases, group_size=None):
     if key not in _RUNS:
         batches = _batches(reduced(ARCHS[arch], **kw).vocab_size)
         _RUNS[key] = spawn.run(_sharded_rank, math.prod(shape), arch, kw, shape, list(cases),
-                               batches, group_size, timeout=TIMEOUT)
+                               batches, group_size, timeout=TIMEOUT * len(cases))
     return _RUNS[key]
 
 

@@ -191,14 +191,20 @@ def test_bwd_scratch_holds_state_gradients_and_each_heads_db_dc():
 
 
 def test_bwd_scratch_of_narrow_head_dims_takes_the_tiles_width():
-    """Head dims below 16 run on the kernels' tiles of 16 columns: the state
-    scratch is (N, 16) a chunk, whatever the call's P."""
+    """Head dims below 16 pack 16 / P heads into a tile of 16 columns, and
+    the state scratch keeps each head's own P columns: (N, P) a chunk, P / 16
+    of a tile's width, in the forward's scratch and the backward's state
+    gradients; the backward's own part beside them is W per head-block."""
+    b, s, h, g, n = 4, 4096, 24, 1, 128
+    nc = s // ss.CHUNK
     for p in (1, 2, 4, 8):
-        assert ss.tile_p(p) == 16
-        assert ss.scratch_floats(4, 4096, 24, p, 128) == ss.scratch_floats(4, 4096, 24, 16, 128)
-        assert ss.bwd_scratch_floats(4, 4096, 24, 1, p, 128) == \
-            ss.bwd_scratch_floats(4, 4096, 24, 1, 16, 128)
-    assert ss.tile_p(64) == 64 and ss.DIMS[:4] == (1, 2, 4, 8)
+        assert ss.heads_per_tile(p) * p == 16
+        assert ss.scratch_floats(b, s, h, p, n) * 16 == \
+            ss.scratch_floats(b, s, h, 16, n) * p + b * h * nc * (16 - p)
+        _, tiles, kt = ss.narrow_blocks(b, s, h, g, p)
+        assert ss.bwd_scratch_floats(b, s, h, g, p, n) == \
+            ss.scratch_floats(b, s, h, p, n) + b * nc * g * (tiles // kt) * ss.CHUNK ** 2
+    assert ss.heads_per_tile(64) == 1 and ss.DIMS[:4] == (1, 2, 4, 8)
 
 
 def _column_slices(p, width=16):
