@@ -1,0 +1,8 @@
+"""Device ms a batch launched inside the MoE layers (``models/moe.py``
+``moe_apply``: routing, dispatch, the experts), prefill's and decode's."""
+RANGES = {"bench::moe": "repro_torch.models.moe:moe_apply"}
+
+
+def read(ctx, view):
+    s = view.layer_s("bench::moe")
+    return 1e3 * s / view.steps if s else None
