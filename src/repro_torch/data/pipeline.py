@@ -8,6 +8,10 @@ Production shape: each host materializes only its shard of the global batch
 (``host_slice``), the stream is reproducible from (seed, step) — so a
 restarted/elastically-rescaled job resumes mid-epoch with zero drift — and a
 background thread keeps a bounded prefetch queue ahead of the train loop.
+A batch the source fails to make is handed to the loop as its exception,
+raised where the loop takes that batch.  The tracer (``runtime/tracing.py``)
+sees the feed as ``data.make`` spans on its thread and the loop's wait as
+``data.wait`` spans, each with the batch's ``step``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from repro_torch.configs.base import ArchSpec
+from repro_torch.runtime import tracing
 
 
 @dataclass(frozen=True)
@@ -66,6 +71,13 @@ class SyntheticLM:
         return out
 
 
+class _Failed:
+    """What the feed hands the loop in place of a batch it failed to make."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 class Prefetcher:
     """Bounded background prefetch: keeps `depth` batches ready."""
 
@@ -73,25 +85,40 @@ class Prefetcher:
         self.source = source
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
-        self._step = start_step
+        self._step = self._next = start_step
+        self._failed: _Failed | None = None
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
     def _run(self):
         step = self._step
         while not self._stop.is_set():
-            batch = self.source.batch_at(step)
+            try:
+                with tracing.span("data.make", step=step):
+                    item = (step, self.source.batch_at(step))
+            except Exception as e:  # raised again in the loop's thread
+                item = _Failed(e)
             while not self._stop.is_set():
                 try:
-                    self.q.put((step, batch), timeout=0.1)
+                    self.q.put(item, timeout=0.1)
                     break
                 except queue.Full:
                     continue
+            if isinstance(item, _Failed):
+                return
             step += 1
 
     def __iter__(self) -> Iterator[tuple[int, dict[str, np.ndarray]]]:
         while True:
-            yield self.q.get()
+            if self._failed is None:
+                with tracing.span("data.wait", step=self._next):
+                    item = self.q.get()
+                if isinstance(item, _Failed):
+                    self._failed = item
+            if self._failed is not None:
+                raise self._failed.error
+            self._next += 1
+            yield item
 
     def close(self):
         self._stop.set()

@@ -29,6 +29,10 @@ at that step and the restart resumes from the latest checkpoint.
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --reduced --mesh 2x2 --device cpu
+
+``--trace-out PATH`` turns the program's tracer on (``runtime/tracing.py``:
+the train step's, the feed's and the MoE's spans and counters) and writes
+them to PATH as Chrome trace JSON when the run ends (rank 0's).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.configs import ARCHS, get_arch, reduced
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.parallel.sharding import plan_for_mesh
+from repro_torch.runtime import tracing
 from repro_torch.runtime.fault import Heartbeat, StragglerMonitor, run_with_restarts
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import (RunConfig, init_train_state, make_train_step,
@@ -130,6 +135,8 @@ def train_loop(args, spec, fail_at: int | None = None) -> int:
         prefetch.close()
     if ckpt:
         ckpt.save(state, final, block=True)
+    if args.trace_out and rank0:
+        tracing.export_chrome(args.trace_out)
     if losses and rank0:
         print(f"[train] done at step {final}; loss {losses[0]:.4f} -> {losses[-1]:.4f}",
               flush=True)
@@ -161,11 +168,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--straggler-sigma", type=float, default=3.0)
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure at this step (fault drill under run_with_restarts)")
+    ap.add_argument("--trace-out", default="",
+                    help="trace the run and write its spans and counters here (Chrome JSON)")
     return ap
 
 
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
+    if args.trace_out:
+        tracing.enable()
     spec = get_arch(args.arch)
     if args.reduced:
         spec = reduced(spec)

@@ -19,6 +19,12 @@ Each kept (expert, slot) holds exactly one token, so both compute the same
 function.  Nothing on the way asks the card for a count (no boolean-mask
 indexing), so the host never waits for it.  The expert products are batched
 matmuls, which the JAX package leaves to XLA outside any Pallas kernel.
+
+The program's tracer (``runtime/tracing.py``) sees a layer as the span
+``moe`` around ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine``, and counts ``moe.assignments`` (tokens x k),
+``moe.dropped`` (on the device: the assignments over capacity) and
+``moe.rows`` (the buffer rows the expert products run on this rank).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.models.layers import ParamDef
 from repro_torch.parallel.local_shards import (all_to_all, keep_weight_split, mesh_dims_along,
                                                on_local_shards, replicate, shard_extent, sum_over)
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan
+from repro_torch.runtime import tracing
 
 CAPACITY_FACTOR = 1.25
 GROUP_SIZE = 256
@@ -127,42 +134,50 @@ def _experts(xg, router, w_gate, w_up, w_down, k: int, cap: int, e_start: int = 
     them, and y is this rank's D columns."""
     ng, tg, d = xg.shape
     e, el = router.shape[1], w_gate.shape[0]
-    logits = (xg @ router.to(xg.dtype)).float()
-    if contract is not None:
-        logits = sum_over(logits, contract)
-    top_i, slots, keep, top_w, aux = route(logits, k, cap)
+    with tracing.span("moe.route"):
+        logits = (xg @ router.to(xg.dtype)).float()
+        if contract is not None:
+            logits = sum_over(logits, contract)
+        top_i, slots, keep, top_w, aux = route(logits, k, cap)
 
     # row of each assignment in the (E, G, C) buffer; a dropped one goes to a
     # spare last entry.  src: the token each buffer row holds, ng * tg (a
     # row of zeros) where none does
     n_rows, n_tok = e * ng * cap, ng * tg
-    group_ix = torch.arange(ng, device=xg.device)[:, None, None]
-    row = (top_i * ng + group_ix) * cap + slots                         # (G,T,k)
-    tok = (group_ix * tg + torch.arange(tg, device=xg.device)[None, :, None]).expand_as(row)
-    src = torch.full((n_rows + 1,), n_tok, dtype=torch.int64, device=xg.device)
-    src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1), tok.reshape(-1))
-    rows = F.pad(xg.reshape(n_tok, d), (0, 0, 0, 1))
-    w = (top_w * keep).to(xg.dtype)                                     # dropped: weight 0
-    if el == e or group is not None:
-        xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
-        if group is None:
-            ye = _expert_ffn(xe, w_gate, w_up, w_down, contract).view(n_rows, d)
-        else:  # (n, el, G C, D): chunk r to rank r, which holds experts r el ...
-            n = e // el
-            got = all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
-            out = _expert_ffn(got.transpose(0, 1).reshape(el, n * ng * cap, d), w_gate, w_up,
-                              w_down, contract)
-            ye = all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group).view(n_rows, d)
-        picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1))
-    else:  # this rank's experts only: a zero row for the others' assignments
-        lo, n_mine = e_start * ng * cap, el * ng * cap
-        xe = rows.index_select(0, src[lo:lo + n_mine]).view(el, ng * cap, d)
-        ye = F.pad(_expert_ffn(xe, w_gate, w_up, w_down, contract).view(n_mine, d),
-                   (0, 0, 0, 1))
-        mine = keep & (top_i >= e_start) & (top_i < e_start + el)
-        picked = ye.index_select(0, torch.where(mine, row - lo, n_mine).reshape(-1))
-    picked = picked.view(ng, tg, k, d)
-    return (torch.einsum("gtkd,gtk->gtd", picked, w), *aux["sums"])
+    every, n = el == e or group is not None, e // el
+    with tracing.span("moe.dispatch"):
+        group_ix = torch.arange(ng, device=xg.device)[:, None, None]
+        row = (top_i * ng + group_ix) * cap + slots                     # (G,T,k)
+        tok = (group_ix * tg + torch.arange(tg, device=xg.device)[None, :, None]).expand_as(row)
+        src = torch.full((n_rows + 1,), n_tok, dtype=torch.int64, device=xg.device)
+        src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1), tok.reshape(-1))
+        rows = F.pad(xg.reshape(n_tok, d), (0, 0, 0, 1))
+        if every:
+            xe = rows.index_select(0, src[:n_rows]).view(e, ng * cap, d)
+            if group is not None:  # (n, el, G C, D): chunk r to rank r, holding experts r el ...
+                got = all_to_all(xe.view(n, el, ng * cap, d), group)  # chunk r: rank r's rows
+                xe = got.transpose(0, 1).reshape(el, n * ng * cap, d)
+        else:  # this rank's experts only
+            lo, n_mine = e_start * ng * cap, el * ng * cap
+            xe = rows.index_select(0, src[lo:lo + n_mine]).view(el, ng * cap, d)
+    with tracing.span("moe.experts"):
+        out = _expert_ffn(xe, w_gate, w_up, w_down, contract)
+    with tracing.span("moe.combine"):
+        w = (top_w * keep).to(xg.dtype)                                 # dropped: weight 0
+        if every:
+            ye = out if group is None else \
+                all_to_all(out.view(el, n, ng * cap, d).transpose(0, 1), group)
+            ye = ye.view(n_rows, d)
+            picked = ye.index_select(0, torch.where(keep, row, 0).reshape(-1))
+        else:  # a zero row for the others' assignments
+            ye = F.pad(out.view(n_mine, d), (0, 0, 0, 1))
+            mine = keep & (top_i >= e_start) & (top_i < e_start + el)
+            picked = ye.index_select(0, torch.where(mine, row - lo, n_mine).reshape(-1))
+        y = torch.einsum("gtkd,gtk->gtd", picked.view(ng, tg, k, d), w)
+    tracing.count("moe.assignments", n_tok * k)
+    tracing.count("moe.dropped", aux["sums"][2])
+    tracing.count("moe.rows", xe.shape[0] * xe.shape[1])
+    return (y, *aux["sums"])
 
 
 def _moe_local(x, router, w_gate, w_up, w_down, *, k: int, cap: int, tg: int,
@@ -255,47 +270,50 @@ def moe_apply(p, x, spec: ArchSpec, plan: ShardingPlan = NULL_PLAN):
     columns.  Elsewhere the split is gathered for use.
     The balance sums add up across ranks before the loss is formed.  The
     results do not depend on the split."""
-    b, s, d = x.shape
-    e, k = spec.n_experts, spec.top_k
-    tg = group_size_for(s)
-    cap = expert_capacity(tg, spec)
-    weights = [p[name] for name in ("router", "w_gate", "w_up", "w_down")]
-    fn = functools.partial(_moe_local, k=k, cap=cap, tg=tg)
-    keep, own, follow = (0, 1), {2: (0, 2), 3: (0, 2), 4: (0, 1)}, (None,) + ({},) * 4
-    if isinstance(x, DTensor):
-        mesh, wg = x.device_mesh, weights[1]
-        split = {i: q.dim for i, q in enumerate(getattr(wg, "placements", ()))
-                 if isinstance(q, Shard) and q.dim in (0, 2)}  # mesh dim -> expert or ff
-        over = {dim: mesh_dims_along(x, dim) for dim in keep}
-        n = math.prod(mesh.size(i) for i in over[1])
-        groups = s % n == 0 and (s // n) % tg == 0  # each rank's chunk holds whole groups
-        # ff columns split over a mesh dim that splits the sequence: gathered
-        # for use where that costs less than every rank routing every row
-        cols = [i for i in over[1] if groups and split.get(i) == 2
-                and not keep_weight_split(*_ff_bytes(x, wg, over, i, tg, cap))]
-        if cols:
-            split = {i: dim for i, dim in split.items() if i not in cols}
-            own = {2: (0,), 3: (0,), 4: (0,)}  # the experts' own split stays, their ff columns not
-        # a split of x stays where each rank's chunk holds whole groups and the
-        # mesh dim splits no ff columns (whose partial sums need every row)
-        keep = tuple(dim for dim in keep if all(split.get(i, 0) == 0 for i in over[dim])
-                     and (dim == 0 or groups))
-        rows = {i for dim in keep for i in over[dim]}
-        whole = [i for i in split if i not in rows]
-        ep = [i for i in split if i in rows]
-        fsdp = mesh_dims_along(wg, 1)
-        contract = None
-        if fsdp and keep_weight_split(*_fsdp_bytes(x, weights, rows, fsdp, split, ep, tg, cap)):
-            x = x.redistribute(mesh, tuple(Shard(2) if i in fsdp else q
-                                           for i, q in enumerate(x.placements)))
-            keep = keep + (2,)
-            follow = (None, {2: 0}, {2: 1}, {2: 1}, {2: 2})  # D split as x's is
-            contract, whole = mesh.get_group(fsdp[0]), whole + fsdp
-        fn = functools.partial(
-            fn, e_start=shard_extent(wg, 0)[0] if any(split[i] == 0 for i in whole if i in split)
-            else 0, group=mesh.get_group(ep[0]) if ep else None, contract=contract,
-            first=all(mesh.get_coordinate()[i] == 0 for i in whole))
-    y, *sums = on_local_shards(fn, (x, *weights), keep, follow=follow,
-                               out=(None, {}, {}, {}), own=own)
-    sums = [replicate(t) for t in sums]
-    return y, balance(sums, b * s, e, k)
+    with tracing.span("moe"):
+        b, s, d = x.shape
+        e, k = spec.n_experts, spec.top_k
+        tg = group_size_for(s)
+        cap = expert_capacity(tg, spec)
+        weights = [p[name] for name in ("router", "w_gate", "w_up", "w_down")]
+        fn = functools.partial(_moe_local, k=k, cap=cap, tg=tg)
+        keep, own, follow = (0, 1), {2: (0, 2), 3: (0, 2), 4: (0, 1)}, (None,) + ({},) * 4
+        if isinstance(x, DTensor):
+            mesh, wg = x.device_mesh, weights[1]
+            split = {i: q.dim for i, q in enumerate(getattr(wg, "placements", ()))
+                     if isinstance(q, Shard) and q.dim in (0, 2)}  # mesh dim -> expert or ff
+            over = {dim: mesh_dims_along(x, dim) for dim in keep}
+            n = math.prod(mesh.size(i) for i in over[1])
+            groups = s % n == 0 and (s // n) % tg == 0  # each rank's chunk holds whole groups
+            # ff columns split over a mesh dim that splits the sequence: gathered
+            # for use where that costs less than every rank routing every row
+            cols = [i for i in over[1] if groups and split.get(i) == 2
+                    and not keep_weight_split(*_ff_bytes(x, wg, over, i, tg, cap))]
+            if cols:
+                split = {i: dim for i, dim in split.items() if i not in cols}
+                # the experts' own split stays, their ff columns not
+                own = {2: (0,), 3: (0,), 4: (0,)}
+            # a split of x stays where each rank's chunk holds whole groups and the
+            # mesh dim splits no ff columns (whose partial sums need every row)
+            keep = tuple(dim for dim in keep if all(split.get(i, 0) == 0 for i in over[dim])
+                         and (dim == 0 or groups))
+            rows = {i for dim in keep for i in over[dim]}
+            whole = [i for i in split if i not in rows]
+            ep = [i for i in split if i in rows]
+            fsdp = mesh_dims_along(wg, 1)
+            contract = None
+            if fsdp and keep_weight_split(*_fsdp_bytes(x, weights, rows, fsdp, split, ep, tg, cap)):
+                x = x.redistribute(mesh, tuple(Shard(2) if i in fsdp else q
+                                               for i, q in enumerate(x.placements)))
+                keep = keep + (2,)
+                follow = (None, {2: 0}, {2: 1}, {2: 1}, {2: 2})  # D split as x's is
+                contract, whole = mesh.get_group(fsdp[0]), whole + fsdp
+            fn = functools.partial(
+                fn, e_start=shard_extent(wg, 0)[0]
+                if any(split[i] == 0 for i in whole if i in split) else 0,
+                group=mesh.get_group(ep[0]) if ep else None, contract=contract,
+                first=all(mesh.get_coordinate()[i] == 0 for i in whole))
+        y, *sums = on_local_shards(fn, (x, *weights), keep, follow=follow,
+                                   out=(None, {}, {}, {}), own=own)
+        sums = [replicate(t) for t in sums]
+        return y, balance(sums, b * s, e, k)

@@ -13,9 +13,15 @@ plan's mesh (``sharding.distribute_tree`` by ``M.param_axes``), the caches
 are made on that mesh by ``M.cache_axes``, the prompts are placed by
 ``("batch", None)``, and each step's logits come back whole, so every rank
 samples the same tokens and returns them.  With no plan nothing changes.
+
+Each call is a ``serve.generate`` span of the program's tracer
+(``runtime/tracing.py``) around ``serve.prefill`` and, a decode step each,
+``serve.sample``, ``serve.to_host`` and ``serve.decode_step``; their
+``request`` is the call's number on this engine, ``step`` the decode step's.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 
@@ -28,6 +34,7 @@ from repro_torch.configs.base import ArchSpec
 from repro_torch.models import model as M
 from repro_torch.models.layers import map_with_path
 from repro_torch.parallel.sharding import NULL_PLAN, ShardingPlan, distribute_tree, placements
+from repro_torch.runtime import tracing
 from repro_torch.serve import api
 
 
@@ -69,6 +76,7 @@ class Engine:
         self.dtype = dtype
         self._prefill = api.make_prefill_step(spec, plan, compute_dtype=dtype)
         self._decode = api.make_serve_step(spec, plan, compute_dtype=dtype)
+        self._requests = itertools.count()
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -79,35 +87,45 @@ class Engine:
     def generate(self, prompts: np.ndarray, max_new: int = 32,
                  temperature: float = 0.0, seed: int = 0) -> tuple[np.ndarray, ServeStats]:
         """prompts: (B, S) int32 (same length; pad upstream)."""
+        request = next(self._requests)
+        with tracing.span("serve.generate", request=request):
+            return self._generate(prompts, max_new, temperature, seed, request)
+
+    def _generate(self, prompts, max_new, temperature, seed, request):
         b, s = prompts.shape
         if s + max_new > self.max_len:
             raise ValueError(f"{s} prompt + {max_new} new tokens exceed max_len {self.max_len}")
         stats = ServeStats()
-        caches = M.init_caches(self.spec, b, self.max_len, dtype=self.dtype, device=self.device)
-        tokens = torch.as_tensor(prompts, device=self.device)
-        if self.mesh is not None:
-            caches = distribute_tree(caches, M.cache_axes(self.spec, b, self.max_len), self.plan,
-                                     self.mesh)
-            tokens = distribute_tensor(tokens, self.mesh, placements(
-                self.plan.spec(("batch", None), tuple(tokens.shape)), self.mesh),
-                src_data_rank=None)
+        with tracing.span("serve.prefill", request=request):
+            caches = M.init_caches(self.spec, b, self.max_len, dtype=self.dtype,
+                                   device=self.device)
+            tokens = torch.as_tensor(prompts, device=self.device)
+            if self.mesh is not None:
+                caches = distribute_tree(caches, M.cache_axes(self.spec, b, self.max_len),
+                                         self.plan, self.mesh)
+                tokens = distribute_tensor(tokens, self.mesh, placements(
+                    self.plan.spec(("batch", None), tuple(tokens.shape)), self.mesh),
+                    src_data_rank=None)
 
-        t0 = self._clock()
-        logits, caches = self._prefill(self.params, tokens, caches)
-        stats.prefill_s = self._clock() - t0
+            t0 = self._clock()
+            logits, caches = self._prefill(self.params, tokens, caches)
+            stats.prefill_s = self._clock() - t0
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = np.zeros((b, max_new), np.int32)
         t0 = self._clock()
         for i in range(max_new):
-            logits = _whole(logits)
-            if temperature > 0:
-                probs = torch.softmax(logits.float() / temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
-            else:
-                tok = logits.argmax(dim=-1)
-            out[:, i] = tok.cpu().numpy()
-            logits, caches = self._decode(self.params, caches, tok, s + i)
+            with tracing.span("serve.sample", request=request, step=i):
+                logits = _whole(logits)
+                if temperature > 0:
+                    probs = torch.softmax(logits.float() / temperature, dim=-1)
+                    tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                else:
+                    tok = logits.argmax(dim=-1)
+            with tracing.span("serve.to_host", request=request, step=i):
+                out[:, i] = tok.cpu().numpy()
+            with tracing.span("serve.decode_step", request=request, step=i):
+                logits, caches = self._decode(self.params, caches, tok, s + i)
         stats.decode_s = self._clock() - t0
         stats.tokens_out = b * max_new
         return out, stats

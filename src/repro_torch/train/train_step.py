@@ -10,7 +10,11 @@ cfg, opt_plan)``, ``init_train_state``, ``batch_axes`` and
 A step takes a batch of numpy arrays or tensors (``inputs``, ``labels``),
 moves it to the parameters' device, differentiates the loss with
 ``torch.autograd.grad`` (the parameters are leaves that require grad) and
-updates the state in place (``optimizer.apply_updates``).
+updates the state in place (``optimizer.apply_updates``).  Each call is a
+``train.step`` span of the program's tracer (``runtime/tracing.py``) around
+``train.to_device``, ``train.forward``, ``train.backward`` and
+``train.optimizer``, their ``step`` the call's number since the step
+function was made.
 
 Under a plan (``init_train_state(..., mesh=)`` distributes the state by
 ``train_state_axes``) every parameter and optimizer leaf is a ``DTensor``
@@ -23,6 +27,7 @@ split are reduced there.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,6 +39,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import fake_mode
 from repro_torch.parallel.sharding import (NULL_PLAN, ShardingPlan, distribute_tree, local,
                                            placements, plan_for_mesh)
+from repro_torch.runtime import tracing
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy, cross_entropy
 
@@ -110,18 +116,26 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
     loss_fn = make_loss_fn(spec, plan, cfg)
     axes = opt.leaves(M.param_axes(spec))
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, step: int, mb: int = 0):
         ps = opt.leaves(params)
         for p in ps:
             p.requires_grad_(True)
-        loss, metrics = loss_fn(params, batch)
-        return local(loss.detach()), {k: local(v.detach()) for k, v in metrics.items()}, \
-            grads_laid_out(loss, ps, axes, opt_plan)
+        with tracing.span("train.forward", step=step, microbatch=mb):
+            loss, metrics = loss_fn(params, batch)
+        with tracing.span("train.backward", step=step, microbatch=mb):
+            grads = grads_laid_out(loss, ps, axes, opt_plan)
+        return local(loss.detach()), {k: local(v.detach()) for k, v in metrics.items()}, grads
+
+    calls = itertools.count()
 
     def train_step(state, batch):
+        step = next(calls)
+        with tracing.span("train.step", step=step):
+            return one_step(state, batch, step)
+
+    def one_step(state, batch, step: int):
         params = state["params"]
         some = opt.leaves(params)[0]
-        batch = to_device(batch, some.device)
 
         def placed(b):
             """The batch laid out by its batch axes: a microbatch's slice of a
@@ -134,8 +148,12 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
                 return {k: plan.constrain(t, batch_axes(spec)[k]) for k, t in b.items()}
             return distribute_tree(b, batch_axes(spec), plan, some.device_mesh)
 
+        with tracing.span("train.to_device", step=step):
+            batch = to_device(batch, some.device)
+            if cfg.microbatches <= 1:
+                batch = placed(batch)
         if cfg.microbatches <= 1:
-            loss, metrics, grads = grads_of(params, placed(batch))
+            loss, metrics, grads = grads_of(params, batch, step)
         else:
             k = cfg.microbatches
             bsz = batch["labels"].shape[0]
@@ -144,8 +162,9 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
             mb = bsz // k
             grads, loss = None, 0.0
             for i in range(k):
-                sl = placed({name: a[i * mb:(i + 1) * mb] for name, a in batch.items()})
-                l, _, g = grads_of(params, sl)
+                with tracing.span("train.to_device", step=step, microbatch=i):
+                    sl = placed({name: a[i * mb:(i + 1) * mb] for name, a in batch.items()})
+                l, _, g = grads_of(params, sl, step, i)
                 if grads is None:
                     grads = [x.float() for x in g]  # a fresh f32 sum, or the grads themselves
                 else:
@@ -153,7 +172,8 @@ def make_train_step(spec: ArchSpec, plan: ShardingPlan = NULL_PLAN,
                 loss = loss + l
             torch._foreach_div_([local(x) for x in grads], float(k))
             loss, metrics = loss / k, {}
-        _, om = opt.apply_updates(state, grads, cfg.opt)
+        with tracing.span("train.optimizer", step=step):
+            _, om = opt.apply_updates(state, grads, cfg.opt)
         return state, {"loss": loss, **metrics, **om}
 
     return train_step
